@@ -3,18 +3,28 @@
 
     python3 chip_smoke.py [--profile]
 
-Builds the port's CUDA kernels from ``stark_tpu_torch/csrc``, holds each
-kernel against its plain torch version on the card at the prover's
-shapes (exact equality), proves the two golden vectors byte-identical to
+Builds the port's CUDA kernels from ``stark_tpu_torch/csrc`` (and its
+native host trace from ``stark_tpu_torch/native``), holds each kernel
+against its plain torch version on the card at the prover's shapes
+(exact equality), proves the two golden vectors byte-identical to
 ``tests/vectors/golden_proofs.json``, then proves the Fibonacci-square
-statement at 2^20 rows (blowup 4, 16 queries) twice: the two transcripts
-must agree, the port's host verifier must accept the proof and reject it
-with one byte flipped, and every kernel of the path must have launched.
+statement at 2^20 rows and at 2^24 rows (blowup 4, 16 queries; LDE 2^22
+and 2^26) twice each: the two transcripts must agree, the port's host
+verifier must accept the proof and reject it with one byte flipped, and
+the kernels of each path must have launched (K1 on the 2^20 path; K2
+exactly twice, K3, K4 and K5 on the 2^24 path).
 
-``--profile`` then adds where a warm 2^20 prove spends its time: a
-phase split synced after each phase, five warm walls, and one prove under
-``torch.profiler`` (device busy time, the kernels' shares; the full table
-goes to ``chiprun_out/profile_prove.txt``).
+The ``kernels`` line gives each kernel's time and its plain version's
+(CUDA events, median of 5 after a warm-up) beside its bound: the larger
+of the bytes it must move over 3.35 TB/s and its 32-bit integer
+operations over a derived peak of SMs x 128 (four schedulers, each one
+32-lane instruction a clock) x the maximum SM clock that nvidia-smi
+reports (K5, one serial chain: its latency bound).
+
+``--profile`` then adds where a warm prove spends its time, at 2^20 and
+at 2^24 rows: a phase split synced after each phase, five warm walls,
+and one prove under ``torch.profiler`` (device busy time, the kernels'
+shares; the full tables go to ``chiprun_out/profile_prove_2e*.txt``).
 
 Needs one CUDA device; exits non-zero without one.  Imports nothing of
 JAX.  The last line of standard output is the result object.
@@ -36,11 +46,46 @@ import torch
 P = 3 * 2**30 + 1
 SEED = 20261016
 REPS = 5
-# the slice's shapes: trace INTT 2^20, LDE 2^22 (+ two small NTT sizes);
-# trees over the 2^22-point LDE; the prove at 2^20 rows, blowup 4
+# K1: the 2^20 path's trace INTT and LDE (+ two small sizes); K2: the
+# 2^24 path's trace INTT and LDE and 2^23, plus a reduced row split
+# (n = 2^16, 2^7 rows: several coarse stages at a small size)
 NTT_LOGS = (2, 9, 20, 22)
+K2_LOGS = (23, 24, 26)
+K2_REDUCED = (16, 7)
+# K3/K4: equality over a 2^22-point LDE's tree; times at the 2^24 path's
+# 2^26 leaves and 2^25 nodes (plain versions in 2^22-lane slices: their
+# int64 message schedule of 2^26 lanes would need ~32 GiB)
 TREE_LOG = 22
-PROVE = dict(log2_trace=20, blowup=4, num_queries=16)
+TREE_TIME_LOG = 26
+PROVES = {"2^20": dict(log2_trace=20, blowup=4, num_queries=16),
+          "2^24": dict(log2_trace=24, blowup=4, num_queries=16)}
+PATH = "2^24"  # this slice's path: its launch counts fill the kernels line
+# K2's timed shapes: the 2^24 path's LDE (forward) and trace INTT (inverse)
+K2_INTT_LOG = PROVES[PATH]["log2_trace"]
+K2_LDE_LOG = K2_INTT_LOG + PROVES[PATH]["blowup"].bit_length() - 1
+
+# the bound's rates: HBM3 of the H100 SXM (its datasheet's rate) and a
+# 32-bit integer peak derived as SMs x 128 x max SM clock: each SM's four
+# schedulers issue one 32-lane instruction a clock.  (SMs x 64 INT32 lanes
+# x clock is no least time: K3 and K4 ran at or past it on the card.)
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_SM_CLOCK = 128
+# operation counts (32-bit, with Hopper's 3-input add and logic ops):
+# a Montgomery product 6 (4 multiplies, one 3-input add, one conditional
+# subtract), an add or subtract mod p 2, so a butterfly 10; per element
+# to_mont and the twiddle-table product 6 each, from_mont 4, n^-1 6
+MONT_OPS, ADDSUB_OPS, FROM_MONT_OPS = 6, 2, 4
+# a SHA-256 compression: 64 rounds of 14 (two Sigma of 3 rotates + one
+# xor3, Ch and Maj one logic op each, 4 adds with K+W folded), 48
+# schedule words of 10, 8 final adds; a node's padding block has a
+# constant schedule
+SHA_ROUND_OPS, SHA_SCHED_OPS = 14, 10
+SHA_OPS = 64 * SHA_ROUND_OPS + 48 * SHA_SCHED_OPS + 8
+SHA_PAD_OPS = 64 * SHA_ROUND_OPS + 8
+# K5's latency bound: per round the new e waits on 4 dependent operations
+# (two of Sigma1, the 3-input add of T1, d + T1), at an assumed 4 cycles
+# each (the dependent-issue latency of an integer op on recent NVIDIA SMs)
+CHAIN_DEP_OPS, DEP_CYCLES = 4, 4
 
 
 def log(msg: str) -> None:
@@ -79,24 +124,86 @@ def rand_u32(rs, shape, bound, device) -> torch.Tensor:
     return torch.from_numpy(vals.astype(np.uint32).view(np.int32)).to(device)
 
 
+def rand_u32_dev(gen, shape, bound, device) -> torch.Tensor:
+    """Seeded random words made on the card (the 2^26-lane inputs)."""
+    vals = torch.randint(0, bound, shape, generator=gen, device=device,
+                         dtype=torch.int64)
+    return vals.to(torch.int32)
+
+
+class Card:
+    """The card's rates for the bounds, read in this run."""
+
+    def __init__(self):
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, timeout=60, check=True).stdout.split()[0]
+        self.clock_hz = float(smi) * 1e6
+        self.sms = torch.cuda.get_device_properties(0).multi_processor_count
+        self.int32_ops_per_s = (self.sms * INT32_OPS_PER_SM_CLOCK
+                                * self.clock_hz)
+        log(f"bound rates: {HBM_BYTES_PER_S:.3e} B/s; derived int32 peak "
+            f"{self.int32_ops_per_s:.4e} op/s ({self.sms} SMs x "
+            f"{INT32_OPS_PER_SM_CLOCK} x {self.clock_hz / 1e6:.0f} MHz)")
+
+    def bound(self, nbytes: float, ops: float) -> tuple[float, str]:
+        """(least ms, "bytes" or "operations") for this work."""
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / self.int32_ops_per_s * 1e3
+        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops,
+                                                            "operations")
+
+    def ntt_bound(self, n: int, inverse: bool):
+        """An NTT of n canonical words: n read, n written; n/2 log2(n)
+        butterflies plus the per-element Montgomery products."""
+        log_n = n.bit_length() - 1
+        butterfly = MONT_OPS + 2 * ADDSUB_OPS
+        ops = (butterfly * (n // 2) * log_n
+               + n * (2 * MONT_OPS + FROM_MONT_OPS + MONT_OPS * inverse))
+        return self.bound(8 * n, ops)
+
+    def chain_bound(self, blocks: int) -> tuple[float, str]:
+        """K5's latency bound: `blocks` compressions of 64 dependent
+        rounds, one after another."""
+        cycles = blocks * 64 * CHAIN_DEP_OPS * DEP_CYCLES
+        return cycles / self.clock_hz * 1e3, "operations"
+
+
 class Results:
     """Per-kernel comparison records for the kernels line."""
 
-    def __init__(self):
+    def __init__(self, card: Card):
+        self.card = card
         self.rows: dict[str, dict] = {}
 
-    def check(self, kernel: str, what: str, got, want, ms=None,
-              plain_ms=None) -> None:
+    def add(self, name: str, source: str, replaces: str) -> None:
+        self.rows[name] = {
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": 0, "max_abs_err": 0,
+            "ms": None, "plain_ms": None, "bound_ms": None, "bound_by": None,
+            # no PyTorch call computes an NTT over GF(p) or SHA-256
+            "library_ms": None, "shape": None, "launches_by_prove": {}}
+
+    def check(self, kernel: str, what: str, got, want) -> None:
         err = max_abs_err(got, want)
-        timing = "" if ms is None else f"; kernel {ms:.4f} ms, plain " \
-                                       f"{plain_ms:.4f} ms"
-        log(f"{kernel} {what}: max_abs_err {err} (tolerance 0){timing}")
+        log(f"{kernel} {what}: max_abs_err {err} (tolerance 0)")
         if err != 0:
             raise AssertionError(f"{kernel} {what}: kernel != plain version")
         row = self.rows[kernel]
         row["max_abs_err"] = max(row["max_abs_err"], err)
-        if ms is not None:
-            row["ms"], row["plain_ms"] = ms, plain_ms
+
+    def time(self, kernel: str, shape: str, kernel_fn, plain_fn, bound,
+             row: bool = True) -> None:
+        """Time kernel_fn and plain_fn (same inputs) and log them beside
+        `bound` (ms, by); `row` puts them in the kernels line."""
+        ms, pms = cuda_ms(kernel_fn), cuda_ms(plain_fn)
+        log(f"{kernel} {shape}: kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+            f"bound {bound[0]:.4f} ms ({bound[1]}); kernel / bound "
+            f"{ms / bound[0]:.2f}")
+        if row:
+            self.rows[kernel].update(ms=ms, plain_ms=pms, bound_ms=bound[0],
+                                     bound_by=bound[1], shape=shape)
 
 
 def phase_device() -> str:
@@ -120,45 +227,64 @@ def phase_build() -> None:
         f"({', '.join(os.path.basename(p) for p in paths.values())})")
 
 
-def phase_kernels(res: Results, dev) -> None:
-    """Every kernel against its plain version at the slice's shapes."""
-    from stark_tpu_torch.channel.device_channel import absorb_stream
-    from stark_tpu_torch.config import ProverConfig
-    from stark_tpu_torch.hash.cuda_chain import (FIRST_ROW, sha_chain,
-                                                 sha_chain_plain)
-    from stark_tpu_torch.hash.cuda_sha import sha_leaves, sha_nodes
-    from stark_tpu_torch.hash.sha256 import sha256_pairs, sha256_u64_leaves
-    from stark_tpu_torch.merkle.tree import build_tree, level_offsets
-    from stark_tpu_torch.ntt.cuda_ntt import ntt_plain, ntt_two_step
-    from stark_tpu_torch.stark.prover import query_plan
+def phase_ntt(res: Results, dev) -> None:
+    """K1 and K2 against their plain versions at the paths' shapes."""
+    from stark_tpu_torch.ntt.cuda_ntt import (ntt_plain, ntt_three_step,
+                                              ntt_three_step_plain,
+                                              ntt_two_step)
 
     rs = np.random.RandomState(SEED)
     # K1: trace INTT (2^20), LDE (2^22), and two small sizes
     for log_n in NTT_LOGS:
         x = rand_u32(rs, 1 << log_n, P, dev)
         for inverse in (False, True):
-            got = ntt_two_step(x, P, inverse)
-            want = ntt_plain(x, P, inverse)
-            timed = log_n == NTT_LOGS[-1] and not inverse  # LDE shape
-            ms = cuda_ms(lambda: ntt_two_step(x, P, inverse)) if timed else None
-            pms = cuda_ms(lambda: ntt_plain(x, P, inverse)) if timed else None
             res.check("K1", f"{'intt' if inverse else 'ntt'} n=2^{log_n}",
-                      got, want, ms, pms)
+                      ntt_two_step(x, P, inverse), ntt_plain(x, P, inverse))
+        if log_n == NTT_LOGS[-1]:  # the 2^20 path's LDE shape
+            res.time("K1", f"ntt n=2^{log_n}",
+                     lambda: ntt_two_step(x, P, False),
+                     lambda: ntt_plain(x, P, False),
+                     res.card.ntt_bound(1 << log_n, False))
 
-    # K3: the LDE's 2^22 leaves
+    # K2: the reduced split through the CUDA plan, then the 2^24 path's
+    # trace INTT (2^24) and LDE (2^26), and 2^23
+    log_n, rows_log = K2_REDUCED
+    x = rand_u32(rs, 1 << log_n, P, dev)
+    for inverse in (False, True):
+        res.check("K2", f"{'intt' if inverse else 'ntt'} n=2^{log_n} "
+                  f"rows_log={rows_log}",
+                  ntt_three_step(x, P, inverse, rows_log),
+                  ntt_three_step_plain(x, P, inverse, rows_log))
+    for log_n in K2_LOGS:
+        x = rand_u32(rs, 1 << log_n, P, dev)
+        for inverse in (False, True):
+            res.check("K2", f"{'intt' if inverse else 'ntt'} n=2^{log_n}",
+                      ntt_three_step(x, P, inverse),
+                      ntt_three_step_plain(x, P, inverse))
+            lde = (log_n, inverse) == (K2_LDE_LOG, False)
+            trace_intt = (log_n, inverse) == (K2_INTT_LOG, True)
+            if lde or trace_intt:
+                res.time("K2", f"{'intt' if inverse else 'ntt'} n=2^{log_n}",
+                         lambda: ntt_three_step(x, P, inverse),
+                         lambda: ntt_three_step_plain(x, P, inverse),
+                         res.card.ntt_bound(1 << log_n, inverse), row=lde)
+
+
+def phase_tree(res: Results, dev) -> None:
+    """K3 and K4: equality over a 2^22 tree, times at the 2^24 path's
+    shapes."""
+    from stark_tpu_torch.hash.cuda_sha import sha_leaves, sha_nodes
+    from stark_tpu_torch.hash.sha256 import sha256_pairs, sha256_u64_leaves
+    from stark_tpu_torch.merkle.tree import build_tree, level_offsets
+
+    rs = np.random.RandomState(SEED + 1)
     n = 1 << TREE_LOG
     vals = rand_u32(rs, n, P, dev)
-    res.check("K3", f"leaves n=2^{TREE_LOG}",
-              sha_leaves(vals), sha256_u64_leaves(vals),
-              cuda_ms(lambda: sha_leaves(vals)),
-              cuda_ms(lambda: sha256_u64_leaves(vals)))
-
-    # K4: the 2^21-node level above those leaves, then a whole tree
+    res.check("K3", f"leaves n=2^{TREE_LOG}", sha_leaves(vals),
+              sha256_u64_leaves(vals))
     kids = rand_u32(rs, (n, 8), 1 << 32, dev)
-    res.check("K4", f"nodes m=2^{TREE_LOG - 1}",
-              sha_nodes(kids), sha256_pairs(kids),
-              cuda_ms(lambda: sha_nodes(kids)),
-              cuda_ms(lambda: sha256_pairs(kids)))
+    res.check("K4", f"nodes m=2^{TREE_LOG - 1}", sha_nodes(kids),
+              sha256_pairs(kids))
     tree = build_tree(vals)
     plain = torch.empty_like(tree)
     offs = level_offsets(n)
@@ -167,32 +293,70 @@ def phase_kernels(res: Results, dev) -> None:
         plain[op:op + sp] = sha256_pairs(plain[oc:oc + sc])
     res.check("K4", f"full tree n=2^{TREE_LOG} (K3 + {TREE_LOG} K4 levels)",
               tree, plain)
+    del vals, kids, tree, plain
 
-    # K5: the streams the prove sends it, with seeded openings.  First
-    # the fresh channel's first absorb on its own (3 blocks, FIRST_ROW
-    # layout); then one chain of a later absorb, one query of the 2^20
-    # configuration (built by the prover's own query plan) and a
-    # reset-only row
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    big = 1 << TREE_TIME_LOG
+    sl = 1 << TREE_LOG
+
+    def sliced(fn, x, per):
+        return torch.cat([fn(x[k:k + per]) for k in range(0, len(x), per)])
+
+    vals = rand_u32_dev(gen, (big,), P, dev)
+    res.check("K3", f"leaves n=2^{TREE_TIME_LOG} (plain in 2^{TREE_LOG} "
+              "slices)", sha_leaves(vals), sliced(sha256_u64_leaves, vals, sl))
+    res.time("K3", f"leaves n=2^{TREE_TIME_LOG}", lambda: sha_leaves(vals),
+             lambda: sliced(sha256_u64_leaves, vals, sl),
+             res.card.bound(36 * big, SHA_OPS * big))
+    del vals
+    kids = rand_u32_dev(gen, (big, 8), 1 << 32, dev)
+    m = big // 2
+    res.check("K4", f"nodes m=2^{TREE_TIME_LOG - 1} (plain in "
+              f"2^{TREE_LOG} slices)", sha_nodes(kids),
+              sliced(sha256_pairs, kids, sl))
+    res.time("K4", f"nodes m=2^{TREE_TIME_LOG - 1}", lambda: sha_nodes(kids),
+             lambda: sliced(sha256_pairs, kids, sl),
+             res.card.bound(96 * m, (SHA_OPS + SHA_PAD_OPS) * m))
+
+
+def phase_chain(res: Results, dev) -> None:
+    """K5 on the streams the proves send it, with seeded openings: the
+    fresh channel's first absorb on its own (3 blocks, FIRST_ROW layout),
+    then for each path one chain of a later absorb, one query of that
+    configuration (built by the prover's own query plan) and a reset-only
+    row."""
+    from stark_tpu_torch.channel.device_channel import absorb_stream
+    from stark_tpu_torch.config import ProverConfig
+    from stark_tpu_torch.hash.cuda_chain import (FIRST_ROW, sha_chain,
+                                                 sha_chain_plain)
+    from stark_tpu_torch.stark.prover import query_plan
+
+    rs = np.random.RandomState(SEED + 2)
     root = rand_u32(rs, 8, 1 << 32, dev)
     zero = torch.zeros(8, dtype=torch.int32, device=dev)
     s0, f0 = absorb_stream(root, initial=True)
     res.check("K5", f"first absorb ({s0.shape[0]} blocks)",
               sha_chain(s0, f0, zero), sha_chain_plain(s0, f0, zero))
-    plan = query_plan(ProverConfig(**PROVE))
-    nv, nd = len(plan._val_rows), len(plan._dig_rows)
-    sq, fq = plan.stream(rand_u32(rs, nv, P, dev),
-                         rand_u32(rs, (nd, 8), 1 << 32, dev))
-    s1, f1 = absorb_stream(root, initial=False)
-    reset = torch.tensor([[FIRST_ROW, 1]], dtype=torch.int32, device=dev)
-    stream = torch.cat([s1, sq, rand_u32(rs, (1, 16), 1 << 32, dev)])
-    fl = torch.cat([f1, fq, reset])
-    chain = rand_u32(rs, 8, 1 << 32, dev)
-    res.check("K5", f"absorb + 2^{PROVE['log2_trace']} query + reset row "
-              f"({stream.shape[0]} blocks)",
-              sha_chain(stream, fl, chain),
-              sha_chain_plain(stream, fl, chain),
-              cuda_ms(lambda: sha_chain(stream, fl, chain)),
-              cuda_ms(lambda: sha_chain_plain(stream, fl, chain)))
+    for name, kw in PROVES.items():
+        plan = query_plan(ProverConfig(**kw))
+        nv, nd = len(plan._val_rows), len(plan._dig_rows)
+        sq, fq = plan.stream(rand_u32(rs, nv, P, dev),
+                             rand_u32(rs, (nd, 8), 1 << 32, dev))
+        s1, f1 = absorb_stream(root, initial=False)
+        reset = torch.tensor([[FIRST_ROW, 1]], dtype=torch.int32, device=dev)
+        stream = torch.cat([s1, sq, rand_u32(rs, (1, 16), 1 << 32, dev)])
+        fl = torch.cat([f1, fq, reset])
+        chain = rand_u32(rs, 8, 1 << 32, dev)
+        blocks = int(stream.shape[0])
+        what = f"absorb + {name} query ({sq.shape[0]} blocks) + reset row"
+        res.check("K5", f"{what} ({blocks} blocks)",
+                  sha_chain(stream, fl, chain),
+                  sha_chain_plain(stream, fl, chain))
+        res.time("K5", f"{what}, {blocks} blocks",
+                 lambda: sha_chain(stream, fl, chain),
+                 lambda: sha_chain_plain(stream, fl, chain),
+                 res.card.chain_bound(blocks), row=name == PATH)
 
 
 def phase_golden(dev) -> None:
@@ -220,20 +384,34 @@ def phase_golden(dev) -> None:
 def counters() -> dict:
     from stark_tpu_torch.hash.cuda_chain import sha_chain
     from stark_tpu_torch.hash.cuda_sha import sha_leaves, sha_nodes
-    from stark_tpu_torch.ntt.cuda_ntt import ntt_two_step
+    from stark_tpu_torch.ntt.cuda_ntt import ntt_three_step, ntt_two_step
 
-    return {"K1": ntt_two_step, "K3": sha_leaves, "K4": sha_nodes,
-            "K5": sha_chain}
+    return {"K1": ntt_two_step, "K2": ntt_three_step, "K3": sha_leaves,
+            "K4": sha_nodes, "K5": sha_chain}
 
 
-def phase_prove(res: Results, dev) -> None:
+def drop_plans() -> None:
+    """Forget the NTT plans (and their device tables) that the kernel
+    checks built, so a cold prove builds its own as in a fresh process."""
+    from stark_tpu_torch.ntt import cuda_ntt
+
+    cuda_ntt.get_cuda_plan.cache_clear()
+    cuda_ntt.get_three_step_plan.cache_clear()
+    torch.cuda.empty_cache()
+
+
+def phase_prove(res: Results, dev, name: str) -> None:
+    """Prove the `name` configuration twice (cold, warm): deterministic,
+    verified, tamper-rejected, with its kernels launched."""
     from stark_tpu_torch.config import ProverConfig
     from stark_tpu_torch.stark import (StarkProof, StarkVerificationError,
                                        prove, verify)
 
-    cfg = ProverConfig(**PROVE)
+    cfg = ProverConfig(**PROVES[name])
+    drop_plans()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     for fn in counters().values():
         fn.launches = 0
     t0 = time.perf_counter()
@@ -246,15 +424,16 @@ def phase_prove(res: Results, dev) -> None:
     warm = prove(cfg, device=dev)
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
-    log(f"prove {PROVE}: cold {cold_s:.3f} s, warm "
-        f"{warm_s:.3f} s, peak device memory {peak / 2**20:.1f} MiB, "
+    log(f"prove {name} {PROVES[name]}: cold {cold_s:.3f} s, warm "
+        f"{warm_s:.3f} s, peak device memory {peak / 2**20:.1f} MiB "
+        f"({base / 2**20:.1f} MiB allocated before it), "
         f"{len(cold.proof)} messages, {cold.size_bytes()} bytes")
-    log(f"launches during the cold prove: {launches}")
+    log(f"launches during the cold {name} prove: {launches}")
     if cold.proof != warm.proof:
-        raise AssertionError("2^20 prove is not deterministic")
+        raise AssertionError(f"{name} prove is not deterministic")
     blob = cold.serialize()
     if not verify(StarkProof.deserialize(blob), expected_config=cfg):
-        raise AssertionError("verifier rejected the 2^20 proof")
+        raise AssertionError(f"verifier rejected the {name} proof")
     tampered = StarkProof.deserialize(blob)
     k = len(tampered.proof) // 2
     msg = bytearray(tampered.proof[k])
@@ -263,14 +442,24 @@ def phase_prove(res: Results, dev) -> None:
     try:
         verify(tampered)
     except StarkVerificationError as e:
-        log(f"tampered proof (message {k}) rejected: {str(e)[:80]}")
+        log(f"tampered {name} proof (message {k}) rejected: {str(e)[:80]}")
     else:
         raise AssertionError("verifier accepted a tampered proof")
-    log("2^20 proof deterministic and accepted by the host verifier")
-    for name, count in launches.items():
-        if count == 0:
-            raise AssertionError(f"kernel {name} never launched in the prove")
-        res.rows[name]["launches"] = count
+    log(f"{name} proof deterministic and accepted by the host verifier")
+    # K1 carries NTTs up to 2^22 (the 2^20 path), K2 the larger ones: the
+    # 2^24 path's trace INTT and LDE, one launch each
+    need = ("K1", "K3", "K4", "K5") if name == "2^20" else ("K3", "K4", "K5")
+    for k in need:
+        if launches[k] == 0:
+            raise AssertionError(f"kernel {k} never launched in the {name} "
+                                 "prove")
+    if name == "2^24" and launches["K2"] != 2:
+        raise AssertionError(f"K2 launched {launches['K2']} times in the "
+                             "2^24 prove, expected 2 (trace INTT, LDE)")
+    for k, count in launches.items():
+        res.rows[k]["launches_by_prove"][name] = count
+        if name == ("2^20" if k == "K1" else PATH):
+            res.rows[k]["launches"] = count
 
 
 def phase_split(cfg, dev) -> dict:
@@ -281,10 +470,14 @@ def phase_split(cfg, dev) -> dict:
     from stark_tpu_torch.fields.fp import upload_u32
     from stark_tpu_torch.fri.commit import fri_commit
     from stark_tpu_torch.merkle.tree import MerkleTree
+    from stark_tpu_torch.ntt import cuda_ntt
     from stark_tpu_torch.ntt.ntt import coset_evaluate
     from stark_tpu_torch.stark.air import FibonacciSquareAIR
     from stark_tpu_torch.stark.prover import get_air_context, query_plan
     from stark_tpu_torch.stark.trace import trace_polynomial
+
+    def kernel(n):
+        return "K1" if n <= 1 << cuda_ntt.MAX_LOG_N else "K2"
 
     out = {}
     t = time.perf_counter()
@@ -299,13 +492,13 @@ def phase_split(cfg, dev) -> dict:
     air, p, h = FibonacciSquareAIR(), cfg.modulus, cfg.offset
     plan = query_plan(cfg)
     host = air.host_trace(cfg)
-    mark("host trace")
+    mark("host trace (native)")
     trace = upload_u32(host, dev)
     mark("upload")
     coeffs = trace_polynomial(trace, p)
-    mark("trace INTT (K1) + correction")
+    mark(f"trace INTT ({kernel(cfg.trace_domain_size)}) + correction")
     lde = coset_evaluate(coeffs, p, cfg.eval_domain_size, h)
-    mark("scale-pad + LDE NTT (K1)")
+    mark(f"scale-pad + LDE NTT ({kernel(cfg.eval_domain_size)})")
     tree = MerkleTree(lde)
     mark("trace tree (K3+K4)")
     fs = DeviceFS(p, Channel(p).state, device=dev)
@@ -342,19 +535,19 @@ def busy_us(events) -> float:
     return total + (0.0 if cur_e is None else cur_e - cur_s)
 
 
-def phase_profile(dev) -> None:
-    """Where a warm 2^20 prove spends its time."""
+def phase_profile(dev, name: str) -> None:
+    """Where a warm prove of the `name` configuration spends its time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from stark_tpu_torch.config import ProverConfig
     from stark_tpu_torch.stark import prove
 
-    cfg = ProverConfig(**PROVE)
+    cfg = ProverConfig(**PROVES[name])
     prove(cfg, device=dev)
     for _ in range(3):
         split = phase_split(cfg, dev)
-    log(f"phase split ms (synced after each, third of 3 runs): "
+    log(f"{name} phase split ms (synced after each, third of 3 runs): "
         f"{json.dumps(split)}; sum {sum(split.values()):.3f}")
     walls = []
     for _ in range(5):
@@ -364,7 +557,7 @@ def phase_profile(dev) -> None:
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
     wall = statistics.median(walls)
-    log(f"warm prove walls ms: {[round(w, 3) for w in walls]}; "
+    log(f"{name} warm prove walls ms: {[round(w, 3) for w in walls]}; "
         f"median {wall:.3f}")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -380,20 +573,21 @@ def phase_profile(dev) -> None:
     dev_sum = sum(e.self_device_time_total for e in ka
                   if e.device_type == DeviceType.CUDA) / 1e3
     all_sum = sum(e.self_device_time_total for e in ka) / 1e3
-    log(f"profiled prove: wall {prof_wall:.3f} ms; {len(gpu)} device "
+    log(f"{name} profiled prove: wall {prof_wall:.3f} ms; {len(gpu)} device "
         f"events; device busy {busy:.3f} ms (union of device event "
         f"intervals), sum of device rows {dev_sum:.3f} ms, sum of all rows "
         f"{all_sum:.3f} ms (host-op rows repeat their kernels' time); idle "
         f"share of the median warm wall {1 - busy / wall:.4f}")
     rows = sorted((e for e in ka if e.device_type == DeviceType.CUDA),
                   key=lambda e: -e.self_device_time_total)
-    for e in rows[:8]:
+    for e in rows[:10]:
         log(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d} x  "
             f"{e.key[:90]}")
     out = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        "chiprun_out")
     os.makedirs(out, exist_ok=True)
-    with open(os.path.join(out, "profile_prove.txt"), "w") as fh:
+    fname = f"profile_prove_2e{name.split('^')[1]}.txt"
+    with open(os.path.join(out, fname), "w") as fh:
         fh.write(ka.table(sort_by="self_device_time_total", row_limit=60,
                           max_name_column_width=90))
 
@@ -401,7 +595,7 @@ def phase_profile(dev) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[1])
     ap.add_argument("--profile", action="store_true",
-                    help="also profile a warm 2^20 prove")
+                    help="also profile warm 2^20 and 2^24 proves")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; the port's "
@@ -413,24 +607,28 @@ def main() -> int:
     dev = torch.device("cuda:0")
     kind = phase_device()
     phase_build()
-    res = Results()
-    src = {"K1": ("stark_tpu_torch/csrc/ntt.cu",
-                  "stark_tpu/ntt/pallas_ntt.py:188"),
-           "K3": ("stark_tpu_torch/csrc/sha256_tree.cu",
-                  "stark_tpu/hash/pallas_sha.py:100"),
-           "K4": ("stark_tpu_torch/csrc/sha256_tree.cu",
-                  "stark_tpu/hash/pallas_sha.py:124"),
-           "K5": ("stark_tpu_torch/csrc/sha_chain.cu",
-                  "stark_tpu/hash/pallas_chain.py:80")}
-    for name, (source, replaces) in src.items():
-        res.rows[name] = {"name": name, "route": "cuda", "source": source,
-                          "replaces": replaces, "launches": 0,
-                          "max_abs_err": 0, "ms": None, "plain_ms": None}
-    phase_kernels(res, dev)
+    res = Results(Card())
+    for name, source, replaces in (
+            ("K1", "stark_tpu_torch/csrc/ntt.cu",
+             "stark_tpu/ntt/pallas_ntt.py:188"),
+            ("K2", "stark_tpu_torch/csrc/ntt.cu",
+             "stark_tpu/ntt/pallas_ntt.py:328 and :334"),
+            ("K3", "stark_tpu_torch/csrc/sha256_tree.cu",
+             "stark_tpu/hash/pallas_sha.py:100"),
+            ("K4", "stark_tpu_torch/csrc/sha256_tree.cu",
+             "stark_tpu/hash/pallas_sha.py:124"),
+            ("K5", "stark_tpu_torch/csrc/sha_chain.cu",
+             "stark_tpu/hash/pallas_chain.py:80")):
+        res.add(name, source, replaces)
+    phase_ntt(res, dev)
+    phase_tree(res, dev)
+    phase_chain(res, dev)
     phase_golden(dev)
-    phase_prove(res, dev)
+    for name in PROVES:
+        phase_prove(res, dev, name)
     if args.profile:
-        phase_profile(dev)
+        for name in PROVES:
+            phase_profile(dev, name)
     print(json.dumps({"kernels": list(res.rows.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

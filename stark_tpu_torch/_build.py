@@ -1,11 +1,13 @@
-"""Build and load the hand-written CUDA kernels (``csrc/*.cu``).
+"""Build and load the hand-written CUDA kernels (``csrc/*.cu``) and the
+native host library (``native/*.cpp``).
 
-Route: ``nvcc`` into a shared library with a plain C interface, loaded
-with ``ctypes`` (no PyTorch headers, so a build takes seconds).  Each
-library is built at first use into ``build/stark_tpu_torch/`` under the
-checkout, named by a hash of its sources, so an edited source rebuilds
-and an unchanged one loads at once.  Nothing here runs at import time:
-the package imports and its CPU tests collect on machines with no CUDA
+Route: ``nvcc`` (or, for a host library, the host C++ compiler) into a
+shared library with a plain C interface, loaded with ``ctypes`` (no
+PyTorch headers, so a build takes seconds).  Each library is built at
+first use into ``build/stark_tpu_torch/`` under the checkout, named by a
+hash of its sources and flags, so an edited source rebuilds and an
+unchanged one loads at once.  Nothing here runs at import time: the
+package imports and its CPU tests collect on machines with no CUDA
 toolkit.  A failed build raises; there is no fallback.
 """
 
@@ -24,17 +26,25 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "stark_tpu_torch")
 HEADERS = ("sha256.cuh",)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
+CXX_FLAGS = ["-std=c++17", "-O3", "-shared", "-fPIC"]
 
-# library name -> {C function: argtypes}; every function returns a
+# library name -> {C function: argtypes}; every CUDA function returns a
 # cudaError_t (as int) from cudaGetLastError() after its launches
 _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
+_U64, _SZ = ctypes.c_uint64, ctypes.c_size_t
 SIGNATURES = {
     "ntt": {"stark_ntt_two_step": [_P, _P, _P, _P, _P, _P, _I, _I,
-                                   _U, _U, _U, _U, _P]},
+                                   _U, _U, _U, _U, _P],
+            "stark_ntt_three_step": [_P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                     _U, _U, _U, _U, _P]},
     "sha256_tree": {"stark_sha_leaves": [_P, _P, _I, _P],
                     "stark_sha_nodes": [_P, _P, _I, _P]},
     "sha_chain": {"stark_sha_chain": [_P, _P, _P, _P, _I, _P]},
+    "host_trace": {"stark_fib_trace": [_U64, _U64, _U64, _SZ, _P]},
 }
+# host libraries (C++ for the CPU, functions return void): name -> source
+# under the package; every other library is csrc/<name>.cu
+HOST_SOURCES = {"host_trace": os.path.join("native", "host_trace.cpp")}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -49,17 +59,38 @@ def _nvcc() -> str:
                        "stark_tpu_torch are built from csrc/ at first use")
 
 
+def _cxx() -> str:
+    for cand in (os.environ.get("CXX"), shutil.which("g++"),
+                 shutil.which("c++")):
+        if cand and shutil.which(cand):
+            return cand
+    raise RuntimeError("no host C++ compiler found (set CXX): the native "
+                       "library of stark_tpu_torch is built from native/ at "
+                       "first use")
+
+
+def _sources(name: str) -> list:
+    """Paths (relative to the package) whose bytes name the library."""
+    if name in HOST_SOURCES:
+        return [HOST_SOURCES[name]]
+    return [os.path.join("csrc", fn) for fn in (f"{name}.cu",) + HEADERS]
+
+
 def _lib_path(name: str) -> str:
     h = hashlib.sha256()
-    for fn in (f"{name}.cu",) + HEADERS:
-        with open(os.path.join(CSRC, fn), "rb") as fh:
-            h.update(fn.encode() + fh.read())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    for rel in _sources(name):
+        with open(os.path.join(_PKG, rel), "rb") as fh:
+            h.update(rel.encode() + fh.read())
+    h.update(" ".join(CXX_FLAGS if name in HOST_SOURCES
+                      else NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
 def _compile_cmd(name: str, out: str) -> list:
-    return [_nvcc(), *NVCC_FLAGS, "-o", out, os.path.join(CSRC, f"{name}.cu")]
+    src = os.path.join(_PKG, _sources(name)[0])
+    if name in HOST_SOURCES:
+        return [_cxx(), *CXX_FLAGS, "-o", out, src]
+    return [_nvcc(), *NVCC_FLAGS, "-o", out, src]
 
 
 def _load(name: str, path: str) -> ctypes.CDLL:
@@ -67,7 +98,7 @@ def _load(name: str, path: str) -> ctypes.CDLL:
     for fn, argtypes in SIGNATURES[name].items():
         f = getattr(lib, fn)
         f.argtypes = argtypes
-        f.restype = ctypes.c_int
+        f.restype = None if name in HOST_SOURCES else ctypes.c_int
     return lib
 
 
@@ -89,7 +120,7 @@ def build_all(names=None) -> dict:
         for n, (tmp, proc) in procs.items():
             log, _ = proc.communicate()
             if proc.returncode != 0:
-                errors.append(f"nvcc failed for csrc/{n}.cu:\n{log}")
+                errors.append(f"build of {_sources(n)[0]} failed:\n{log}")
             else:
                 os.replace(tmp, paths[n])
         if errors:

@@ -15,7 +15,7 @@ import torch
 from stark_tpu_torch.config import ProverConfig
 
 
-def u32_to_tensor(arr, device="cpu") -> torch.Tensor:
+def u32_to_tensor(arr, *, device) -> torch.Tensor:
     """numpy (or array-like) uint32 -> int32 storage tensor on `device`."""
     a = np.ascontiguousarray(np.asarray(arr, dtype=np.uint32))
     return torch.from_numpy(a.view(np.int32).copy()).to(device)
@@ -31,10 +31,10 @@ def state_to_hex(state: torch.Tensor) -> str:
     return tensor_to_u32(state).astype(">u4").tobytes().hex()
 
 
-def hex_to_state(state_hex: str, device="cpu") -> torch.Tensor:
+def hex_to_state(state_hex: str, *, device) -> torch.Tensor:
     """64-char hex state -> (8,) int32 state words on `device`."""
     words = np.frombuffer(bytes.fromhex(state_hex), dtype=">u4")
-    return u32_to_tensor(words.astype(np.uint32), device)
+    return u32_to_tensor(words.astype(np.uint32), device=device)
 
 
 def config_from(cfg) -> ProverConfig:

@@ -1,13 +1,14 @@
 """NTT/INTT and coset evaluation over GF(p) on torch tensors (counterpart
 of ``stark_tpu/ntt/ntt.py`` + ``ntt/fourstep.py``).
 
-:func:`ntt` / :func:`intt` go through the K1 wrapper
-(``ntt/cuda_ntt.py``): a CUDA tensor of any power-of-two size up to 2^22
-launches the kernel — the trace INTT included, which on the TPU took the
-XLA plan because it ran inside an outer ``jax.jit`` — and a CPU tensor
-runs ``ntt_plain``, the radix-2 Stockham dataflow of the JAX ``NTTPlan``
-in torch ops.  Field arithmetic is exact, so every route gives the same
-bits.
+:func:`ntt` / :func:`intt` go through the kernel wrappers
+(``ntt/cuda_ntt.py``): n <= 2^MAX_LOG_N (2^22) to K1, larger n (up to
+2^30) to K2 with a row split of 2^ROWS_LOG (both read at call time).  A
+CUDA tensor launches the kernel — the trace INTT included, which on the
+TPU took the XLA plan because it ran inside an outer ``jax.jit`` — and a
+CPU tensor runs the kernel's plain version: ``ntt_plain``, the radix-2
+Stockham dataflow of the JAX ``NTTPlan``, or ``ntt_three_step_plain``.
+Field arithmetic is exact, so every route gives the same bits.
 """
 
 from __future__ import annotations
@@ -15,17 +16,24 @@ from __future__ import annotations
 import torch
 
 from stark_tpu_torch.fields.fp import Fp, store
-from stark_tpu_torch.ntt.cuda_ntt import ntt_two_step
+from stark_tpu_torch.ntt import cuda_ntt
+from stark_tpu_torch.ntt.cuda_ntt import ntt_three_step, ntt_two_step
+
+
+def _transform(x: torch.Tensor, p: int, inverse: bool) -> torch.Tensor:
+    if int(x.shape[-1]) <= 1 << cuda_ntt.MAX_LOG_N:
+        return ntt_two_step(x, p, inverse)
+    return ntt_three_step(x, p, inverse, cuda_ntt.ROWS_LOG)
 
 
 def ntt(x: torch.Tensor, p: int) -> torch.Tensor:
     """Forward NTT, natural order: X[k] = sum_j x[j] w^(jk)."""
-    return ntt_two_step(x, p, False)
+    return _transform(x, p, False)
 
 
 def intt(x: torch.Tensor, p: int) -> torch.Tensor:
     """Inverse NTT (includes the n^-1 scale)."""
-    return ntt_two_step(x, p, True)
+    return _transform(x, p, True)
 
 
 def scale_pad(coeffs: torch.Tensor, p: int, big_n: int,

@@ -10,8 +10,10 @@ ROADMAP Queue 1 item 11.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from stark_tpu_torch import native
 from stark_tpu_torch.config import ProverConfig
 from stark_tpu_torch.fields.fp import Fp, store
 from stark_tpu_torch.ntt.reference_ntt import root_of_unity
@@ -93,10 +95,10 @@ class FibonacciSquareAIR:
         cfg.validate()
 
     def host_trace(self, cfg: ProverConfig):
-        from stark_tpu_torch.stark.trace import fibonacci_square_host
-
-        return fibonacci_square_host(cfg.modulus, cfg.trace_length, self.a0,
-                                     self.a1)
+        """The trace as numpy uint32, from the native host loop (host code
+        whatever the prove's device)."""
+        return native.fib_trace(cfg.modulus, self.a0, self.a1,
+                                cfg.trace_length).astype(np.uint32)
 
     def publics_from_host(self, trace_host) -> dict:
         return {"a0": int(trace_host[0]), "a_last": int(trace_host[-1])}

@@ -1,10 +1,10 @@
 """Trace generation + trace polynomial (counterpart of
 ``stark_tpu/stark/trace.py``; Fibonacci-square, u32 field).
 
-The trace is a sequential recurrence, so it is built on the host: a loop
-over Python ints (about a second at 2^20 rows; the JAX package's C loop
-in ``stark_tpu.native`` cannot be imported without JAX), then uploaded
-to the device in one copy.
+The trace is a sequential recurrence, so it is built on the host by the
+native C++ loop (``stark_tpu_torch/native``), then uploaded to the
+device in one copy.  :func:`fibonacci_square_host`, the same recurrence
+over Python ints, is the oracle the tests hold the native loop against.
 
 The trace polynomial is one INTT plus a closed-form degree correction:
 INTT of (trace ++ [0]) gives the interpolant with value 0 at the unused

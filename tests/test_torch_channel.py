@@ -55,8 +55,9 @@ def test_chain_matches_jax_scan_and_pallas_interpret():
         jdq._block_step, (jnp.zeros(8, jnp.uint32), jnp.asarray(chain0)),
         (jnp.asarray(rows), jnp.asarray(flags[:, 0] != 0),
          jnp.asarray(flags[:, 1] != 0)))
-    got = sha_chain(u32_to_tensor(rows), u32_to_tensor(flags),
-                    u32_to_tensor(chain0))
+    got = sha_chain(u32_to_tensor(rows, device="cpu"),
+                    u32_to_tensor(flags, device="cpu"),
+                    u32_to_tensor(chain0, device="cpu"))
     np.testing.assert_array_equal(tensor_to_u32(got), np.asarray(want))
     pallas = j_sha_chain(jnp.asarray(rows), jnp.asarray(flags),
                          jnp.asarray(chain0), interpret=True)
@@ -72,21 +73,24 @@ def test_chain_first_row_flag_hashes_the_row_itself():
     pad[0], pad[15] = 0x80000000, 512
     rows = np.stack([np.frombuffer(msg, ">u4").astype(np.uint32), pad])
     flags = np.array([[FIRST_ROW, 0], [0, 1]], np.uint32)
-    out = sha_chain(u32_to_tensor(rows), u32_to_tensor(flags),
-                    u32_to_tensor(_words(8, 5)))
+    out = sha_chain(u32_to_tensor(rows, device="cpu"),
+                    u32_to_tensor(flags, device="cpu"),
+                    u32_to_tensor(_words(8, 5), device="cpu"))
     assert state_to_hex(out) == hashlib.sha256(msg).hexdigest()
     # FIRST_HEX hashes the chain's own hex instead: the channel's advance
     state = hashlib.sha256(b"seed").hexdigest()
     flags = np.array([[FIRST_HEX, 0], [0, 1]], np.uint32)
-    out = sha_chain(u32_to_tensor(rows), u32_to_tensor(flags),
-                    hex_to_state(state))
+    out = sha_chain(u32_to_tensor(rows, device="cpu"),
+                    u32_to_tensor(flags, device="cpu"),
+                    hex_to_state(state, device="cpu"))
     assert state_to_hex(out) == hashlib.sha256(state.encode()).hexdigest()
 
 
 def test_ascii_hex_words_match_jax():
     d = _words(24, 3).reshape(3, 8)
     want = np.asarray(jdc.ascii_hex_words(jnp.asarray(d)))
-    got = tdc.ascii_hex_words(u32_to_tensor(d)).numpy().astype(np.uint32)
+    got = tdc.ascii_hex_words(u32_to_tensor(d, device="cpu")).numpy()
+    got = got.astype(np.uint32)
     np.testing.assert_array_equal(got, want)
 
 
@@ -94,7 +98,7 @@ def test_ascii_hex_words_match_jax():
 def test_device_channel_ops_match_jax(seed):
     d, s = _words(8, seed), _words(8, seed + 10)
     jd, js = jnp.asarray(d), jnp.asarray(s)
-    td, ts = u32_to_tensor(d), u32_to_tensor(s)
+    td, ts = u32_to_tensor(d, device="cpu"), u32_to_tensor(s, device="cpu")
     pairs = [
         (tdc.absorb_digest(None, td), jdc.absorb_digest(None, jd)),
         (tdc.absorb_digest(ts, td), jdc.absorb_digest(js, jd)),
@@ -132,7 +136,7 @@ def test_device_fs_replay_matches_jax():
 
     ch = Channel(P)
     fs = tdc.DeviceFS(P, ch.state, device="cpu")
-    draws = _fs_script(fs, [u32_to_tensor(d) for d in digests])
+    draws = _fs_script(fs, [u32_to_tensor(d, device="cpu") for d in digests])
     fetched = [t.reshape(-1).numpy() for t in fs.payloads()]
     fs.replay_fetched(ch, fetched)
     assert ch.proof == jch.proof
@@ -145,7 +149,7 @@ def test_device_fs_replay_matches_jax():
 def test_device_fs_rejects_a_diverged_draw():
     ch = Channel(P)
     fs = tdc.DeviceFS(P, ch.state, device="cpu")
-    fs.absorb_root(u32_to_tensor(_words(8, 1)))
+    fs.absorb_root(u32_to_tensor(_words(8, 1), device="cpu"))
     fs.draw()
     fetched = [t.reshape(-1).numpy().copy() for t in fs.payloads()]
     fetched[1][0] += 1
@@ -173,8 +177,9 @@ def _fri_buffers(layers):
     values = torch.empty(vt, dtype=torch.int32)
     digests = torch.empty((dt, 8), dtype=torch.int32)
     for v, (ln, vo, do) in zip(layers, layout):
-        values[vo:vo + ln] = u32_to_tensor(v)
-        MerkleTree(u32_to_tensor(v), out=digests[do:do + 2 * ln - 1])
+        values[vo:vo + ln] = u32_to_tensor(v, device="cpu")
+        MerkleTree(u32_to_tensor(v, device="cpu"),
+                   out=digests[do:do + 2 * ln - 1])
     return values, digests
 
 
@@ -207,11 +212,11 @@ def test_query_plan_matches_jax(fri_lengths, mode):
     want_vals, want_digs = _jax_outs(outs)
 
     plan = DeviceQueryPlan(15, 3, (0, 1), 16, fri_lengths)
-    tree = MerkleTree(u32_to_tensor(f_evals))
+    tree = MerkleTree(u32_to_tensor(f_evals, device="cpu"))
     values, digests = _fri_buffers(layers)
     final, idxs, vals, digs = plan.run_device(
-        u32_to_tensor(state), u32_to_tensor(f_evals), tree.buffer, values,
-        digests)
+        u32_to_tensor(state, device="cpu"),
+        u32_to_tensor(f_evals, device="cpu"), tree.buffer, values, digests)
     np.testing.assert_array_equal(tensor_to_u32(final), want_final)
     np.testing.assert_array_equal(idxs.numpy(), want_idx)
     np.testing.assert_array_equal(tensor_to_u32(vals), want_vals)
@@ -236,8 +241,10 @@ def test_query_replay_matches_jax_transcript():
     plan = DeviceQueryPlan(28, 4, (0, 2, 4), 32, fri_lengths)
     values, digests = _fri_buffers(layers)
     final, idxs, vals, digs = plan.run_device(
-        hex_to_state(ch.state), u32_to_tensor(f_evals),
-        MerkleTree(u32_to_tensor(f_evals)).buffer, values, digests)
+        hex_to_state(ch.state, device="cpu"),
+        u32_to_tensor(f_evals, device="cpu"),
+        MerkleTree(u32_to_tensor(f_evals, device="cpu")).buffer, values,
+        digests)
     plan.replay(ch, final.numpy(), idxs.numpy(), vals.numpy(), digs.numpy())
     assert ch.proof == jch.proof
     assert ch.state == jch.state

@@ -31,7 +31,8 @@ def _pair(p, seed):
 
 
 def _port(fn, *arrs):
-    return tensor_to_u32(store(fn(*[u32_to_tensor(a) for a in arrs])))
+    return tensor_to_u32(store(fn(*[u32_to_tensor(a, device="cpu")
+                                    for a in arrs])))
 
 
 @pytest.mark.parametrize("p", MODULI)
@@ -102,7 +103,7 @@ def test_host_tables_match_jax(p):
 
 def test_lift_store_roundtrip_keeps_bits():
     words = np.array([0, 1, 2**31 - 1, 2**31, 2**32 - 1], dtype=np.uint32)
-    t = u32_to_tensor(words)
+    t = u32_to_tensor(words, device="cpu")
     assert t.dtype == torch.int32
     assert lift(t).tolist() == [int(w) for w in words]
     np.testing.assert_array_equal(tensor_to_u32(store(lift(t))), words)

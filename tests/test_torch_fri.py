@@ -40,8 +40,8 @@ def test_fold_and_inverse_domain_match_jax(p, m, offset):
     np.testing.assert_array_equal(tensor_to_u32(tinv), jinv)
     want = np.asarray(jfc._fold_fn(p, m)(jnp.asarray(ev), jnp.uint32(beta),
                                          jnp.asarray(jinv)))
-    got = store(tfc._fold_fn(p, m)(u32_to_tensor(ev), torch.tensor(beta),
-                                   tinv))
+    got = store(tfc._fold_fn(p, m)(u32_to_tensor(ev, device="cpu"),
+                                   torch.tensor(beta), tinv))
     np.testing.assert_array_equal(tensor_to_u32(got), want)
 
 
@@ -64,7 +64,7 @@ def test_fri_commit_matches_jax(fresh):
     jfc.finish_deferred(P, np.asarray(jfri.fri_layers[-1]), jch)
 
     fs = DeviceFS(P, ch.state, device="cpu")
-    fri = tfc.fri_commit(u32_to_tensor(ev), P, offset, fs,
+    fri = tfc.fri_commit(u32_to_tensor(ev, device="cpu"), P, offset, fs,
                          num_folds=num_folds)
     for got, want in zip(fri.fri_layers, jfri.fri_layers):
         np.testing.assert_array_equal(tensor_to_u32(got), np.asarray(want))
@@ -95,7 +95,7 @@ def test_fri_verify_accepts_replayed_layers_and_rejects_tampering():
     ev = _low_degree(n, 8, offset, seed=9)
     ch = Channel(P)
     fs = DeviceFS(P, ch.state, device="cpu")
-    fri = tfc.fri_commit(u32_to_tensor(ev), P, offset, fs,
+    fri = tfc.fri_commit(u32_to_tensor(ev, device="cpu"), P, offset, fs,
                          num_folds=num_folds)
     fs.replay_fetched(ch, [t.reshape(-1).numpy() for t in fs.payloads()])
     tfc.finish_deferred(P, tensor_to_u32(fri.fri_layers[-1]), ch)

@@ -47,6 +47,24 @@ def test_k1_ntt_matches_plain(dev, p, log_n, inverse):
     assert torch.equal(got, ntt_plain(x, p, inverse))
 
 
+@pytest.mark.parametrize("p,log_n,rows_log", [(P, 12, 5), (P, 14, 4),
+                                              (P, 16, 7), (P, 11, 11),
+                                              (97, 5, 2), (P, 23, 11)])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_k2_ntt_matches_plain(dev, p, log_n, rows_log, inverse):
+    from stark_tpu_torch.ntt.cuda_ntt import (ntt_plain, ntt_three_step,
+                                              ntt_three_step_plain)
+
+    x = _u32(1 << log_n, p, log_n, dev)
+    before = ntt_three_step.launches
+    got = ntt_three_step(x, p, inverse, rows_log)
+    torch.cuda.synchronize()
+    assert ntt_three_step.launches == before + 1
+    assert torch.equal(got, ntt_three_step_plain(x, p, inverse, rows_log))
+    if log_n <= 16:
+        assert torch.equal(got, ntt_plain(x, p, inverse))
+
+
 @pytest.mark.parametrize("n", [1, 2, 255, 4096])
 def test_k3_k4_match_plain(dev, n):
     from stark_tpu_torch.hash.cuda_sha import sha_leaves, sha_nodes

@@ -34,7 +34,7 @@ def _bytes(row) -> bytes:
 def test_leaves_match_hashlib_and_jax():
     v = np.concatenate([np.array([0, 1, P - 1, 2**32 - 1], np.uint32),
                         _vals(60, 1)])
-    got = tensor_to_u32(sha256_u64_leaves(u32_to_tensor(v)))
+    got = tensor_to_u32(sha256_u64_leaves(u32_to_tensor(v, device="cpu")))
     for i, x in enumerate(v):
         # the 8-byte big-endian leaf preimage (merkle/mod.rs:14-16)
         assert _bytes(got[i]) == hashlib.sha256(
@@ -45,7 +45,7 @@ def test_leaves_match_hashlib_and_jax():
 
 def test_pairs_match_hashlib_and_jax():
     kids = _vals(64 * 8, 2, 2**32).reshape(64, 8)
-    got = tensor_to_u32(sha256_pairs(u32_to_tensor(kids)))
+    got = tensor_to_u32(sha256_pairs(u32_to_tensor(kids, device="cpu")))
     for j in range(32):
         assert _bytes(got[j]) == hashlib.sha256(
             _bytes(kids[2 * j]) + _bytes(kids[2 * j + 1])).digest()
@@ -55,7 +55,7 @@ def test_pairs_match_hashlib_and_jax():
 
 
 def test_wrappers_write_into_out_views():
-    v = u32_to_tensor(_vals(16, 3))
+    v = u32_to_tensor(_vals(16, 3), device="cpu")
     buf = torch.zeros((31, 8), dtype=torch.int32)
     sha_leaves(v, out=buf[:16])
     sha_nodes(buf[:16], out=buf[16:24])
@@ -69,7 +69,7 @@ def test_wrappers_write_into_out_views():
 def test_tree_root_and_paths_match_jax(log_n):
     n = 1 << log_n
     v = _vals(n, 10 + log_n)
-    t = MerkleTree(u32_to_tensor(v))
+    t = MerkleTree(u32_to_tensor(v, device="cpu"))
     jt = JMerkleTree(jnp.asarray(v))
     assert t.root() == jt.root() == merkle_root_host(v.tolist())
     assert t.levels[-1].shape == (1, 8)
@@ -96,7 +96,7 @@ def test_tree_matches_jax_pallas_build_interpret():
     v = _vals(n, 42)
     levels = build_tree_bitrev(jnp.asarray(v), interpret=True)
     jt = JMerkleTree(None, device_levels=levels, layouts=bitrev_layouts(n))
-    t = MerkleTree(u32_to_tensor(v))
+    t = MerkleTree(u32_to_tensor(v, device="cpu"))
     assert t.root() == jt.root()
     for i in (0, 77, 128, 255):
         assert t.get_authentication_path(i) == jt.get_authentication_path(i)
@@ -104,7 +104,7 @@ def test_tree_matches_jax_pallas_build_interpret():
 
 def test_storage_layout_is_natural_and_contiguous():
     n = 32
-    v = u32_to_tensor(_vals(n, 5))
+    v = u32_to_tensor(_vals(n, 5), device="cpu")
     t = MerkleTree(v)
     assert level_offsets(n) == [(0, 32), (32, 16), (48, 8), (56, 4),
                                 (60, 2), (62, 1)]
@@ -116,4 +116,4 @@ def test_storage_layout_is_natural_and_contiguous():
 
 def test_unported_tree_shapes_raise():
     with pytest.raises(NotImplementedError, match="power-of-two"):
-        MerkleTree(u32_to_tensor(_vals(6, 1)))
+        MerkleTree(u32_to_tensor(_vals(6, 1), device="cpu"))

@@ -15,6 +15,8 @@ from stark_tpu.stark import prove as jprove
 from stark_tpu.stark import verify as jverify
 from stark_tpu_torch.config import ProverConfig
 from stark_tpu_torch.interop import config_fields, config_from
+from stark_tpu_torch.ntt import cuda_ntt
+from stark_tpu_torch.ntt import ntt as tn
 from stark_tpu_torch.stark import (StarkProof, StarkVerificationError, prove,
                                    verify)
 from stark_tpu_torch.stark import prover as tprover
@@ -60,6 +62,25 @@ def test_prove_2e11_equals_jax(proofs_2e11):
     port, ref = proofs_2e11
     assert port.proof == ref.proof
     assert port.publics == ref.publics
+    assert port.serialize() == ref.serialize()
+
+
+def test_prove_2e11_through_k2_route_equals_jax(proofs_2e11, monkeypatch):
+    """With K2 forced above 2^9 (a 2^5-row split), the trace INTT (2^11)
+    and the LDE (2^14) both take the three-step dataflow, and the
+    transcript still equals the JAX prove's."""
+    _, ref = proofs_2e11
+    monkeypatch.setattr(cuda_ntt, "MAX_LOG_N", 9)
+    monkeypatch.setattr(cuda_ntt, "ROWS_LOG", 5)
+    sizes = []
+
+    def k2(x, p, inverse, rows_log):
+        sizes.append((int(x.shape[0]), inverse, rows_log))
+        return cuda_ntt.ntt_three_step(x, p, inverse, rows_log)
+
+    monkeypatch.setattr(tn, "ntt_three_step", k2)
+    port = prove(ProverConfig(**CFG_2E11), device="cpu")
+    assert sizes == [(1 << 11, True, 5), (1 << 14, False, 5)]
     assert port.serialize() == ref.serialize()
 
 
