@@ -12,14 +12,22 @@ statement at 2^20 rows and at 2^24 rows (blowup 4, 16 queries; LDE 2^22
 and 2^26) twice each: the two transcripts must agree, the port's host
 verifier must accept the proof and reject it with one byte flipped, and
 the kernels of each path must have launched (K1 on the 2^20 path; K2
-exactly twice, K3, K4 and K5 on the 2^24 path).
+exactly twice, K3, K4 and K5 on the 2^24 path; K5's query form exactly
+once per prove).  K5 has two entry points, the chain form (the
+channel's absorbs and draws) and the query form (all queries of a prove
+in one launch); both count as K5 and both are held against their plain
+versions: the chain form on a 5,000-block stream with mixed flags and on
+the proves' query streams, the query form on the 2^20 and 2^24 plans
+with seeded trees.
 
 The ``kernels`` line gives each kernel's time and its plain version's
 (CUDA events, median of 5 after a warm-up) beside its bound: the larger
 of the bytes it must move over 3.35 TB/s and its 32-bit integer
 operations over a derived peak of SMs x 128 (four schedulers, each one
 32-lane instruction a clock) x the maximum SM clock that nvidia-smi
-reports (K5, one serial chain: its latency bound).
+reports.  K5 is one serial chain: its bound is a latency bound, with the
+dependent-issue latency that a clock64 probe measures on the card in
+this run (printed beside the assumed 4 cycles).
 
 ``--profile`` then adds where a warm prove spends its time, at 2^20 and
 at 2^24 rows: a phase split synced after each phase, five warm walls,
@@ -82,19 +90,34 @@ MONT_OPS, ADDSUB_OPS, FROM_MONT_OPS = 6, 2, 4
 SHA_ROUND_OPS, SHA_SCHED_OPS = 14, 10
 SHA_OPS = 64 * SHA_ROUND_OPS + 48 * SHA_SCHED_OPS + 8
 SHA_PAD_OPS = 64 * SHA_ROUND_OPS + 8
-# K5's latency bound: per round the new e waits on 4 dependent operations
-# (two of Sigma1, the 3-input add of T1, d + T1), at an assumed 4 cycles
-# each (the dependent-issue latency of an integer op on recent NVIDIA SMs)
-CHAIN_DEP_OPS, DEP_CYCLES = 4, 4
+# K5's latency bound: per round the new e is at least 3 dependent
+# operations after the last (a funnel shift and the xor3 of Sigma1, then
+# one 3-input add of Sigma1, Ch and d + h + K + W, which is formed rounds
+# ahead), at an assumed 4 cycles each (the dependent-issue latency of an
+# integer op on recent NVIDIA SMs) or at what the probe measures; the
+# earlier count of 4 operations (T1, then d + T1) is printed beside it
+CHAIN_DEP_OPS, DEP_CYCLES, OLD_CHAIN_DEP_OPS = 3, 4, 4
+# the probe: steps per timed loop and loops, per mode of stark_dep_latency
+# (0 SHF, 1 LOP3, 2 SHF -> LOP3 -> add, 3 and 4 independent SHF / LOP3)
+PROBE_STEPS, PROBE_ITERS = 64, 4096
+PROBE_MODES = {0: ("shf (dependent)", 1), 1: ("lop3 xor3 (dependent)", 1),
+               2: ("shf -> lop3 -> add (dependent)", 3),
+               3: ("shf (8 independent chains)", 1),
+               4: ("lop3 xor3 (8 independent chains)", 1)}
+# the long mixed-flag stream of the chain form: ten 512-row chunks; the
+# first 4096 of its rows also time a block by kind
+LONG_STREAM, ROW_COST_BLOCKS = 5000, 4096
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_ms(fn, reps: int = REPS) -> float:
-    """Median of `reps` CUDA-event timings of fn() after one warm-up."""
-    fn()
+def cuda_ms(fn, reps: int = REPS, warm: bool = True) -> float:
+    """Median of `reps` CUDA-event timings of fn() (after one warm-up
+    unless `warm` is false)."""
+    if warm:
+        fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
@@ -131,6 +154,18 @@ def rand_u32_dev(gen, shape, bound, device) -> torch.Tensor:
     return vals.to(torch.int32)
 
 
+def rand_words_dev(gen, shape, device) -> torch.Tensor:
+    """Seeded random 32-bit words made on the card in place, 2^26 at a
+    time (the query form's trees: up to 2^31 words)."""
+    out = torch.empty(shape, dtype=torch.int32, device=device)
+    flat = out.view(-1)
+    for k in range(0, flat.numel(), 1 << 26):
+        part = flat[k:k + (1 << 26)]
+        part.random_(generator=gen)  # [0, 2^31)
+        part.bitwise_xor_(part << 1)  # a random top bit too
+    return out
+
+
 class Card:
     """The card's rates for the bounds, read in this run."""
 
@@ -143,6 +178,8 @@ class Card:
         self.sms = torch.cuda.get_device_properties(0).multi_processor_count
         self.int32_ops_per_s = (self.sms * INT32_OPS_PER_SM_CLOCK
                                 * self.clock_hz)
+        # cycles a round's critical path takes, set by phase_latency
+        self.round_cycles = None
         log(f"bound rates: {HBM_BYTES_PER_S:.3e} B/s; derived int32 peak "
             f"{self.int32_ops_per_s:.4e} op/s ({self.sms} SMs x "
             f"{INT32_OPS_PER_SM_CLOCK} x {self.clock_hz / 1e6:.0f} MHz)")
@@ -163,11 +200,24 @@ class Card:
                + n * (2 * MONT_OPS + FROM_MONT_OPS + MONT_OPS * inverse))
         return self.bound(8 * n, ops)
 
-    def chain_bound(self, blocks: int) -> tuple[float, str]:
+    def chain_bound(self, blocks: int, round_cycles=None):
         """K5's latency bound: `blocks` compressions of 64 dependent
-        rounds, one after another."""
-        cycles = blocks * 64 * CHAIN_DEP_OPS * DEP_CYCLES
+        rounds, one after another, each `round_cycles` long (default: the
+        measured critical path of a round)."""
+        cycles = blocks * 64 * (round_cycles or self.round_cycles)
         return cycles / self.clock_hz * 1e3, "operations"
+
+    def chain_bounds_text(self, blocks: int, ms: float) -> str:
+        """The kernel time against the measured and the assumed bounds."""
+        out = []
+        for what, rc in (("measured", self.round_cycles),
+                         ("assumed 3 x 4 cycles", CHAIN_DEP_OPS * DEP_CYCLES),
+                         ("earlier 4 x 4 cycles",
+                          OLD_CHAIN_DEP_OPS * DEP_CYCLES)):
+            b = self.chain_bound(blocks, rc)[0]
+            out.append(f"{what} {b:.4f} ms (x{ms / b:.2f})")
+        return (f"{blocks} blocks, {ms / blocks * 1e6:.1f} ns a block; "
+                f"latency bound " + ", ".join(out))
 
 
 class Results:
@@ -194,16 +244,21 @@ class Results:
         row["max_abs_err"] = max(row["max_abs_err"], err)
 
     def time(self, kernel: str, shape: str, kernel_fn, plain_fn, bound,
-             row: bool = True) -> None:
+             row: bool = True, plain_reps: int = REPS) -> dict:
         """Time kernel_fn and plain_fn (same inputs) and log them beside
-        `bound` (ms, by); `row` puts them in the kernels line."""
-        ms, pms = cuda_ms(kernel_fn), cuda_ms(plain_fn)
+        `bound` (ms, by); `row` puts them in the kernels line.  With
+        `plain_reps` below REPS the plain version, already run by its
+        check, is timed that many times without a warm-up."""
+        ms = cuda_ms(kernel_fn)
+        pms = cuda_ms(plain_fn, plain_reps, warm=plain_reps == REPS)
         log(f"{kernel} {shape}: kernel {ms:.4f} ms, plain {pms:.4f} ms, "
             f"bound {bound[0]:.4f} ms ({bound[1]}); kernel / bound "
             f"{ms / bound[0]:.2f}")
+        got = dict(ms=ms, plain_ms=pms, bound_ms=bound[0], bound_by=bound[1],
+                   shape=shape)
         if row:
-            self.rows[kernel].update(ms=ms, plain_ms=pms, bound_ms=bound[0],
-                                     bound_by=bound[1], shape=shape)
+            self.rows[kernel].update(got)
+        return got
 
 
 def phase_device() -> str:
@@ -320,16 +375,56 @@ def phase_tree(res: Results, dev) -> None:
              res.card.bound(96 * m, (SHA_OPS + SHA_PAD_OPS) * m))
 
 
+def phase_latency(card: Card, dev) -> None:
+    """The dependent-issue latency of 32-bit integer operations on this
+    card (a clock64 loop over dependent SHF / LOP3 / add chains), and
+    from it the critical path of a SHA-256 round that K5's bound uses."""
+    from stark_tpu_torch import _build
+
+    lib = _build.lib("sha_chain")
+    out = torch.zeros(2, dtype=torch.int64, device=dev)
+    per_op = {}
+    for mode, (what, ops) in PROBE_MODES.items():
+        for _ in range(2):  # the first run loads the code
+            _build.check(lib.stark_dep_latency(
+                out.data_ptr(), mode, PROBE_ITERS, _build.stream_ptr(dev)),
+                "the latency probe")
+            torch.cuda.synchronize()
+        cycles = int(out[0])
+        per_op[mode] = cycles / (PROBE_ITERS * PROBE_STEPS * ops)
+        log(f"latency probe {what}: {cycles} cycles for "
+            f"{PROBE_ITERS * PROBE_STEPS * ops} operations, "
+            f"{per_op[mode]:.3f} cycles each")
+    card.round_cycles = per_op[2] * CHAIN_DEP_OPS
+    log(f"K5 round critical path: {card.round_cycles:.3f} cycles measured "
+        f"(shf -> lop3 -> add), against {CHAIN_DEP_OPS} x {DEP_CYCLES} = "
+        f"{CHAIN_DEP_OPS * DEP_CYCLES} assumed; one warp issues an "
+        f"independent shf every {per_op[3]:.3f} cycles, an independent "
+        f"lop3 every {per_op[4]:.3f}")
+    for blocks in (757, 997):
+        log(f"K5 latency bound at {blocks} blocks: measured "
+            f"{card.chain_bound(blocks)[0]:.4f} ms, assumed "
+            f"{card.chain_bound(blocks, CHAIN_DEP_OPS * DEP_CYCLES)[0]:.4f} "
+            f"ms, earlier 4-operation form "
+            f"{card.chain_bound(blocks, OLD_CHAIN_DEP_OPS * DEP_CYCLES)[0]:.4f}"
+            " ms")
+
+
 def phase_chain(res: Results, dev) -> None:
-    """K5 on the streams the proves send it, with seeded openings: the
-    fresh channel's first absorb on its own (3 blocks, FIRST_ROW layout),
-    then for each path one chain of a later absorb, one query of that
-    configuration (built by the prover's own query plan) and a reset-only
-    row."""
+    """K5's chain form on the streams the proves send it, with seeded
+    openings: the fresh channel's first absorb on its own (3 blocks,
+    FIRST_ROW layout), a 5,000-block stream with mixed flags (ten staged
+    chunks), then for each path one chain of a later absorb, one query of
+    that configuration (built by the prover's own query plan) and a
+    reset-only row.  Then K5's query form on each path's plan with seeded
+    trees: all 16 queries in one launch against the per-query plain
+    loop, on all four outputs."""
     from stark_tpu_torch.channel.device_channel import absorb_stream
+    from stark_tpu_torch.channel.device_query import (query_chain,
+                                                      query_chain_plain)
     from stark_tpu_torch.config import ProverConfig
-    from stark_tpu_torch.hash.cuda_chain import (FIRST_ROW, sha_chain,
-                                                 sha_chain_plain)
+    from stark_tpu_torch.hash.cuda_chain import (FIRST_HEX, FIRST_ROW,
+                                                 sha_chain, sha_chain_plain)
     from stark_tpu_torch.stark.prover import query_plan
 
     rs = np.random.RandomState(SEED + 2)
@@ -338,9 +433,32 @@ def phase_chain(res: Results, dev) -> None:
     s0, f0 = absorb_stream(root, initial=True)
     res.check("K5", f"first absorb ({s0.shape[0]} blocks)",
               sha_chain(s0, f0, zero), sha_chain_plain(s0, f0, zero))
+    first = rs.choice([0, 0, 0, 0, FIRST_HEX, FIRST_ROW], size=LONG_STREAM)
+    last = rs.randint(0, 2, size=LONG_STREAM)
+    fl = torch.from_numpy(np.stack([first, last], 1).astype(np.int32)).to(dev)
+    stream = rand_u32(rs, (LONG_STREAM, 16), 1 << 32, dev)
+    chain = rand_u32(rs, 8, 1 << 32, dev)
+    res.check("K5", f"chain form, {LONG_STREAM} blocks of mixed flags",
+              sha_chain(stream, fl, chain), sha_chain_plain(stream, fl, chain))
+    # what a block costs by kind: W + K staged by the other warps, or a
+    # FIRST_HEX row whose hex and schedule run on the chain's thread
+    rows = stream[:ROW_COST_BLOCKS]
+    for what, pair in (("rows with W + K staged", (0, 0)),
+                       ("FIRST_HEX rows", (FIRST_HEX, 1))):
+        fk = torch.tensor([pair] * ROW_COST_BLOCKS, dtype=torch.int32,
+                          device=dev)
+        ms = cuda_ms(lambda: sha_chain(rows, fk, chain))
+        cycles = ms * 1e-3 * res.card.clock_hz / ROW_COST_BLOCKS
+        log(f"K5 chain form, {ROW_COST_BLOCKS} {what}: {ms:.4f} ms, "
+            f"{ms / ROW_COST_BLOCKS * 1e6:.1f} ns a block, {cycles:.0f} "
+            f"cycles a block ({cycles / 64:.2f} a round) at "
+            f"{res.card.clock_hz / 1e6:.0f} MHz")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 2)
     for name, kw in PROVES.items():
         plan = query_plan(ProverConfig(**kw))
-        nv, nd = len(plan._val_rows), len(plan._dig_rows)
+        tb = plan.pack(dev)
+        nv, nd = tb.num_values, int(tb.slots.shape[0]) - tb.num_values
         sq, fq = plan.stream(rand_u32(rs, nv, P, dev),
                              rand_u32(rs, (nd, 8), 1 << 32, dev))
         s1, f1 = absorb_stream(root, initial=False)
@@ -353,13 +471,41 @@ def phase_chain(res: Results, dev) -> None:
         res.check("K5", f"{what} ({blocks} blocks)",
                   sha_chain(stream, fl, chain),
                   sha_chain_plain(stream, fl, chain))
-        res.time("K5", f"{what}, {blocks} blocks",
-                 lambda: sha_chain(stream, fl, chain),
-                 lambda: sha_chain_plain(stream, fl, chain),
-                 res.card.chain_bound(blocks), row=name == PATH)
+        got = res.time("K5", f"{what}, {blocks} blocks",
+                       lambda: sha_chain(stream, fl, chain),
+                       lambda: sha_chain_plain(stream, fl, chain),
+                       res.card.chain_bound(blocks), row=name == PATH)
+        log(f"K5 chain form, {name}: "
+            f"{res.card.chain_bounds_text(blocks, got['ms'])}")
+        del stream, fl
+
+        # the query form: the plan's buffers with seeded words
+        n_f, n_td, n_fv, n_fd = tb.sizes
+        args = (rand_u32(rs, 8, 1 << 32, dev),
+                rand_words_dev(gen, (n_f,), dev),
+                rand_words_dev(gen, (n_td, 8), dev),
+                rand_words_dev(gen, (n_fv,), dev),
+                rand_words_dev(gen, (n_fd, 8), dev))
+        got = query_chain(*args, tb)
+        want = query_chain_plain(*args, tb)
+        for out, a, b in zip(("final chain", "idxs", "vals", "digs"), got,
+                             want):
+            res.check("K5", f"query form, {name} plan, "
+                      f"{tb.num_queries} queries: {out}", a, b)
+        blocks = tb.num_queries * int(tb.template.shape[0])
+        got = res.time(
+            "K5", f"query form, {name} plan, {tb.num_queries} queries "
+            f"({blocks} blocks)", lambda: query_chain(*args, tb),
+            lambda: query_chain_plain(*args, tb),
+            res.card.chain_bound(blocks), row=False, plain_reps=1)
+        log(f"K5 query form, {name}: "
+            f"{res.card.chain_bounds_text(blocks, got['ms'])}")
+        res.rows["K5"].setdefault("query_form", {})[name] = got
+        del args, got, want
+        torch.cuda.empty_cache()
 
 
-def phase_golden(dev) -> None:
+def phase_golden() -> None:
     from stark_tpu_torch.config import ProverConfig
     from stark_tpu_torch.stark import StarkProof, prove
 
@@ -374,20 +520,24 @@ def phase_golden(dev) -> None:
                                           num_queries=4), 3141592),
     }
     for name, (cfg, a1) in cases.items():
-        got = prove(cfg, a1=a1, device=dev).proof
+        got = prove(cfg, a1=a1).proof  # no device: the card by default
         want = StarkProof.deserialize(json.dumps(vectors[name]).encode()).proof
         if got != want:
             raise AssertionError(f"golden vector {name}: transcript differs")
-        log(f"golden {name}: {len(got)} messages, byte-identical")
+        log(f"golden {name} (prove() with its default device): "
+            f"{len(got)} messages, byte-identical")
 
 
 def counters() -> dict:
+    """Each kernel's wrappers (K5 has two entry points, both counted)."""
+    from stark_tpu_torch.channel.device_query import query_chain
     from stark_tpu_torch.hash.cuda_chain import sha_chain
     from stark_tpu_torch.hash.cuda_sha import sha_leaves, sha_nodes
     from stark_tpu_torch.ntt.cuda_ntt import ntt_three_step, ntt_two_step
 
-    return {"K1": ntt_two_step, "K2": ntt_three_step, "K3": sha_leaves,
-            "K4": sha_nodes, "K5": sha_chain}
+    return {"K1": (ntt_two_step,), "K2": (ntt_three_step,),
+            "K3": (sha_leaves,), "K4": (sha_nodes,),
+            "K5": (sha_chain, query_chain)}
 
 
 def drop_plans() -> None:
@@ -412,13 +562,16 @@ def phase_prove(res: Results, dev, name: str) -> None:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    for fn in counters().values():
-        fn.launches = 0
+    for fns in counters().values():
+        for fn in fns:
+            fn.launches = 0
     t0 = time.perf_counter()
     cold = prove(cfg, device=dev)
     torch.cuda.synchronize()
     cold_s = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in counters().items()}
+    launches = {k: sum(fn.launches for fn in fns)
+                for k, fns in counters().items()}
+    query_form = counters()["K5"][1].launches
     peak = torch.cuda.max_memory_allocated()
     t0 = time.perf_counter()
     warm = prove(cfg, device=dev)
@@ -428,7 +581,8 @@ def phase_prove(res: Results, dev, name: str) -> None:
         f"{warm_s:.3f} s, peak device memory {peak / 2**20:.1f} MiB "
         f"({base / 2**20:.1f} MiB allocated before it), "
         f"{len(cold.proof)} messages, {cold.size_bytes()} bytes")
-    log(f"launches during the cold {name} prove: {launches}")
+    log(f"launches during the cold {name} prove: {launches} (K5: "
+        f"{query_form} of the query form)")
     if cold.proof != warm.proof:
         raise AssertionError(f"{name} prove is not deterministic")
     blob = cold.serialize()
@@ -453,6 +607,9 @@ def phase_prove(res: Results, dev, name: str) -> None:
         if launches[k] == 0:
             raise AssertionError(f"kernel {k} never launched in the {name} "
                                  "prove")
+    if query_form != 1:
+        raise AssertionError(f"K5's query form launched {query_form} times "
+                             f"in the {name} prove, expected 1")
     if name == "2^24" and launches["K2"] != 2:
         raise AssertionError(f"K2 launched {launches['K2']} times in the "
                              "2^24 prove, expected 2 (trace INTT, LDE)")
@@ -514,7 +671,7 @@ def phase_split(cfg, dev) -> dict:
     fs.state = absorb_value(fs.state, torch.zeros_like(last[0]), last[0])
     dev_out = plan.run_device(fs.state, lde, tree.buffer, fri.values,
                               fri.digests)
-    mark("query phase (K5 per query)")
+    mark("query phase (K5 query form)")
     torch.cat([x.reshape(-1).to(torch.int32)
                for x in (*fs.payloads(), last, *dev_out)]).cpu()
     mark("fetch")
@@ -607,7 +764,8 @@ def main() -> int:
     dev = torch.device("cuda:0")
     kind = phase_device()
     phase_build()
-    res = Results(Card())
+    card = Card()
+    res = Results(card)
     for name, source, replaces in (
             ("K1", "stark_tpu_torch/csrc/ntt.cu",
              "stark_tpu/ntt/pallas_ntt.py:188"),
@@ -618,12 +776,14 @@ def main() -> int:
             ("K4", "stark_tpu_torch/csrc/sha256_tree.cu",
              "stark_tpu/hash/pallas_sha.py:124"),
             ("K5", "stark_tpu_torch/csrc/sha_chain.cu",
-             "stark_tpu/hash/pallas_chain.py:80")):
+             "stark_tpu/hash/pallas_chain.py:80 (and, for the query form, "
+             "the lax.scan of stark_tpu/channel/device_query.py:314)")):
         res.add(name, source, replaces)
+    phase_latency(card, dev)
     phase_ntt(res, dev)
     phase_tree(res, dev)
     phase_chain(res, dev)
-    phase_golden(dev)
+    phase_golden()
     for name in PROVES:
         phase_prove(res, dev, name)
     if args.profile:

@@ -39,7 +39,11 @@ SIGNATURES = {
                                      _U, _U, _U, _U, _P]},
     "sha256_tree": {"stark_sha_leaves": [_P, _P, _I, _P],
                     "stark_sha_nodes": [_P, _P, _I, _P]},
-    "sha_chain": {"stark_sha_chain": [_P, _P, _P, _P, _I, _P]},
+    "sha_chain": {"stark_sha_chain": [_P, _P, _P, _P, _I, _P],
+                  "stark_query_chain": [_P] * 8 + [_I, _I, _I, _U, _I]
+                                       + [_P] * 5,
+                  "stark_query_chain_max_rows": [],
+                  "stark_dep_latency": [_P, _I, _I, _P]},
     "host_trace": {"stark_fib_trace": [_U64, _U64, _U64, _SZ, _P]},
 }
 # host libraries (C++ for the CPU, functions return void): name -> source

@@ -12,10 +12,15 @@ For each query, on the device and without a host sync:
 Every ``Channel.send`` hashes utf8(state_hex ++ msg_hex): a first block
 that is exactly the 64-char state hex, then the message's hex chars and
 static SHA padding.  So a query is one flagged block stream (see
-``hash/cuda_chain.py``), run through kernel K5 once per query; queries
-chain through the state.  The stream's constant rows and flags are built
-once per plan; per query only the opened values and digests are
-gathered (one index operation per buffer) and written in as hex rows.
+``hash/cuda_chain.py``); queries chain through the state.  The stream's
+constant rows and flags are built once per plan and packed, with one
+gather slot per opened value and digest, into :class:`QueryTables`.  On
+a CUDA device the whole phase is ONE launch of K5's query form
+(``csrc/sha_chain.cu`` ``stark_query_chain``): per query the kernel
+draws idx, gathers through the slot table, writes the hex rows into its
+shared-memory copy of the template and runs the chain, as the JAX
+package's ``lax.scan`` over queries does.  :func:`query_chain_plain`
+runs the same tables as a per-query loop.
 
 The host then replays the canonical transcript from the one fetch and
 checks that the device-derived chain equals the host derivation.
@@ -23,16 +28,128 @@ checks that the device-derived chain equals the host derivation.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
+from stark_tpu_torch import _build
 from stark_tpu_torch.channel.device_channel import (VALUE_TAIL,
                                                     ascii_hex_words,
                                                     mod_state, pad_row)
 from stark_tpu_torch.fields.fp import store
 from stark_tpu_torch.fri.commit import layer_layout
-from stark_tpu_torch.hash.cuda_chain import FIRST_HEX, sha_chain
+from stark_tpu_torch.hash.cuda_chain import FIRST_HEX, sha_chain_plain
 from stark_tpu_torch.merkle.tree import level_offsets
+
+# the slot table's columns; a slot reads position
+# base + ((((idx + add) & mask) ^ xr) >> shift) ^ flip of its source
+SLOT_COLUMNS = ("source", "base", "add", "mask", "xr", "shift", "flip",
+                "row")
+# sources, in slot order: trace values, FRI values, trace digests, FRI
+# digests (the order of DeviceQueryPlan._slots and of the kernel's enum)
+TRACE_VALUE, FRI_VALUE, TRACE_DIGEST, FRI_DIGEST = range(4)
+HEX_ZEROS = 0x30303030  # "0000"
+
+
+@dataclasses.dataclass(frozen=True)
+class QueryTables:
+    """One plan's packed tables, on one device, as K5's query form reads
+    them."""
+
+    template: torch.Tensor  # (R, 16) int32 stream rows, constants in place
+    flags: torch.Tensor  # (R, 2) int32 (first, last)
+    slots: torch.Tensor  # (S, 8) int64 rows of SLOT_COLUMNS, values first
+    num_values: int
+    rng: int
+    num_queries: int
+    # f_evals length, trace tree rows, FRI values length, FRI digest rows
+    sizes: tuple
+
+
+def _assemble(tb: QueryTables, v: torch.Tensor, d: torch.Tensor):
+    """One query's stream: the template with the hex of the opened values
+    (Nv,) and digests (Nd, 8) written into their rows."""
+    nv = tb.num_values
+    rows = tb.slots[:, 7]
+    stream = tb.template.clone()
+    stream[rows[:nv], 2:4] = store(ascii_hex_words(v[:, None]))
+    stream[rows[nv:]] = store(ascii_hex_words(d))
+    return stream
+
+
+def query_chain_plain(chain, f_evals, trace_digests, fri_values,
+                      fri_digests, tb: QueryTables):
+    """Plain version of K5's query form, with the kernel's inputs: the
+    per-query loop over the packed tables, gathers on the tensors'
+    device, each query's chain through :func:`sha_chain_plain` (on the
+    host).  Returns (final chain (8,), idxs (Q,) int64, vals (Q, Nv),
+    digs (Q, Nd, 8))."""
+    dev = chain.device
+    nv = tb.num_values
+    nd = int(tb.slots.shape[0]) - nv
+    cols = dict(zip(SLOT_COLUMNS, tb.slots.unbind(1)))
+    src = tb.slots[:, 0].cpu()
+    sel = [torch.nonzero(src == k).flatten().to(dev) for k in range(4)]
+    idxs = torch.empty(tb.num_queries, dtype=torch.int64, device=dev)
+    vals = torch.empty((tb.num_queries, nv), dtype=torch.int32, device=dev)
+    digs = torch.empty((tb.num_queries, nd, 8), dtype=torch.int32,
+                       device=dev)
+    for q in range(tb.num_queries):
+        idx = mod_state(chain, tb.rng)
+        pos = _positions(cols, idx)
+        v, d = vals[q], digs[q]
+        v[sel[TRACE_VALUE]] = f_evals[pos[sel[TRACE_VALUE]]]
+        v[sel[FRI_VALUE]] = fri_values[pos[sel[FRI_VALUE]]]
+        d[sel[TRACE_DIGEST] - nv] = trace_digests[pos[sel[TRACE_DIGEST]]]
+        d[sel[FRI_DIGEST] - nv] = fri_digests[pos[sel[FRI_DIGEST]]]
+        chain = sha_chain_plain(_assemble(tb, v, d), tb.flags, chain)
+        idxs[q] = idx
+    return chain, idxs, vals, digs
+
+
+def query_chain(chain, f_evals, trace_digests, fri_values, fri_digests,
+                tb: QueryTables):
+    """K5's query form: every query of the phase in one launch.  A CPU
+    tensor runs :func:`query_chain_plain`; a CUDA tensor launches the
+    kernel or raises."""
+    if _build.plain_device(chain):
+        return query_chain_plain(chain, f_evals, trace_digests, fri_values,
+                                 fri_digests, tb)
+    lib = _build.lib("sha_chain")
+    nrows, nslots = int(tb.template.shape[0]), int(tb.slots.shape[0])
+    if nrows > lib.stark_query_chain_max_rows():
+        raise ValueError(
+            f"query stream of {nrows} rows exceeds the shared memory of "
+            f"K5's query form ({lib.stark_query_chain_max_rows()} rows)")
+    n_f, n_td, n_fv, n_fd = tb.sizes
+    _build.require(chain, "chain", (8,))
+    _build.require(f_evals, "f_evals", (n_f,))
+    _build.require(trace_digests, "trace_digests", (n_td, 8), align=16)
+    _build.require(fri_values, "fri_values", (n_fv,))
+    _build.require(fri_digests, "fri_digests", (n_fd, 8), align=16)
+    _build.require(tb.template, "template", (nrows, 16), align=16)
+    _build.require(tb.flags, "flags", (nrows, 2), align=8)
+    _build.require(tb.slots, "slots", (nslots, 8), dtype=torch.int64,
+                   align=8)
+    dev, q_n, nv = chain.device, tb.num_queries, tb.num_values
+    out = torch.empty(8, dtype=torch.int32, device=dev)
+    idxs = torch.empty(q_n, dtype=torch.int64, device=dev)
+    vals = torch.empty((q_n, nv), dtype=torch.int32, device=dev)
+    digs = torch.empty((q_n, nslots - nv, 8), dtype=torch.int32, device=dev)
+    _build.check(lib.stark_query_chain(
+        chain.data_ptr(), f_evals.data_ptr(), trace_digests.data_ptr(),
+        fri_values.data_ptr(), fri_digests.data_ptr(),
+        tb.template.data_ptr(), tb.flags.data_ptr(), tb.slots.data_ptr(),
+        nrows, nslots, nv, tb.rng, q_n, out.data_ptr(), idxs.data_ptr(),
+        vals.data_ptr(), digs.data_ptr(), _build.stream_ptr(dev)),
+        "K5 query_chain")
+    query_chain.launches += 1
+    return out, idxs, vals, digs
+
+
+query_chain.launches = 0
+query_chain.plain = query_chain_plain
 
 
 def build_script(num_offsets: int, fri_lengths: tuple) -> list:
@@ -68,10 +185,6 @@ class _Slots:
     def add(self, base, add, mask, xr, shift=0, flip=0):
         for k, v in zip(self.cols, (base, add, mask, xr, shift, flip)):
             self.cols[k].append(v)
-
-    def to(self, device):
-        return {k: torch.tensor(v, dtype=torch.int64, device=device)
-                for k, v in self.cols.items()}
 
 
 def _positions(t: dict, idx: torch.Tensor) -> torch.Tensor:
@@ -154,60 +267,51 @@ class DeviceQueryPlan:
         self._val_rows = val_rows
         self._dig_rows = dig_rows
         self._slots = (tv, fv, td, fd)
-        self._dev_cache: dict = {}
+        self._packed: dict = {}
 
-    def _tables(self, device):
+    def pack(self, device) -> QueryTables:
+        """The plan's tables in the layout the query kernel reads, on
+        `device` (built once per device): the stream template with every
+        constant word in place, the flags, and one slot table row per
+        opened value and digest, values first."""
         key = str(device)
-        if key not in self._dev_cache:
-            self._dev_cache[key] = dict(
-                template=torch.from_numpy(self._template).to(device),
+        if key not in self._packed:
+            tmpl = self._template.copy()
+            # a value row: the 16 hex chars of the 8-byte big-endian value
+            # (8 zeros, then the value's 8, written per query), then padding
+            tmpl[self._val_rows] = np.concatenate(
+                [[HEX_ZEROS, HEX_ZEROS, 0, 0], VALUE_TAIL])
+            rows = iter(self._val_rows + self._dig_rows)
+            slots = [(src, *cols, next(rows))
+                     for src, sl in enumerate(self._slots)
+                     for cols in zip(*sl.cols.values())]
+            _, vt, dt = layer_layout(self.fri_lengths)
+            self._packed[key] = QueryTables(
+                template=torch.from_numpy(
+                    tmpl.astype(np.uint32).view(np.int32)).to(device),
                 flags=torch.from_numpy(self._flags).to(device),
-                val_rows=torch.tensor(self._val_rows, device=device),
-                dig_rows=torch.tensor(self._dig_rows, device=device),
-                value_tail=torch.from_numpy(VALUE_TAIL).to(device),
-                slots=[s.to(device) for s in self._slots])
-        return self._dev_cache[key]
+                slots=torch.tensor(slots, dtype=torch.int64, device=device),
+                num_values=len(self._val_rows), rng=self.rng,
+                num_queries=self.num_queries,
+                sizes=(self.trace_len, 2 * self.trace_len - 1, vt, dt))
+        return self._packed[key]
 
     def stream(self, v: torch.Tensor, d: torch.Tensor):
         """(stream, flags) of one query for K5, from its opened values
         (Nv,) and digests (Nd, 8) in script order."""
-        tb = self._tables(v.device)
-        stream = tb["template"].clone()
-        # 16 hex chars of each 8-byte BE value, then padding
-        hv = ascii_hex_words(torch.stack([torch.zeros_like(v), v], -1))
-        stream[tb["val_rows"]] = torch.cat(
-            [hv, tb["value_tail"].expand(len(self._val_rows), -1)], dim=1)
-        stream[tb["dig_rows"]] = ascii_hex_words(d)
-        return store(stream), tb["flags"]
+        tb = self.pack(v.device)
+        return _assemble(tb, v, d), tb.flags
 
     def run_device(self, state, f_evals, trace_digests, fri_values,
                    fri_digests):
-        """The query phase on the device, no fetch.  `state`: (8,) int32
-        Fiat-Shamir state; `trace_digests` / `fri_digests`: tree buffers
-        in the layout of ``merkle/tree.py`` / ``fri/commit.py``;
-        `fri_values`: every FRI layer concatenated.  Returns
-        (final_state (8,), idxs (Q,) int64, vals (Q, Nv), digs (Q, Nd, 8))
-        in script order."""
-        dev = state.device
-        tb = self._tables(dev)
-        tv, fv, td, fd = tb["slots"]
-        q_n = self.num_queries
-        nv, nd = len(self._val_rows), len(self._dig_rows)
-        idxs = torch.empty(q_n, dtype=torch.int64, device=dev)
-        vals = torch.empty((q_n, nv), dtype=torch.int32, device=dev)
-        digs = torch.empty((q_n, nd, 8), dtype=torch.int32, device=dev)
-        chain = state
-        for q in range(q_n):
-            idx = mod_state(chain, self.rng)
-            v = torch.cat([f_evals[_positions(tv, idx)],
-                           fri_values[_positions(fv, idx)]])
-            d = torch.cat([trace_digests.index_select(0, _positions(td, idx)),
-                           fri_digests.index_select(0, _positions(fd, idx))])
-            chain = sha_chain(*self.stream(v, d), chain)
-            idxs[q] = idx
-            vals[q] = v
-            digs[q] = d
-        return chain, idxs, vals, digs
+        """The query phase on the device, no fetch: one launch of K5's
+        query form on a CUDA device.  `state`: (8,) int32 Fiat-Shamir
+        state; `trace_digests` / `fri_digests`: tree buffers in the
+        layout of ``merkle/tree.py`` / ``fri/commit.py``; `fri_values`:
+        every FRI layer concatenated.  Returns (final_state (8,), idxs (Q,)
+        int64, vals (Q, Nv), digs (Q, Nd, 8)) in script order."""
+        return query_chain(state, f_evals, trace_digests, fri_values,
+                           fri_digests, self.pack(state.device))
 
     def replay(self, channel, final_h, idxs_h, vals_h, digs_h) -> None:
         """Replay the canonical transcript into `channel` from fetched

@@ -56,4 +56,52 @@ __device__ __forceinline__ void compress(uint32_t st[8], uint32_t w[16]) {
   st[4] += e; st[5] += f; st[6] += g; st[7] += h;
 }
 
+// W[i] + K[i] for the 64 rounds of one block (w: its 16 words, used as
+// the rolling schedule), stored four words at a time to out[0..15]: the
+// schedule of a block whose words are known ahead of the chain, computed
+// off the chain's thread (K5's staging warps).
+__device__ __forceinline__ void schedule_kw(uint32_t w[16], uint4* out) {
+#pragma unroll
+  for (int i = 0; i < 64; i += 4) {
+    uint32_t kw[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int r = i + j;
+      if (r >= 16) {
+        const uint32_t x15 = w[(r - 15) & 15], x2 = w[(r - 2) & 15];
+        const uint32_t s0 = rotr(x15, 7) ^ rotr(x15, 18) ^ (x15 >> 3);
+        const uint32_t s1 = rotr(x2, 17) ^ rotr(x2, 19) ^ (x2 >> 10);
+        w[r & 15] += s0 + w[(r - 7) & 15] + s1;
+      }
+      kw[j] = w[r & 15] + K[r];
+    }
+    out[i / 4] = make_uint4(kw[0], kw[1], kw[2], kw[3]);
+  }
+}
+
+// st <- compress(st) from the precomputed kw[i] = W[i] + K[i]: rounds
+// only.  d + h + kw is formed three rounds ahead of its use (d and h are
+// a and e of three rounds before), so the new e is one 3-input add after
+// Sigma1 and Ch: three dependent operations a round (shift, xor3, add3)
+// where T1 then d + T1 takes four.
+__device__ __forceinline__ void compress_kw(uint32_t st[8],
+                                            const uint32_t kw[64]) {
+  uint32_t a = st[0], b = st[1], c = st[2], d = st[3];
+  uint32_t e = st[4], f = st[5], g = st[6], h = st[7];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    const uint32_t hk = h + kw[i];
+    const uint32_t dhk = d + hk;
+    const uint32_t s1 = rotr(e, 6) ^ rotr(e, 11) ^ rotr(e, 25);
+    const uint32_t ch = (e & f) ^ (~e & g);
+    const uint32_t s0 = rotr(a, 2) ^ rotr(a, 13) ^ rotr(a, 22);
+    const uint32_t mj = (a & b) ^ (a & c) ^ (b & c);
+    const uint32_t t1 = hk + s1 + ch;
+    h = g; g = f; f = e; e = dhk + s1 + ch;
+    d = c; c = b; b = a; a = t1 + s0 + mj;
+  }
+  st[0] += a; st[1] += b; st[2] += c; st[3] += d;
+  st[4] += e; st[5] += f; st[6] += g; st[7] += h;
+}
+
 }  // namespace sha

@@ -1,10 +1,12 @@
 // K5: the flagged, strictly sequential SHA-256 block chain of the
-// Fiat-Shamir transcript.
+// Fiat-Shamir transcript, and the query phase built around it.
 //
 // Replaces the TPU kernel stark_tpu/hash/pallas_chain.py
 // _make_chain_kernel (driven by _chain_call / sha_chain; hex helper
-// _hex_words).  Semantics are those of device_query._block_step, with one
-// extension for the port's device channel:
+// _hex_words) and, for the query form, the lax.scan over queries of
+// stark_tpu/channel/device_query.py DeviceQueryPlan._run.  Semantics are
+// those of device_query._block_step, with one extension for the port's
+// device channel:
 //
 //   flags[i] = (first, last)
 //   first == 1: reset the compressor to H0 and hash the 64-char lowercase
@@ -13,14 +15,35 @@
 //               first absorb of a fresh channel, which has no prior state);
 //   last  != 0: the compression output becomes the new chain state.
 //
-// What bounds it on an H100: the latency of one serial chain — every block
-// depends on the one before, so there is no parallelism to use and the
-// time is ~B compressions back to back on one thread.  Design: one thread
-// keeps the compressor and chain state in registers for the whole stream,
-// reads 64 bytes of stream (as four 16-byte loads) and 8 bytes of flags
-// per block, and writes the 32-byte chain state once at the end.  The
-// caller launches it once per query (or per channel operation), so the
-// stream never leaves the card between blocks.
+// What bounds it on an H100: the latency of one serial chain.  Every
+// block depends on the one before, so the time is B compressions back to
+// back on one thread, 64 rounds each, and a round's new e is at least
+// three dependent integer operations after the last (shift, xor3, add3).
+// Design, one block of four warps:
+//
+// * Warp 0, lane 0 is the chain: compressor and chain state in
+//   registers, reading only shared memory.  It computes a message
+//   schedule itself only for FIRST_HEX rows, from the hex of its
+//   registers; every other row arrives as W[0..63] + K ready to add.
+// * Warps 1-3 (96 staging threads) run ahead of it: staging thread p owns
+//   ring slot p and fills it with rows p, p + 96, ... (the row's 64 words
+//   W + K and its flags), one mbarrier pair per slot (full: slot written;
+//   empty: slot read).  So no global load and no schedule word is on the
+//   chain's path.
+// * stark_sha_chain stages the stream into shared memory in chunks of
+//   512 rows with TMA 1-D bulk copies (cp.async.bulk completing on an
+//   mbarrier), two chunk buffers, so a stream of any length runs in
+//   ~94 KB; the staging threads read each row's 8-byte flags from global
+//   memory as they fill its slot, off the chain's path.
+// * stark_query_chain runs all queries of the query phase in one launch:
+//   for each query the block draws idx = int(state_hex, 16) mod range,
+//   gathers every opened value and authentication-path digest through
+//   the plan's slot table, writes them as hex into its shared-memory copy
+//   of the plan's stream template, then runs the chain over that stream.
+//   Every plan of a u32 field (domains below 2^32) has at most ~1,350
+//   rows a query, ~125 KB of shared memory with the ring, so the whole
+//   stream stays in shared memory; the wrapper raises for a plan that
+//   does not fit.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -29,64 +52,469 @@
 
 namespace {
 
-// The UTF-8 bytes of the 8 lowercase hex chars of x, as two big-endian
-// words of 4 chars each.
-__device__ __forceinline__ void hex_words(uint32_t x, uint32_t* out) {
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    uint32_t acc = 0;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const uint32_t nib = (x >> (28 - 4 * (4 * half + k))) & 0xFu;
-      const uint32_t ch = nib < 10u ? 0x30u + nib : 0x57u + nib;
-      acc |= ch << (24 - 8 * k);
-    }
-    out[half] = acc;
+constexpr int kThreads = 128;       // warp 0: the chain; warps 1-3: staging
+constexpr int kStagers = kThreads - 32;
+constexpr int kRing = kStagers;     // ring slots: staging thread p owns p
+// a slot: 64 words W + K, the row's (first, last), 2 words of padding;
+// 68 words keep slots 16-byte aligned and make eight staging threads'
+// 16-byte stores hit eight different bank groups
+constexpr int kSlotWords = 68;
+constexpr int kRingBytes = kRing * kSlotWords * 4;
+constexpr int kRingBarBytes = 2 * kRing * 8;
+constexpr int kChunk = 512;         // rows per staged chunk (chain form)
+constexpr int kChunkBytes = kChunk * 64;
+constexpr int kFirstHex = 1;
+constexpr int kMaxSmem = 232448;    // an H100 block's dynamic shared memory
+
+// ---- mbarrier and TMA (PTX ISA 8.0, sm_90) ----------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(
+                   smem_addr(bar)), "r"(count) : "memory");
+}
+
+// make the initialised barriers visible to the other threads and to the
+// async proxy (TMA) before anyone uses them
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// release: every earlier access of this thread is ordered before it
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile(
+      "{\n\t.reg .b64 st;\n\t"
+      "mbarrier.arrive.shared::cta.b64 st, [%0];\n\t}" ::"r"(
+          smem_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
+                                                      uint32_t bytes) {
+  asm volatile(
+      "{\n\t.reg .b64 st;\n\t"
+      "mbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n\t}" ::"r"(
+          smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+// acquire: wait until the phase of this parity has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_addr(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
   }
 }
 
-__global__ void sha_chain(const uint4* __restrict__ stream,
-                          const int2* __restrict__ flags,
-                          const uint32_t* __restrict__ chain_in,
-                          uint32_t* __restrict__ chain_out, int nblocks) {
-  if (threadIdx.x != 0 || blockIdx.x != 0) return;
-  uint32_t chain[8], st[8];
+// TMA 1-D bulk copy global -> shared, completing `bytes` on `bar`
+__device__ __forceinline__ void tma_load(void* dst, const void* src,
+                                         uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)), "l"(src), "r"(bytes),
+      "r"(smem_addr(bar)) : "memory");
+}
+
+// ---- hex ------------------------------------------------------------
+
+// The 4 lowercase hex chars of the low 16 bits of v, as one big-endian
+// word (nibbles spread to bytes, then '0' or 'a' - 10 added per byte).
+__device__ __forceinline__ uint32_t hex4(uint32_t v) {
+  uint32_t t = (v | (v << 8)) & 0x00FF00FFu;
+  t = (t | (t << 4)) & 0x0F0F0F0Fu;
+  const uint32_t ge10 = ((t + 0x06060606u) >> 4) & 0x01010101u;
+  return t + 0x30303030u + ge10 * 0x27u;
+}
+
+// The 8 hex chars of x as two big-endian words of 4 chars each.
+__device__ __forceinline__ void hex_words(uint32_t x, uint32_t* out) {
+  out[0] = hex4(x >> 16);
+  out[1] = hex4(x & 0xFFFFu);
+}
+
+// ---- the ring between the staging threads and the chain --------------
+
+struct Ring {
+  uint32_t* slots;   // [kRing][kSlotWords]
+  uint64_t* full;    // [kRing]
+  uint64_t* empty;   // [kRing]
+};
+
+__device__ __forceinline__ Ring ring_at(unsigned char* smem) {
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + kRingBytes);
+  return Ring{reinterpret_cast<uint32_t*>(smem), bars, bars + kRing};
+}
+
+__device__ __forceinline__ void ring_init(const Ring& r) {
+  if (threadIdx.x < kRing) {
+    mbar_init(&r.full[threadIdx.x], 1);
+    mbar_init(&r.empty[threadIdx.x], 1);
+  }
+}
+
+// Staging side: fill `slot` for its use number `use` (0, 1, ...) with
+// the row at `row` (16 words, shared or global memory) and its flags.
+__device__ __forceinline__ void stage_row(const Ring& r, int slot,
+                                          uint32_t use, const uint4* row,
+                                          int2 fl) {
+  uint32_t w[16];
+  if (fl.x != kFirstHex) {
 #pragma unroll
-  for (int k = 0; k < 8; ++k) { chain[k] = chain_in[k]; st[k] = 0u; }
-  for (int i = 0; i < nblocks; ++i) {
-    const int2 fl = flags[i];
-    uint32_t w[16];
-    if (fl.x == 1) {
+    for (int q = 0; q < 4; ++q) {
+      const uint4 v = row[q];
+      w[4 * q] = v.x; w[4 * q + 1] = v.y; w[4 * q + 2] = v.z;
+      w[4 * q + 3] = v.w;
+    }
+  }
+  mbar_wait(&r.empty[slot], (use & 1u) ^ 1u);
+  uint32_t* s = r.slots + slot * kSlotWords;
+  if (fl.x != kFirstHex) sha::schedule_kw(w, reinterpret_cast<uint4*>(s));
+  *reinterpret_cast<int2*>(s + 64) = fl;
+  mbar_arrive(&r.full[slot]);
+}
+
+struct Cursor {
+  int slot;
+  uint32_t parity;
+};
+
+// Chain side: run n rows from the ring through the compressor.
+__device__ __forceinline__ void chain_rows(const Ring& r, int n,
+                                           Cursor& cur, uint32_t st[8],
+                                           uint32_t chain[8]) {
+  for (int i = 0; i < n; ++i) {
+    mbar_wait(&r.full[cur.slot], cur.parity);
+    const uint32_t* s = r.slots + cur.slot * kSlotWords;
+    const int2 fl = *reinterpret_cast<const int2*>(s + 64);
+    if (fl.x == kFirstHex) {
+      mbar_arrive(&r.empty[cur.slot]);
+      uint32_t w[16];
 #pragma unroll
       for (int k = 0; k < 8; ++k) hex_words(chain[k], w + 2 * k);
+      sha::init(st);
+      sha::compress(st, w);
     } else {
+      uint32_t kw[64];
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const uint4 v = stream[4 * i + q];
-        w[4 * q] = v.x; w[4 * q + 1] = v.y; w[4 * q + 2] = v.z;
-        w[4 * q + 3] = v.w;
+      for (int q = 0; q < 16; ++q) {
+        const uint4 v = reinterpret_cast<const uint4*>(s)[q];
+        kw[4 * q] = v.x; kw[4 * q + 1] = v.y; kw[4 * q + 2] = v.z;
+        kw[4 * q + 3] = v.w;
       }
+      mbar_arrive(&r.empty[cur.slot]);
+      if (fl.x != 0) sha::init(st);
+      sha::compress_kw(st, kw);
     }
-    if (fl.x != 0) sha::init(st);
-    sha::compress(st, w);
     if (fl.y != 0) {
 #pragma unroll
       for (int k = 0; k < 8; ++k) chain[k] = st[k];
     }
+    if (++cur.slot == kRing) {
+      cur.slot = 0;
+      cur.parity ^= 1u;
+    }
   }
+}
+
+// ---- the chain form --------------------------------------------------
+
+constexpr int kChainSmem = kRingBytes + kRingBarBytes + 2 * kChunkBytes + 32;
+
+__global__ void __launch_bounds__(kThreads, 1)
+    sha_chain(const uint4* __restrict__ stream,
+              const int2* __restrict__ flags,
+              const uint32_t* __restrict__ chain_in,
+              uint32_t* __restrict__ chain_out, int nblocks) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const Ring r = ring_at(smem);
+  uint4* chunks = reinterpret_cast<uint4*>(smem + kRingBytes + kRingBarBytes);
+  uint64_t* cfull = reinterpret_cast<uint64_t*>(
+      smem + kRingBytes + kRingBarBytes + 2 * kChunkBytes);
+  uint64_t* cempty = cfull + 2;
+  ring_init(r);
+  if (threadIdx.x == 0) {
+    mbar_init(&cfull[0], 1);
+    mbar_init(&cfull[1], 1);
+    mbar_init(&cempty[0], kStagers);
+    mbar_init(&cempty[1], kStagers);
+  }
+  mbar_init_fence();
+  __syncthreads();
+
+  if (threadIdx.x < 32) {
+    if (threadIdx.x == 0) {
+      uint32_t chain[8], st[8];
 #pragma unroll
-  for (int k = 0; k < 8; ++k) chain_out[k] = chain[k];
+      for (int k = 0; k < 8; ++k) { chain[k] = chain_in[k]; st[k] = 0u; }
+      Cursor cur{0, 0u};
+      chain_rows(r, nblocks, cur, st, chain);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) chain_out[k] = chain[k];
+    }
+    return;
+  }
+
+  const int p = threadIdx.x - 32;
+  const int nchunks = (nblocks + kChunk - 1) / kChunk;
+  auto stage_chunk = [&](int c) {
+    const int buf = c & 1;
+    const int rows = min(kChunk, nblocks - c * kChunk);
+    const uint32_t bytes = static_cast<uint32_t>(rows) * 64u;
+    mbar_arrive_expect_tx(&cfull[buf], bytes);
+    tma_load(chunks + static_cast<size_t>(buf) * kChunk * 4,
+             stream + static_cast<size_t>(c) * kChunk * 4, bytes,
+             &cfull[buf]);
+  };
+  if (p == 0) {
+    for (int c = 0; c < min(2, nchunks); ++c) stage_chunk(c);
+  }
+  uint32_t use = 0;
+  for (int i = p; i < nblocks; i += kStagers, ++use) {
+    const int c = i / kChunk, buf = c & 1;
+    mbar_wait(&cfull[buf], static_cast<uint32_t>(c >> 1) & 1u);
+    const uint4* row =
+        chunks + (static_cast<size_t>(buf) * kChunk + (i - c * kChunk)) * 4;
+    stage_row(r, p, use, row, flags[i]);
+    if ((i + kStagers) / kChunk != c) {
+      // this thread is done with chunk c; the last of them frees its
+      // buffer, and thread 0 of the staging warps refills it with c + 2
+      mbar_arrive(&cempty[buf]);
+      if (p == 0 && c + 2 < nchunks) {
+        mbar_wait(&cempty[buf], static_cast<uint32_t>(c >> 1) & 1u);
+        stage_chunk(c + 2);
+      }
+    }
+  }
+}
+
+// ---- the query form --------------------------------------------------
+
+// slot table columns (int64): source, base, add, mask, xr, shift, flip,
+// stream row; position = base + ((((idx + add) & mask) ^ xr) >> shift)
+// ^ flip into the source's buffer
+enum Source { kTraceValue = 0, kFriValue = 1, kTraceDigest = 2,
+              kFriDigest = 3 };
+
+__host__ __device__ constexpr int query_smem(int nrows) {
+  return kRingBytes + kRingBarBytes + nrows * (64 + 8) + 16;
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+    query_chain(const uint32_t* __restrict__ chain_in,
+                const uint32_t* __restrict__ f_evals,
+                const uint4* __restrict__ trace_digests,
+                const uint32_t* __restrict__ fri_values,
+                const uint4* __restrict__ fri_digests,
+                const uint4* __restrict__ tmpl,
+                const int2* __restrict__ flags,
+                const long long* __restrict__ slots, int nrows, int nslots,
+                int nvalues, uint32_t rng, int nqueries,
+                uint32_t* __restrict__ chain_out,
+                long long* __restrict__ idxs, uint32_t* __restrict__ vals,
+                uint32_t* __restrict__ digs) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const Ring r = ring_at(smem);
+  uint4* stream = reinterpret_cast<uint4*>(smem + kRingBytes + kRingBarBytes);
+  int2* sflags = reinterpret_cast<int2*>(stream + 4 * nrows);
+  long long* s_idx = reinterpret_cast<long long*>(sflags + nrows);
+  ring_init(r);
+  for (int k = threadIdx.x; k < 4 * nrows; k += kThreads) stream[k] = tmpl[k];
+  for (int k = threadIdx.x; k < nrows; k += kThreads) sflags[k] = flags[k];
+  mbar_init_fence();
+  __syncthreads();
+
+  const int ndigests = nslots - nvalues;
+  uint32_t chain[8], st[8];
+  Cursor cur{0, 0u};
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) { chain[k] = chain_in[k]; st[k] = 0u; }
+  }
+  for (int q = 0; q < nqueries; ++q) {
+    if (threadIdx.x == 0) {
+      // idx = int(state_hex, 16) mod rng, Horner over the big-endian
+      // words; exact in 64 bits because rng < 2^32
+      uint64_t m = 0;
+#pragma unroll
+      for (int k = 0; k < 8; ++k) m = ((m << 32) | chain[k]) % rng;
+      *s_idx = static_cast<long long>(m);
+      idxs[q] = static_cast<long long>(m);
+    }
+    __syncthreads();  // idx published; the last query's staging is done
+    const long long idx = *s_idx;
+    uint32_t* words = reinterpret_cast<uint32_t*>(stream);
+    for (int s = threadIdx.x; s < nslots; s += kThreads) {
+      const long long* t = slots + 8 * static_cast<size_t>(s);
+      const long long j = ((idx + t[2]) & t[3]) ^ t[4];
+      const long long pos = t[1] + ((j >> t[5]) ^ t[6]);
+      uint32_t* row = words + 16 * t[7];
+      if (t[0] == kTraceValue || t[0] == kFriValue) {
+        const uint32_t v = (t[0] == kTraceValue ? f_evals : fri_values)[pos];
+        // the 8-byte big-endian value: 8 hex zeros (in the template),
+        // then the 8 hex chars of v
+        hex_words(v, row + 2);
+        vals[static_cast<size_t>(q) * nvalues + s] = v;
+      } else {
+        const uint4* src =
+            (t[0] == kTraceDigest ? trace_digests : fri_digests) + 2 * pos;
+        const uint4 lo = src[0], hi = src[1];
+        const uint32_t d[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+        uint32_t* out = digs + (static_cast<size_t>(q) * ndigests +
+                                (s - nvalues)) * 8;
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          hex_words(d[k], row + 2 * k);
+          out[k] = d[k];
+        }
+      }
+    }
+    __syncthreads();  // the query's stream is complete
+    if (threadIdx.x < 32) {
+      if (threadIdx.x == 0) chain_rows(r, nrows, cur, st, chain);
+      __syncwarp();
+    } else {
+      // rows of this query whose global row number g0 + i maps to my slot
+      const int p = threadIdx.x - 32;
+      const long long g0 = static_cast<long long>(q) * nrows;
+      int i = static_cast<int>(((p - g0) % kRing + kRing) % kRing);
+      for (; i < nrows; i += kRing) {
+        const uint32_t use = static_cast<uint32_t>((g0 + i) / kRing);
+        stage_row(r, p, use, stream + 4 * i, sflags[i]);
+      }
+    }
+  }
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) chain_out[k] = chain[k];
+  }
+}
+
+// ---- the dependent-latency probe of K5's bound ------------------------
+
+// One thread times `iters` x 64 steps, each depending on the one before:
+// mode 0 a funnel shift (SHF), mode 1 an xor3 (LOP3), mode 2 the round's
+// critical path shift -> xor3 -> add (three operations a step); modes 3
+// and 4 time 64 independent funnel shifts / xor3s spread over 8 chains,
+// the issue interval of one warp.  Inline PTX keeps the compiler from
+// folding the chains.  out[0] = clock64 cycles, out[1] keeps the result
+// live.
+__global__ void dep_latency(long long* out, int mode, int iters, uint32_t y,
+                            uint32_t z) {
+  if (threadIdx.x != 0 || blockIdx.x != 0) return;
+  // per-thread values, so the chains run on the vector pipes (values the
+  // compiler sees as uniform would run on the uniform datapath)
+  uint32_t x = y ^ z ^ threadIdx.x;
+  uint32_t v[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) v[k] = x + k;
+  const long long t0 = clock64();
+  for (int it = 0; it < iters; ++it) {
+    if (mode == 0) {
+#pragma unroll
+      for (int k = 0; k < 64; ++k)
+        asm volatile("shf.r.wrap.b32 %0, %0, %0, 7;" : "+r"(x));
+    } else if (mode == 1) {
+#pragma unroll
+      for (int k = 0; k < 64; ++k)
+        asm volatile("lop3.b32 %0, %0, %1, %2, 0x96;"
+                     : "+r"(x) : "r"(y), "r"(z));
+    } else if (mode == 2) {
+#pragma unroll
+      for (int k = 0; k < 64; ++k)
+        asm volatile(
+            "shf.r.wrap.b32 %0, %0, %0, 6;\n\t"
+            "lop3.b32 %0, %0, %1, %2, 0x96;\n\t"
+            "add.u32 %0, %0, %1;"
+            : "+r"(x) : "r"(y), "r"(z));
+    } else if (mode == 3) {
+#pragma unroll
+      for (int k = 0; k < 64; ++k)
+        asm volatile("shf.r.wrap.b32 %0, %0, %0, 7;" : "+r"(v[k & 7]));
+    } else {
+#pragma unroll
+      for (int k = 0; k < 64; ++k)
+        asm volatile("lop3.b32 %0, %0, %1, %2, 0x96;"
+                     : "+r"(v[k & 7]) : "r"(y), "r"(z));
+    }
+  }
+  const long long t1 = clock64();
+#pragma unroll
+  for (int k = 0; k < 8; ++k) x ^= v[k];
+  out[0] = t1 - t0;
+  out[1] = x;
 }
 
 }  // namespace
 
 // stream: (B, 16) words; flags: (B, 2) int32 (first, last);
 // chain_in / chain_out: 8 words each.
+// Let both kernels take up to kMaxSmem of dynamic shared memory, once per
+// device (bit d of `allowed`); a refused attribute is returned as the
+// launch's error.
+static cudaError_t allow_smem() {
+  static unsigned long long allowed = 0;
+  int d = 0;
+  cudaError_t err = cudaGetDevice(&d);
+  if (err != cudaSuccess || (d < 64 && (allowed >> d) & 1ull)) return err;
+  err = cudaFuncSetAttribute(
+      sha_chain, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(
+        query_chain, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  if (err == cudaSuccess && d < 64) allowed |= 1ull << d;
+  return err;
+}
+
 extern "C" int stark_sha_chain(const void* stream, const void* flags,
                                const void* chain_in, void* chain_out,
                                int nblocks, void* s) {
-  sha_chain<<<1, 1, 0, (cudaStream_t)s>>>(
+  const cudaError_t err = allow_smem();
+  if (err != cudaSuccess) return (int)err;
+  sha_chain<<<1, kThreads, kChainSmem, (cudaStream_t)s>>>(
       (const uint4*)stream, (const int2*)flags, (const uint32_t*)chain_in,
       (uint32_t*)chain_out, nblocks);
+  return (int)cudaGetLastError();
+}
+
+// The whole query phase: nqueries queries of nrows stream rows each.
+// template: (nrows, 16) words; flags: (nrows, 2); slots: (nslots, 8)
+// int64 (values first, then digests); trace_digests / fri_digests: tree
+// buffers of (rows, 8) words.  Out: chain_out (8,), idxs (nqueries,)
+// int64, vals (nqueries, nvalues), digs (nqueries, nslots - nvalues, 8).
+extern "C" int stark_query_chain(
+    const void* chain_in, const void* f_evals, const void* trace_digests,
+    const void* fri_values, const void* fri_digests, const void* tmpl,
+    const void* flags, const void* slots, int nrows, int nslots,
+    int nvalues, unsigned rng, int nqueries, void* chain_out, void* idxs,
+    void* vals, void* digs, void* s) {
+  const int bytes = query_smem(nrows);
+  if (bytes > kMaxSmem) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = allow_smem();
+  if (err != cudaSuccess) return (int)err;
+  query_chain<<<1, kThreads, bytes, (cudaStream_t)s>>>(
+      (const uint32_t*)chain_in, (const uint32_t*)f_evals,
+      (const uint4*)trace_digests, (const uint32_t*)fri_values,
+      (const uint4*)fri_digests, (const uint4*)tmpl, (const int2*)flags,
+      (const long long*)slots, nrows, nslots, nvalues, rng, nqueries,
+      (uint32_t*)chain_out, (long long*)idxs, (uint32_t*)vals,
+      (uint32_t*)digs);
+  return (int)cudaGetLastError();
+}
+
+// The most stream rows a query of stark_query_chain may have.
+extern "C" int stark_query_chain_max_rows() {
+  return (kMaxSmem - query_smem(0)) / (64 + 8);
+}
+
+extern "C" int stark_dep_latency(void* out, int mode, int iters, void* s) {
+  dep_latency<<<1, 32, 0, (cudaStream_t)s>>>((long long*)out, mode, iters,
+                                             0x9E3779B9u, 0x7F4A7C15u);
   return (int)cudaGetLastError();
 }

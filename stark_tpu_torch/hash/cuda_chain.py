@@ -15,7 +15,9 @@ Each block row carries two flags, ``first`` and ``last``:
 
 A CPU tensor runs :func:`sha_chain_plain`, a host loop over the rows in
 Python ints (one serial lane has no tensor parallelism); a CUDA tensor
-launches the kernel or raises.
+launches the kernel or raises.  K5's second entry point, the query form
+(every query of a prove in one launch), is wrapped beside the query
+plan: ``channel/device_query.py`` :func:`query_chain`.
 """
 
 from __future__ import annotations

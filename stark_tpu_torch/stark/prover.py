@@ -4,8 +4,8 @@ the single-fetch pipeline only).
     host trace -> trace polynomial (INTT, K1) -> coset LDE (NTT, K1) ->
     trace Merkle tree (K3/K4) -> device Fiat-Shamir absorb + alpha draws
     (K5) -> composition -> FRI fold + per-layer tree + absorb ->
-    device query phase (K5 per query) -> ONE device->host copy ->
-    host transcript replay -> StarkProof
+    device query phase (one launch of K5's query form) -> ONE
+    device->host copy -> host transcript replay -> StarkProof
 
 Everything after the trace upload stays on the device with a
 device-resident Fiat-Shamir state; the host replays the canonical
@@ -128,9 +128,11 @@ def query_plan(cfg: ProverConfig) -> _dq.DeviceQueryPlan:
     return _dq.DeviceQueryPlan(rng, cfg.num_queries, offsets, M, fri_lengths)
 
 
-def prove(cfg: ProverConfig, a1: int = 3141592, *, device) -> StarkProof:
-    """Prove the Fibonacci-square statement with secret a_1 on `device`
-    (a CUDA device runs the kernels; a CPU device their plain versions)."""
+def prove(cfg: ProverConfig, a1: int = 3141592, *,
+          device="cuda") -> StarkProof:
+    """Prove the Fibonacci-square statement with secret a_1 on `device`:
+    the card by default, where the kernels run; a CPU device runs their
+    plain versions."""
     if cfg.mesh_shape is not None:
         raise NotImplementedError(
             "sharded proving on several GPUs waits for ROADMAP Queue 1 "

@@ -19,13 +19,20 @@ from stark_tpu.channel.channel import Channel as JChannel
 from stark_tpu.merkle.tree import MerkleTree as JMerkleTree
 from stark_tpu_torch.channel import device_channel as tdc
 from stark_tpu_torch.channel.channel import Channel, ChannelError
-from stark_tpu_torch.channel.device_query import DeviceQueryPlan, supported
+from stark_tpu_torch.channel.device_query import (SLOT_COLUMNS,
+                                                  DeviceQueryPlan,
+                                                  _positions, query_chain,
+                                                  query_chain_plain,
+                                                  supported)
+from stark_tpu_torch.config import ProverConfig
+from stark_tpu_torch.fields.fp import store
 from stark_tpu_torch.fri.commit import layer_layout
 from stark_tpu_torch.hash.cuda_chain import (FIRST_HEX, FIRST_ROW, sha_chain,
                                              sha_chain_plain)
 from stark_tpu_torch.interop import (hex_to_state, state_to_hex,
                                      tensor_to_u32, u32_to_tensor)
 from stark_tpu_torch.merkle.tree import MerkleTree
+from stark_tpu_torch.stark.prover import query_plan
 
 P = 3 * 2**30 + 1
 
@@ -190,18 +197,61 @@ def _jax_outs(outs):
     return vals, digs
 
 
-@pytest.mark.parametrize("fri_lengths,mode", [((16,), 2),
-                                              ((16, 8, 4, 2, 1), 0)])
-def test_query_plan_matches_jax(fri_lengths, mode):
-    """DeviceQueryPlan vs the JAX plan's _run — mode 2 is the Pallas
-    chain in interpret mode; the ladder ending in a length-1 layer
-    exercises the len==1 quirk."""
-    f_evals = _words(16, 21, P)
+def _unpacked_stream(plan, v, d):
+    """One query's stream assembled from the plan's unpacked rows (zero
+    template, value and digest row lists, VALUE_TAIL), as the port built
+    it before the packed tables."""
+    stream = torch.from_numpy(plan._template).clone()
+    hv = tdc.ascii_hex_words(torch.stack([torch.zeros_like(v), v], -1))
+    tail = torch.from_numpy(tdc.VALUE_TAIL)
+    stream[plan._val_rows] = torch.cat(
+        [hv, tail.expand(len(plan._val_rows), -1)], dim=1)
+    stream[plan._dig_rows] = tdc.ascii_hex_words(d)
+    return store(stream)
+
+
+def _per_query_loop(plan, state, f_evals, trace_digests, fri_values,
+                    fri_digests):
+    """The query phase as the port ran it before K5's query form: per
+    query, per-source gathers through the plan's unpacked slots and one
+    chain over the unpacked stream."""
+    tv, fv, td, fd = ({k: torch.tensor(v, dtype=torch.int64)
+                       for k, v in sl.cols.items()} for sl in plan._slots)
+    flags = torch.from_numpy(plan._flags)
+    chain, idxs, vals, digs = state, [], [], []
+    for _ in range(plan.num_queries):
+        idx = tdc.mod_state(chain, plan.rng)
+        v = torch.cat([f_evals[_positions(tv, idx)],
+                       fri_values[_positions(fv, idx)]])
+        d = torch.cat([trace_digests.index_select(0, _positions(td, idx)),
+                       fri_digests.index_select(0, _positions(fd, idx))])
+        chain = sha_chain_plain(_unpacked_stream(plan, v, d), flags, chain)
+        idxs.append(idx)
+        vals.append(v)
+        digs.append(d)
+    return chain, torch.stack(idxs), torch.stack(vals), torch.stack(digs)
+
+
+def _prover_plan(log2_trace, blowup, num_queries):
+    """(draw range, queries, offsets, LDE size, FRI lengths) of the
+    prover's query plan for a Fibonacci-square configuration."""
+    plan = query_plan(ProverConfig(log2_trace=log2_trace, blowup=blowup,
+                                   num_queries=num_queries))
+    return (plan.rng, plan.num_queries, plan.offsets, plan.trace_len,
+            plan.fri_lengths)
+
+
+def _check_query_plan(shape, mode):
+    """DeviceQueryPlan (K5's query form, plain version over the packed
+    tables) vs the per-query loop over the unpacked plan and the JAX
+    plan's _run (mode 0: XLA scan; 2: the Pallas chain in interpret
+    mode), exact equality."""
+    rng, q_n, offsets, n, fri_lengths = shape
+    f_evals = _words(n, 21, P)
     layers = [f_evals[:ln] if i == 0 else _words(ln, 30 + i, P)
               for i, ln in enumerate(fri_lengths)]
     state = _words(8, 22)
-    # draw range 15 = trace length - largest offset, as in the prover
-    jplan = jdq.get_plan(15, 3, (0, 1), 16, fri_lengths)
+    jplan = jdq.get_plan(rng, q_n, offsets, n, fri_lengths)
     jt = JMerkleTree(jnp.asarray(f_evals))
     jlv = [JMerkleTree(jnp.asarray(v)).levels[:-1] for v in layers]
     want = jax.device_get(jax.jit(functools.partial(jplan._run, mode=mode))(
@@ -211,16 +261,67 @@ def test_query_plan_matches_jax(fri_lengths, mode):
     want_final, (want_idx, outs) = want
     want_vals, want_digs = _jax_outs(outs)
 
-    plan = DeviceQueryPlan(15, 3, (0, 1), 16, fri_lengths)
+    plan = DeviceQueryPlan(rng, q_n, offsets, n, fri_lengths)
     tree = MerkleTree(u32_to_tensor(f_evals, device="cpu"))
     values, digests = _fri_buffers(layers)
-    final, idxs, vals, digs = plan.run_device(
-        u32_to_tensor(state, device="cpu"),
-        u32_to_tensor(f_evals, device="cpu"), tree.buffer, values, digests)
+    args = (u32_to_tensor(state, device="cpu"),
+            u32_to_tensor(f_evals, device="cpu"), tree.buffer, values,
+            digests)
+    final, idxs, vals, digs = plan.run_device(*args)
     np.testing.assert_array_equal(tensor_to_u32(final), want_final)
     np.testing.assert_array_equal(idxs.numpy(), want_idx)
     np.testing.assert_array_equal(tensor_to_u32(vals), want_vals)
     np.testing.assert_array_equal(tensor_to_u32(digs), want_digs)
+    for got, old in zip((final, idxs, vals, digs),
+                        _per_query_loop(plan, *args)):
+        assert torch.equal(got, old)
+    assert query_chain.plain is query_chain_plain
+
+
+@pytest.mark.parametrize("fri_lengths,mode", [((16,), 2),
+                                              ((16, 8, 4, 2, 1), 0)])
+def test_query_plan_matches_jax(fri_lengths, mode):
+    """The ladder ending in a length-1 layer exercises the len==1
+    quirk."""
+    # draw range 15 = trace length - largest offset, as in the prover
+    _check_query_plan((15, 3, (0, 1), 16, fri_lengths), mode)
+
+
+def test_query_plan_2e11_blowup8_matches_jax():
+    """The prover's plan at 2^11 rows, blowup 8: LDE 2^14, 12 FRI
+    layers, 356 stream rows a query."""
+    _check_query_plan(_prover_plan(11, 8, 3), 0)
+
+
+@pytest.mark.parametrize("log2_trace,blowup", [(6, 8), (11, 8)])
+def test_packed_tables_reproduce_the_stream(log2_trace, blowup):
+    """The packing function's tables (what K5's query form reads) give,
+    row for row, the stream and flags of the unpacked plan and the JAX
+    plan's flags, and their slot rows the unpacked slots' positions."""
+    rng, q_n, offsets, n, fri_lengths = _prover_plan(log2_trace, blowup, 2)
+    plan = DeviceQueryPlan(rng, q_n, offsets, n, fri_lengths)
+    tb = plan.pack("cpu")
+    nv = tb.num_values
+    assert nv == len(plan._val_rows)
+    assert int(tb.slots.shape[0]) - nv == len(plan._dig_rows)
+    v = u32_to_tensor(_words(nv, 60, P), device="cpu")
+    d = u32_to_tensor(_words(8 * len(plan._dig_rows), 61).reshape(-1, 8),
+                      device="cpu")
+    stream, flags = plan.stream(v, d)
+    assert torch.equal(stream, _unpacked_stream(plan, v, d))
+    assert torch.equal(flags, torch.from_numpy(plan._flags))
+    jplan = jdq.get_plan(rng, q_n, offsets, n, fri_lengths)
+    np.testing.assert_array_equal(tensor_to_u32(flags),
+                                  np.asarray(jplan._flags))
+    jdq.get_plan.cache_clear()
+    cols = dict(zip(SLOT_COLUMNS, tb.slots.unbind(1)))
+    for idx in (0, rng // 3, rng - 1):
+        idx = torch.tensor(idx)
+        want = torch.cat([_positions({k: torch.tensor(c, dtype=torch.int64)
+                                      for k, c in sl.cols.items()}, idx)
+                          for sl in plan._slots])
+        assert torch.equal(_positions(cols, idx), want)
+    assert cols["row"].tolist() == plan._val_rows + plan._dig_rows
 
 
 def test_query_replay_matches_jax_transcript():

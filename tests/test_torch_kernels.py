@@ -97,6 +97,52 @@ def test_k5_chain_matches_plain(dev):
                        sha_chain_plain(stream, fl, chain))
 
 
+def test_k5_chain_long_stream_matches_plain(dev):
+    """A stream longer than one staged chunk (5,000 blocks: ten 512-row
+    chunks through the two buffers), its flags mixing FIRST_HEX,
+    FIRST_ROW, plain and last rows."""
+    from stark_tpu_torch.hash.cuda_chain import (FIRST_HEX, FIRST_ROW,
+                                                 sha_chain, sha_chain_plain)
+
+    n = 5000
+    rs = np.random.RandomState(11)
+    first = rs.choice([0, 0, 0, 0, FIRST_HEX, FIRST_ROW], size=n)
+    last = rs.randint(0, 2, size=n)
+    fl = torch.from_numpy(np.stack([first, last], 1).astype(np.int32)).to(dev)
+    stream = _u32((n, 16), 2**32, 12, dev)
+    chain = _u32(8, 2**32, 13, dev)
+    before = sha_chain.launches
+    got = sha_chain(stream, fl, chain)
+    torch.cuda.synchronize()
+    assert sha_chain.launches == before + 1
+    assert torch.equal(got, sha_chain_plain(stream, fl, chain))
+
+
+@pytest.mark.parametrize("log2_trace", [6, 11])
+def test_k5_query_form_matches_plain(dev, log2_trace):
+    """K5's query form (all queries in one launch) against its plain
+    version on the prover's plan, seeded buffers: final chain, idxs,
+    vals and digs."""
+    from stark_tpu_torch.channel.device_query import (query_chain,
+                                                      query_chain_plain)
+    from stark_tpu_torch.config import ProverConfig
+    from stark_tpu_torch.stark.prover import query_plan
+
+    plan = query_plan(ProverConfig(log2_trace=log2_trace, blowup=8,
+                                   num_queries=4))
+    tb = plan.pack(dev)
+    n_f, n_td, n_fv, n_fd = tb.sizes
+    args = (_u32(8, 2**32, 20, dev), _u32(n_f, P, 21, dev),
+            _u32((n_td, 8), 2**32, 22, dev), _u32(n_fv, P, 23, dev),
+            _u32((n_fd, 8), 2**32, 24, dev))
+    before = query_chain.launches
+    got = query_chain(*args, tb)
+    torch.cuda.synchronize()
+    assert query_chain.launches == before + 1
+    for g, w in zip(got, query_chain_plain(*args, tb)):
+        assert torch.equal(g, w)
+
+
 def test_golden_vectors_on_card(dev):
     from stark_tpu_torch.config import ProverConfig
     from stark_tpu_torch.stark import StarkProof, prove
@@ -105,7 +151,8 @@ def test_golden_vectors_on_card(dev):
                         "golden_proofs.json")
     with open(path) as fh:
         vec = json.load(fh)
+    # no device: prove() runs on the card by default
     got = prove(ProverConfig(modulus=97, generator=5, log2_trace=2, blowup=4,
-                             num_queries=2), a1=3, device=dev)
+                             num_queries=2), a1=3)
     assert got.proof == StarkProof.deserialize(
         json.dumps(vec["fib_gf97_2e2"]).encode()).proof

@@ -2,12 +2,14 @@
 versions on the CPU) against the golden vectors and the JAX package's
 prove, byte for byte; the port's verifier against both packages' proofs."""
 
+import inspect
 import json
 import os
 import subprocess
 import sys
 
 import pytest
+import torch
 
 from stark_tpu.config import ProverConfig as JProverConfig
 from stark_tpu.stark import StarkProof as JStarkProof
@@ -128,6 +130,16 @@ def test_unported_paths_raise():
                            log2_trace=4), device="cpu")
     with pytest.raises(NotImplementedError, match="item 14"):
         StarkProof.deserialize(b"STP1" + bytes(8))
+
+
+def test_prove_runs_on_the_card_by_default():
+    """prove(cfg) without a device targets CUDA; the CPU runs only when
+    the caller asks for it."""
+    assert inspect.signature(prove).parameters["device"].default == "cuda"
+    if not torch.cuda.is_available():
+        # here the default reaches the trace upload and fails there
+        with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
+            prove(ProverConfig(log2_trace=4, blowup=4, num_queries=2))
 
 
 def test_port_imports_no_jax():
