@@ -6,7 +6,9 @@
 Builds the port's CUDA kernels from ``stark_tpu_torch/csrc`` (and its
 native host trace from ``stark_tpu_torch/native``), holds each kernel
 against its plain torch version on the card at the prover's shapes
-(exact equality), proves the two golden vectors byte-identical to
+(exact equality; the NTT kernels, one two-pass family counted as K1 up to
+2^22 and as K2 above, also against the Stockham dataflow, on every branch
+of their split), proves the two golden vectors byte-identical to
 ``tests/vectors/golden_proofs.json``, then proves the Fibonacci-square
 statement at 2^20 rows and at 2^24 rows (blowup 4, 16 queries; LDE 2^22
 and 2^26) twice each: the two transcripts must agree, the port's host
@@ -54,12 +56,14 @@ import torch
 P = 3 * 2**30 + 1
 SEED = 20261016
 REPS = 5
-# K1: the 2^20 path's trace INTT and LDE (+ two small sizes); K2: the
-# 2^24 path's trace INTT and LDE and 2^23, plus a reduced row split
-# (n = 2^16, 2^7 rows: several coarse stages at a small size)
-NTT_LOGS = (2, 9, 20, 22)
-K2_LOGS = (23, 24, 26)
-K2_REDUCED = (16, 7)
+# the NTT kernels (K1 route n <= 2^22, K2 route above): each path's trace
+# INTT and LDE, 2^23, small sizes and GF(97), 2^27 (the last split with
+# 8-column groups) and 2^28 (the first with narrower ones); then the
+# narrow branches again at small sizes under a shrunk block budget
+NTT_K1_LOGS = (1, 2, 9, 20, 22)
+NTT_K2_LOGS = (23, 24, 26, 27, 28)
+NTT_GF97_LOGS = (1, 3, 5)
+NTT_REDUCED = ((8, 13), (8, 14), (8, 16))  # (BLOCK_LOG, log n)
 # K3/K4: equality over a 2^22-point LDE's tree; times at the 2^24 path's
 # 2^26 leaves and 2^25 nodes (plain versions in 2^22-lane slices: their
 # int64 message schedule of 2^26 lanes would need ~32 GiB)
@@ -68,9 +72,13 @@ TREE_TIME_LOG = 26
 PROVES = {"2^20": dict(log2_trace=20, blowup=4, num_queries=16),
           "2^24": dict(log2_trace=24, blowup=4, num_queries=16)}
 PATH = "2^24"  # this slice's path: its launch counts fill the kernels line
-# K2's timed shapes: the 2^24 path's LDE (forward) and trace INTT (inverse)
-K2_INTT_LOG = PROVES[PATH]["log2_trace"]
-K2_LDE_LOG = K2_INTT_LOG + PROVES[PATH]["blowup"].bit_length() - 1
+# the NTT shapes timed: each path's trace INTT (inverse) and LDE (forward);
+# the LDE's time fills the route's row of the kernels line
+NTT_TIMED = {}
+for _kw in PROVES.values():
+    _log = _kw["log2_trace"]
+    NTT_TIMED[(_log, True)] = False
+    NTT_TIMED[(_log + _kw["blowup"].bit_length() - 1, False)] = True
 
 # the bound's rates: HBM3 of the H100 SXM (its datasheet's rate) and a
 # 32-bit integer peak derived as SMs x 128 x max SM clock: each SM's four
@@ -129,6 +137,27 @@ def cuda_ms(fn, reps: int = REPS, warm: bool = True) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def kernel_device_ms(fn, pattern: str, reps: int = REPS) -> dict:
+    """Device ms per call of each kernel whose name matches `pattern`
+    (torch.profiler over `reps` calls of fn, after a warm-up)."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        m = re.search(pattern, e.key)
+        if m:
+            out[m.group(0)] = e.self_device_time_total / reps / 1e3
+    return out
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -244,11 +273,13 @@ class Results:
         row["max_abs_err"] = max(row["max_abs_err"], err)
 
     def time(self, kernel: str, shape: str, kernel_fn, plain_fn, bound,
-             row: bool = True, plain_reps: int = REPS) -> dict:
+             row: bool = True, plain_reps: int = REPS,
+             other: bool = False) -> dict:
         """Time kernel_fn and plain_fn (same inputs) and log them beside
-        `bound` (ms, by); `row` puts them in the kernels line.  With
-        `plain_reps` below REPS the plain version, already run by its
-        check, is timed that many times without a warm-up."""
+        `bound` (ms, by); `row` puts them in the kernels line, `other`
+        under the row's "shapes".  With `plain_reps` below REPS the plain
+        version, already run by its check, is timed that many times
+        without a warm-up."""
         ms = cuda_ms(kernel_fn)
         pms = cuda_ms(plain_fn, plain_reps, warm=plain_reps == REPS)
         log(f"{kernel} {shape}: kernel {ms:.4f} ms, plain {pms:.4f} ms, "
@@ -258,6 +289,8 @@ class Results:
                    shape=shape)
         if row:
             self.rows[kernel].update(got)
+        if other:
+            self.rows[kernel].setdefault("shapes", {})[shape] = got
         return got
 
 
@@ -283,46 +316,63 @@ def phase_build() -> None:
 
 
 def phase_ntt(res: Results, dev) -> None:
-    """K1 and K2 against their plain versions at the paths' shapes."""
-    from stark_tpu_torch.ntt.cuda_ntt import (ntt_plain, ntt_three_step,
-                                              ntt_three_step_plain,
-                                              ntt_two_step)
+    """The NTT kernels against both plain versions (their own passes and
+    the Stockham dataflow), exact, through the K1 and K2 routes; times at
+    the paths' shapes."""
+    from stark_tpu_torch.ntt import cuda_ntt
+    from stark_tpu_torch.ntt.cuda_ntt import (ntt_k1, ntt_k2,
+                                              ntt_passes_plain, ntt_plain)
 
     rs = np.random.RandomState(SEED)
-    # K1: trace INTT (2^20), LDE (2^22), and two small sizes
-    for log_n in NTT_LOGS:
-        x = rand_u32(rs, 1 << log_n, P, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    cases = ([(P, k) for k in NTT_K1_LOGS + NTT_K2_LOGS]
+             + [(97, k) for k in NTT_GF97_LOGS])
+    for p, log_n in cases:
+        n = 1 << log_n
+        name, route = ("K1", ntt_k1) if n <= 1 << cuda_ntt.MAX_LOG_N else (
+            "K2", ntt_k2)
+        x = (rand_u32(rs, n, p, dev) if log_n <= 22
+             else rand_u32_dev(gen, (n,), p, dev))
+        log1, log2, cols_log = cuda_ntt.split(log_n)
         for inverse in (False, True):
-            res.check("K1", f"{'intt' if inverse else 'ntt'} n=2^{log_n}",
-                      ntt_two_step(x, P, inverse), ntt_plain(x, P, inverse))
-        if log_n == NTT_LOGS[-1]:  # the 2^20 path's LDE shape
-            res.time("K1", f"ntt n=2^{log_n}",
-                     lambda: ntt_two_step(x, P, False),
-                     lambda: ntt_plain(x, P, False),
-                     res.card.ntt_bound(1 << log_n, False))
-
-    # K2: the reduced split through the CUDA plan, then the 2^24 path's
-    # trace INTT (2^24) and LDE (2^26), and 2^23
-    log_n, rows_log = K2_REDUCED
-    x = rand_u32(rs, 1 << log_n, P, dev)
-    for inverse in (False, True):
-        res.check("K2", f"{'intt' if inverse else 'ntt'} n=2^{log_n} "
-                  f"rows_log={rows_log}",
-                  ntt_three_step(x, P, inverse, rows_log),
-                  ntt_three_step_plain(x, P, inverse, rows_log))
-    for log_n in K2_LOGS:
-        x = rand_u32(rs, 1 << log_n, P, dev)
-        for inverse in (False, True):
-            res.check("K2", f"{'intt' if inverse else 'ntt'} n=2^{log_n}",
-                      ntt_three_step(x, P, inverse),
-                      ntt_three_step_plain(x, P, inverse))
-            lde = (log_n, inverse) == (K2_LDE_LOG, False)
-            trace_intt = (log_n, inverse) == (K2_INTT_LOG, True)
-            if lde or trace_intt:
-                res.time("K2", f"{'intt' if inverse else 'ntt'} n=2^{log_n}",
-                         lambda: ntt_three_step(x, P, inverse),
-                         lambda: ntt_three_step_plain(x, P, inverse),
-                         res.card.ntt_bound(1 << log_n, inverse), row=lde)
+            what = (f"{'intt' if inverse else 'ntt'} n=2^{log_n} GF({p}) "
+                    f"(passes 2^{log1} x 2^{log2}, 2^{cols_log} columns)")
+            got = route(x, p, inverse)
+            res.check(name, f"{what} vs its passes",
+                      got, ntt_passes_plain(x, p, inverse))
+            res.check(name, f"{what} vs Stockham", got,
+                      ntt_plain(x, p, inverse))
+            del got
+            if p == P and (log_n, inverse) in NTT_TIMED:
+                shape = f"{'intt' if inverse else 'ntt'} n=2^{log_n}"
+                got = res.time(name, shape, lambda: route(x, P, inverse),
+                               lambda: ntt_passes_plain(x, P, inverse),
+                               res.card.ntt_bound(n, inverse),
+                               row=NTT_TIMED[(log_n, inverse)], other=True)
+                got["passes_ms"] = kernel_device_ms(
+                    lambda: route(x, P, inverse), r"ntt_pass[12]<\d+>")
+                log(f"{name} {shape}: device ms per pass "
+                    f"{json.dumps(got['passes_ms'])}")
+        del x
+        torch.cuda.empty_cache()
+    saved = cuda_ntt.BLOCK_LOG
+    try:
+        for block_log, log_n in NTT_REDUCED:
+            cuda_ntt.BLOCK_LOG = block_log
+            x = rand_u32(rs, 1 << log_n, P, dev)
+            log1, log2, cols_log = cuda_ntt.split(log_n)
+            for inverse in (False, True):
+                what = (f"{'intt' if inverse else 'ntt'} n=2^{log_n}, block "
+                        f"budget 2^{block_log} (passes 2^{log1} x 2^{log2}, "
+                        f"2^{cols_log} columns)")
+                got = ntt_k2(x, P, inverse)
+                res.check("K2", f"{what} vs its passes", got,
+                          ntt_passes_plain(x, P, inverse))
+                res.check("K2", f"{what} vs Stockham", got,
+                          ntt_plain(x, P, inverse))
+    finally:
+        cuda_ntt.BLOCK_LOG = saved
 
 
 def phase_tree(res: Results, dev) -> None:
@@ -533,20 +583,21 @@ def counters() -> dict:
     from stark_tpu_torch.channel.device_query import query_chain
     from stark_tpu_torch.hash.cuda_chain import sha_chain
     from stark_tpu_torch.hash.cuda_sha import sha_leaves, sha_nodes
-    from stark_tpu_torch.ntt.cuda_ntt import ntt_three_step, ntt_two_step
+    from stark_tpu_torch.ntt.cuda_ntt import ntt_k1, ntt_k2
 
-    return {"K1": (ntt_two_step,), "K2": (ntt_three_step,),
+    return {"K1": (ntt_k1,), "K2": (ntt_k2,),
             "K3": (sha_leaves,), "K4": (sha_nodes,),
             "K5": (sha_chain, query_chain)}
 
 
 def drop_plans() -> None:
-    """Forget the NTT plans (and their device tables) that the kernel
-    checks built, so a cold prove builds its own as in a fresh process."""
+    """Forget the NTT plans and oracle tables (device memory) that the
+    kernel checks built, so a cold prove builds its own as in a fresh
+    process and its peak memory counts only its own."""
     from stark_tpu_torch.ntt import cuda_ntt
 
     cuda_ntt.get_cuda_plan.cache_clear()
-    cuda_ntt.get_three_step_plan.cache_clear()
+    cuda_ntt._stage_twiddles.cache_clear()  # the Stockham oracle's tables
     torch.cuda.empty_cache()
 
 
@@ -768,9 +819,10 @@ def main() -> int:
     res = Results(card)
     for name, source, replaces in (
             ("K1", "stark_tpu_torch/csrc/ntt.cu",
-             "stark_tpu/ntt/pallas_ntt.py:188"),
+             "stark_tpu/ntt/pallas_ntt.py:188 and :194"),
             ("K2", "stark_tpu_torch/csrc/ntt.cu",
-             "stark_tpu/ntt/pallas_ntt.py:328 and :334"),
+             "stark_tpu/ntt/pallas_ntt.py:328 and :334 (and the XLA coarse "
+             "stages :374-388)"),
             ("K3", "stark_tpu_torch/csrc/sha256_tree.cu",
              "stark_tpu/hash/pallas_sha.py:100"),
             ("K4", "stark_tpu_torch/csrc/sha256_tree.cu",

@@ -33,10 +33,7 @@ CXX_FLAGS = ["-std=c++17", "-O3", "-shared", "-fPIC"]
 _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
 _U64, _SZ = ctypes.c_uint64, ctypes.c_size_t
 SIGNATURES = {
-    "ntt": {"stark_ntt_two_step": [_P, _P, _P, _P, _P, _P, _I, _I,
-                                   _U, _U, _U, _U, _P],
-            "stark_ntt_three_step": [_P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                     _U, _U, _U, _U, _P]},
+    "ntt": {"stark_ntt": [_P] * 7 + [_I] * 4 + [_U] * 3 + [_P]},
     "sha256_tree": {"stark_sha_leaves": [_P, _P, _I, _P],
                     "stark_sha_nodes": [_P, _P, _I, _P]},
     "sha_chain": {"stark_sha_chain": [_P, _P, _P, _P, _I, _P],

@@ -1,312 +1,345 @@
-// K1: two-step NTT / INTT over GF(p), p < 2^32, for n = n1 * n2 <= 2^22.
+// K1 and K2: one two-pass NTT / INTT family over GF(p), odd p < 2^32, for
+// every power-of-two n from 1 to 2^30 (ntt_pass1 + ntt_pass2).
 //
-// Replaces the TPU kernels stark_tpu/ntt/pallas_ntt.py
-// _PallasNTT._step1_kernel and _PallasNTT._step2_kernel (driven by
-// _PallasNTT._run), including the XLA row gathers around them.
+// Replaces the TPU kernels of stark_tpu/ntt/pallas_ntt.py:
+//   K1  _PallasNTT._step1_kernel (:188) and _step2_kernel (:194), called
+//       at :205 and :222 (n <= 2^22);
+//   K2  _ThreeStepNTT._k1_kernel (:328) and _k2a_kernel (:334), called at
+//       :343 and :360, with the XLA coarse stages after them (:374-388)
+//       (2^22 < n <= 2^30).
+// On the card both are these two kernels; the wrappers count K1 and K2 by
+// the route (ntt/cuda_ntt.py).
 //
-//   A  = x.reshape(n1, n2)[bitrev(n1)]             folded into step 1's loads
-//   C  = DIT_n1(to_mont(A)) * T,  T[k1,j2] = w^(j2*k1)          step 1
-//   Ct = C.T[bitrev(n2)]                           folded into step 2's loads
-//   X  = from_mont(DIT_n2(Ct) [* n^-1])  in natural order       step 2
+// Algebra (the TPU plans' own): n = n1 * n2, j = j1*n2 + j2,
+// k = k1 + n1*k2, w the order-n root (its inverse for the INTT):
+//   Y[k1, j2] = sum_j1 x[j1*n2 + j2] (w^n2)^(j1*k1)             pass 1
+//   C[k1, j2] = Y[k1, j2] * w^(j2*k1)                           pass 1
+//   X[k1 + n1*k2] = [n^-1] sum_j2 C[k1, j2] (w^n1)^(j2*k2)      pass 2
+// Both transforms are decimation in frequency: natural input, position q
+// holding index bitrev(q) on output.  So pass 1 writes its position q to
+// row bitrev(q) of C and pass 2 its position q to k2 = bitrev(q): the
+// bit-reversal costs an address, not a permutation in shared memory.
 //
-// What bounds it on an H100: device-memory traffic (x, T and C read, C and
-// X written: ~5 passes of 4n bytes) plus 32-bit integer multiplies
-// (log2(n) Montgomery products per element).  Design: each block holds a
-// group of `cols` whole columns in shared memory, so every butterfly stage
-// of a sub-transform runs there between __syncthreads() and device memory
-// is touched once per step.  Neighbouring threads take neighbouring
-// columns on loads, stores and butterflies, so global accesses coalesce
-// and shared-memory accesses hit distinct banks.  Every power-of-two n
-// from 2 up runs through it; the modulus and Montgomery constants are
-// arguments (the golden vectors run at p = 97).
+// ntt_pass1<L1>: block b holds columns [b*C, (b+1)*C) of x.reshape(n1, n2)
+//   whole in shared memory, C = 8 while n1 <= 2^12 (8 x 2^12 words =
+//   128 KB), so each row's 32 bytes are one sector on the strided load and
+//   on the store to C.  Above 2^12 rows (n > 2^27: n1 = n / 2^15, on no
+//   path of the prover) the group narrows to 2^15 / n1 columns: the same
+//   kernel, a third of a sector or less a row, and no third pass.
+// ntt_pass2<L2>: block k1 holds row k1 of C (n2 <= 2^15 contiguous words)
+//   in shared memory.  Its strided side is the output, X[k1 + n1*k2]: the
+//   blocks of 8 adjacent rows form a thread block cluster and, after a
+//   cluster barrier, each block writes a share of the positions by reading
+//   the 8 rows' values from the blocks' shared memory (distributed shared
+//   memory), so every 8 adjacent k1 leave as one 32-byte sector.
 //
-// K2: three-step NTT / INTT for 2^22 < n <= 2^30, where a length-n2
-// column no longer fits one block's shared memory beside 7 others.
-//
-// Replaces the TPU kernels stark_tpu/ntt/pallas_ntt.py
-// _ThreeStepNTT._k1_kernel and _ThreeStepNTT._k2a_kernel (driven by
-// _ThreeStepNTT._run), the XLA transpose and row gathers around them and
-// the XLA coarse stages after them.  n = n1 * n2 with n1 = 2^R rows (R = 11
-// unless the caller asks for another split), b = min(n1, n2), a = n2 / b:
-//
-//   C  = DIT_n1(to_mont(x.reshape(n1, n2)[bitrev(n1)])) * T    ntt_step1
-//   Ct = C.T[bitrev(n2)] as (a, b, n1); the DIT stages l <= b
-//        of each length-b segment of each column                ntt_block_stages
-//   the coarse stages l = 2b .. n2 on the (n2, n1) array, the
-//        last one fused with n^-1 and from_mont                 ntt_coarse_stage
-//
-// The transpose and the bit-reversal of step 2 fold into the block
-// stage's loads: bitrev_{log n2}(i*b + r) = bitrev_{log b}(r)*a +
-// bitrev_{log a}(i), so row r of segment i of column k1 reads
-// C[k1, bitrev_b(r)*a + bitrev_a(i)].  The butterflies of a DIT with
-// bit-reversed input stay inside contiguous l-row blocks, so the stages
-// l <= b of one segment need no other segment; its twiddles are those of
-// a length-b DIT of the root w2^a (w2 = w^n1), since w2^(n2/l) =
-// (w2^a)^(b/l).
-//
-// What bounds it on an H100: device-memory traffic, ~3 passes of 4n bytes
-// (step 1, block stages, one read-write per coarse stage) plus the n-word
-// table T, and log2(n) Montgomery products per element.  Design: steps 1
-// and 2a hold whole columns of 2^R words (64 KB for 8 columns at R = 11)
-// in shared memory, as K1 does; the block stage reads a row of C at
-// stride a, and the blocks of neighbouring segments run side by side, so
-// the rest of each sector is still in L2 when they read it.  The coarse
-// stages are one launch each (log2(a) of them: 2 at n = 2^24, 4 at 2^26)
-// with consecutive k1 in consecutive threads, so they coalesce.  Every
-// index product is size_t: T has n words, 2^30 at the top size.
+// What bounds it on an H100: per element 16 bytes of device memory (x
+// read, C written and read, X written; 0.32 ms at 2^26 at 3.35 TB/s) and
+// log2(n)/2 butterflies of ~10 32-bit operations plus one twiddle product
+// pair (w^(j2*k1) from two tables, then the product) and, for the inverse,
+// the n^-1 product: about the same time (the operation bound at 2^26 is
+// 0.29 ms on chip_smoke.py's yardstick).  What the design does:
+//   - sizes at compile time: both kernels are templated on log2 of their
+//     transform length; the column count and the cluster size are powers
+//     of two applied by shifts and masks, so no index divides;
+//   - radix 16 in registers: each thread loads 16 elements of a column,
+//     runs 4 DIF stages on them and stores them back, so a transform of
+//     2^L makes ceil(L/4) passes over shared memory with one
+//     __syncthreads() each (a smaller radix for the last round);
+//   - shared memory is padded by one word every 32 (index i at
+//     i + i/32), so the groups' strided rows and the twiddle reads of the
+//     late rounds hit distinct banks or at most two ways;
+//   - twiddles: each pass copies its sub-transform's table (n_pass/2
+//     mont powers, at most 2^14 words) into shared memory; w^(j2*k1) is
+//     hi[e >> h] * lo[e & (2^h - 1)], e = j2*k1 < n, two read-only tables
+//     of about sqrt(n) words each: no n-word table;
+//   - canonical data: every twiddle is in Montgomery form, and a
+//     Montgomery product of a canonical value and mont(t) is the canonical
+//     product, so there is no to_mont or from_mont pass;
+//   - 32-bit arithmetic: p may exceed 2^31 (3*2^30+1), so a sum of two
+//     residues can carry out of 32 bits and lazy reduction into [0, 2p) is
+//     not available.  add_mod compares a with p - b instead of forming
+//     a + b, and the Montgomery product uses m = lo * p^-1, for which
+//     (a*b - m*p) / 2^32 = hi - mh exactly: four multiplies, one compare,
+//     one select and one add, no carry (the SASS is IMAD / IMAD.HI /
+//     IADD3 / ISETP / SEL, no 64-bit add);
+//   - no tensor cores: a 32-bit modular product needs its 64-bit result
+//     (an int8 limb decomposition of the small DFTs is out of scope).
+//   - asynchronous loads: each thread issues all its 4-byte cp.async
+//     copies (global -> shared, no register staging) and waits once, so
+//     a block keeps its whole tile in flight; a tile's copy does not
+//     overlap its own butterflies, only other resident blocks' work.
 
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kThreads = 512;
-constexpr int kMaxCols = 8;
+// block sizes at the largest tiles, and the radix of a register round:
+// the fastest of 512 / 1024 threads and radix 8 / 16 at 2^22..2^26 on the
+// H100 (pass 1 has one 2^15-word tile a SM, so more threads hide more of
+// its latency; pass 2 runs two tiles a SM at 2^14 and keeps 512)
+constexpr int kThreads1 = 1024;
+constexpr int kThreads2 = 512;
+constexpr int kMaxLog = 15;  // a block holds at most 2^15 words of a pass
+constexpr int kClusterLog = 3;  // pass 2: 8 rows a cluster
+constexpr int kRadix = 16;
 
 struct Field {
-  uint32_t p, ninv;  // ninv = -p^-1 mod 2^32
+  uint32_t p, pinv;  // pinv = p^-1 mod 2^32
 };
 
-// REDC((hi, lo)) with the reference's exact wrap semantics
-// (stark_tpu/fields/fp.py Fp._redc).
-__device__ __forceinline__ uint32_t redc(uint32_t hi, uint32_t lo, Field f) {
-  uint32_t m = lo * f.ninv;
-  uint64_t s = (uint64_t)hi + __umulhi(m, f.p) + (lo != 0u);
-  return s >= f.p ? (uint32_t)(s - f.p) : (uint32_t)s;
-}
-
+// a * b * 2^-32 mod p, canonical, for a * b < p * 2^32 (a or b canonical):
+// with m = lo * p^-1 mod 2^32, m * p = mh * 2^32 + lo exactly, so
+// (a*b - m*p) / 2^32 = hi - mh, which lies in (-p, p).  Four multiplies and
+// three 32-bit operations, no carry out of 32 bits.
 __device__ __forceinline__ uint32_t mont_mul(uint32_t a, uint32_t b, Field f) {
-  return redc(__umulhi(a, b), a * b, f);
+  const uint32_t lo = a * b, hi = __umulhi(a, b);
+  const uint32_t mh = __umulhi(lo * f.pinv, f.p);
+  return hi - mh + (hi < mh ? f.p : 0u);
 }
 
+// p may exceed 2^31: a + b >= p exactly when a >= p - b, so the sum never
+// has to be formed beyond 32 bits
 __device__ __forceinline__ uint32_t add_mod(uint32_t a, uint32_t b, Field f) {
-  uint64_t s = (uint64_t)a + b;
-  return s >= f.p ? (uint32_t)(s - f.p) : (uint32_t)s;
+  return a + b - (a >= f.p - b ? f.p : 0u);
 }
 
 __device__ __forceinline__ uint32_t sub_mod(uint32_t a, uint32_t b, Field f) {
-  return a < b ? a - b + f.p : a - b;
+  return a - b + (a < b ? f.p : 0u);
 }
 
-__device__ __forceinline__ int bitrev(int r, int bits) {
-  return bits == 0 ? 0 : (int)(__brev((unsigned)r) >> (32 - bits));
+// 4-byte asynchronous copy, global -> shared (no register staging, so a
+// thread keeps all its copies in flight)
+__device__ __forceinline__ void cp_async4(uint32_t* dst, const uint32_t* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src));
 }
 
-// All radix-2 DIT stages of a length-2^logn transform, down each of `cols`
-// columns stored row-major in s[row * cols + col]; input rows bit-reversed,
-// output natural.  tw[k] = mont(root^k) for k < 2^logn / 2.
-__device__ void dit_stages(uint32_t* s, const uint32_t* __restrict__ tw,
-                           int logn, int cols, Field f) {
-  const int n = 1 << logn;
-  const int nb = (n >> 1) * cols;
-  for (int l = 2, stride = n >> 1; l <= n; l <<= 1, stride >>= 1) {
-    const int half = l >> 1;
-    for (int b = threadIdx.x; b < nb; b += blockDim.x) {
-      const int cc = b % cols;
-      const int bi = b / cols;
-      const int j = bi & (half - 1);
-      const int i0 = ((bi - j) * 2 + j) * cols + cc;  // (g*l + j) rows
-      const int i1 = i0 + half * cols;
-      const uint32_t bw = mont_mul(s[i1], __ldg(tw + j * stride), f);
-      const uint32_t a = s[i0];
-      s[i0] = add_mod(a, bw, f);
-      s[i1] = sub_mod(a, bw, f);
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+__device__ __forceinline__ uint32_t bitrev(uint32_t r, int bits) {
+  return bits == 0 ? 0u : __brev(r) >> (32 - bits);
+}
+
+// shared-memory index with one pad word every 32
+__device__ __forceinline__ int pad(int i) { return i + (i >> 5); }
+
+__host__ __device__ constexpr int ilog2(int v) {
+  return v <= 1 ? 0 : 1 + ilog2(v >> 1);
+}
+
+__host__ __device__ constexpr int padded_words(int words) {
+  return words + (words >> 5) + 1;
+}
+
+// One round of log2(R) DIF stages, the first of block length L, down the
+// 2^lc columns of the (N, 2^lc) array s (row-major, padded).  Each thread
+// takes groups of R elements at rows b*L + i0 + m*(L/R), m < R, of one
+// column; tw[pad(k)] = mont(root^k), k < N/2.
+template <int LN, int L, int R>
+__device__ __forceinline__ void dif_round(uint32_t* s, const uint32_t* tw,
+                                          int lc, Field f) {
+  constexpr int N = 1 << LN;
+  constexpr int Q = L / R;
+  constexpr int LQ = ilog2(Q);
+  constexpr int LL = ilog2(L);
+  constexpr int LR = ilog2(R);
+  const int groups = (N / R) << lc;
+  const int cmask = (1 << lc) - 1;
+  for (int g = threadIdx.x; g < groups; g += blockDim.x) {
+    const int c = g & cmask;
+    const int q = g >> lc;
+    const int i0 = q & (Q - 1);
+    const int row0 = ((q >> LQ) << LL) + i0;
+    uint32_t v[R];
+#pragma unroll
+    for (int m = 0; m < R; ++m) v[m] = s[pad(((row0 + m * Q) << lc) + c)];
+#pragma unroll
+    for (int st = 0; st < LR; ++st) {
+      const int half = R >> (st + 1);
+#pragma unroll
+      for (int m = 0; m < R; ++m) {
+        if (m & half) continue;
+        // position of element m in its sub-block of length L >> st
+        const int j = (m & (2 * half - 1)) * Q + i0;
+        const uint32_t w = tw[pad(((N / L) << st) * j)];
+        const uint32_t a = v[m], b = v[m + half];
+        v[m] = add_mod(a, b, f);
+        v[m + half] = mont_mul(sub_mod(a, b, f), w, f);
+      }
     }
-    __syncthreads();
-  }
-}
-
-// Step 1: block b owns columns [b*cols, (b+1)*cols) of the (n1, n2) view.
-__global__ void __launch_bounds__(kThreads)
-ntt_step1(const uint32_t* __restrict__ x, const uint32_t* __restrict__ table,
-          const uint32_t* __restrict__ tw, uint32_t* __restrict__ c,
-          int log1, int n2, int cols, Field f, uint32_t r2) {
-  extern __shared__ uint32_t s[];
-  const int n1 = 1 << log1;
-  const int c0 = blockIdx.x * cols;
-  for (int i = threadIdx.x; i < n1 * cols; i += blockDim.x) {
-    const int r = i / cols, cc = i % cols;
-    const size_t src = (size_t)bitrev(r, log1) * n2 + c0 + cc;
-    s[i] = mont_mul(x[src], r2, f);  // to_mont
+#pragma unroll
+    for (int m = 0; m < R; ++m) s[pad(((row0 + m * Q) << lc) + c)] = v[m];
   }
   __syncthreads();
-  dit_stages(s, tw, log1, cols, f);
-  for (int i = threadIdx.x; i < n1 * cols; i += blockDim.x) {
-    const int r = i / cols, cc = i % cols;
-    const size_t dst = (size_t)r * n2 + c0 + cc;
-    c[dst] = mont_mul(s[i], __ldg(table + dst), f);  // * w^(j2*k1)
+}
+
+// Every DIF stage of a length-N transform, block lengths L, L/2, .. 2: in
+// rounds of radix kRadix, the last of a smaller radix.
+template <int LN, int L>
+__device__ __forceinline__ void dif_rounds(uint32_t* s, const uint32_t* tw,
+                                           int lc, Field f) {
+  if constexpr (L >= kRadix) {
+    dif_round<LN, L, kRadix>(s, tw, lc, f);
+    dif_rounds<LN, L / kRadix>(s, tw, lc, f);
+  } else if constexpr (L >= 2) {
+    dif_round<LN, L, L>(s, tw, lc, f);
   }
 }
 
-// Step 2: block b owns columns k1 in [b*cols, (b+1)*cols) of Ct (n2, n1);
-// column k1 of Ct is row k1 of C, read contiguously.
-__global__ void __launch_bounds__(kThreads)
-ntt_step2(const uint32_t* __restrict__ c, const uint32_t* __restrict__ tw,
-          uint32_t* __restrict__ out, int log1, int log2, int cols, Field f,
+// Pass 1: block b owns columns j2 in [b << lc, (b + 1) << lc) of the
+// (n1, n2) view of x, n1 = 2^LN; writes C[k1, j2] = Y[k1, j2] * w^(j2*k1).
+template <int LN>
+__global__ void __launch_bounds__(kThreads1)
+ntt_pass1(const uint32_t* __restrict__ x, const uint32_t* __restrict__ tw_g,
+          const uint32_t* __restrict__ hi, const uint32_t* __restrict__ lo,
+          uint32_t* __restrict__ c, int log_n2, int lc, int h, Field f) {
+  constexpr int N = 1 << LN;
+  extern __shared__ uint32_t smem[];
+  const int words = N << lc;
+  uint32_t* s = smem;
+  uint32_t* tw = smem + padded_words(words);
+  const int cmask = (1 << lc) - 1;
+  const uint32_t j0 = blockIdx.x << lc;
+  for (int i = threadIdx.x; i < N / 2; i += blockDim.x)
+    cp_async4(tw + pad(i), tw_g + i);
+  for (int i = threadIdx.x; i < words; i += blockDim.x)
+    cp_async4(s + pad(i), x + ((size_t)(i >> lc) << log_n2) + j0 + (i & cmask));
+  cp_async_wait_all();
+  __syncthreads();
+  dif_rounds<LN, N>(s, tw, lc, f);
+  const uint32_t hmask = (1u << h) - 1u;
+  for (int i = threadIdx.x; i < words; i += blockDim.x) {
+    const uint32_t j2 = j0 + (i & cmask);
+    const uint32_t k1 = bitrev(i >> lc, LN);
+    const uint32_t e = j2 * k1;  // < n <= 2^30
+    const uint32_t w =
+        mont_mul(__ldg(hi + (e >> h)), __ldg(lo + (e & hmask)), f);
+    c[((size_t)k1 << log_n2) + j2] = mont_mul(s[pad(i)], w, f);
+  }
+}
+
+// Pass 2: block k1 owns row k1 of C (n2 = 2^LN words); the cluster of
+// 2^lcl adjacent rows writes X[k1 + n1*k2] in whole 2^lcl-word pieces.
+template <int LN>
+__global__ void __launch_bounds__(kThreads2)
+ntt_pass2(const uint32_t* __restrict__ c, const uint32_t* __restrict__ tw_g,
+          uint32_t* __restrict__ out, int log_n1, int lcl, Field f,
           uint32_t scale) {
-  extern __shared__ uint32_t s[];
-  const int n1 = 1 << log1, n2 = 1 << log2;
-  const int c0 = blockIdx.x * cols;
-  for (int i = threadIdx.x; i < n2 * cols; i += blockDim.x) {
-    const int cc = i / n2, rp = i % n2;
-    s[bitrev(rp, log2) * cols + cc] = c[(size_t)(c0 + cc) * n2 + rp];
-  }
+  constexpr int N = 1 << LN;
+  extern __shared__ uint32_t smem[];
+  uint32_t* s = smem;
+  uint32_t* tw = smem + padded_words(N);
+  const uint32_t k1 = blockIdx.x;
+  const uint32_t* row = c + ((size_t)k1 << LN);
+  for (int i = threadIdx.x; i < N / 2; i += blockDim.x)
+    cp_async4(tw + pad(i), tw_g + i);
+  for (int i = threadIdx.x; i < N; i += blockDim.x) cp_async4(s + pad(i), row + i);
+  cp_async_wait_all();
   __syncthreads();
-  dit_stages(s, tw, log2, cols, f);
-  for (int i = threadIdx.x; i < n2 * cols; i += blockDim.x) {
-    const int r = i / cols, cc = i % cols;
-    uint32_t v = s[i];
+  dif_rounds<LN, N>(s, tw, 0, f);
+
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();  // every row of the cluster transformed
+  const int rank = (int)cluster.block_rank();
+  const int cl = 1 << lcl;
+  // element i of the cluster's N * cl outputs: position i >> lcl of row
+  // k1base + (i & (cl - 1)); blockDim.x is a multiple of cl, so a thread
+  // always reads the same row
+  const int first = rank * blockDim.x + threadIdx.x;
+  const int src = first & (cl - 1);
+  const uint32_t* rs = cluster.map_shared_rank(s, src);
+  const size_t col = (size_t)(k1 - rank) + src;
+  for (int i = first; i < (N << lcl); i += blockDim.x << lcl) {
+    const int q = i >> lcl;
+    uint32_t v = rs[pad(q)];
     if (scale) v = mont_mul(v, scale, f);  // n^-1 (inverse only)
-    out[(size_t)r * n1 + c0 + cc] = redc(0u, v, f);  // from_mont
+    out[((size_t)bitrev(q, LN) << log_n1) + col] = v;
   }
+  cluster.sync();  // no block leaves while the others read its rows
 }
 
-// K2 step 2a: block (i, g) owns segment i (rows i*b .. i*b+b-1 of Ct) of
-// the columns k1 in [g*cols, (g+1)*cols); Montgomery in and out.  With
-// `finish` (a == 1: no coarse stage follows) it also scales by `scale`
-// (when non-zero) and leaves Montgomery form.
-__global__ void __launch_bounds__(kThreads)
-ntt_block_stages(const uint32_t* __restrict__ c, const uint32_t* __restrict__ tw,
-                 uint32_t* __restrict__ d, int log_a, int log_b, int n1,
-                 int cols, Field f, int finish, uint32_t scale) {
-  extern __shared__ uint32_t s[];
-  const int b = 1 << log_b;
-  const size_t n2 = (size_t)b << log_a;
-  const int i = blockIdx.x;
-  const int c0 = blockIdx.y * cols;
-  const size_t ri = (size_t)bitrev(i, log_a);
-  // rp runs along a row of C at stride a; row bitrev_b(rp) of the segment
-  for (int t = threadIdx.x; t < b * cols; t += blockDim.x) {
-    const int cc = t / b, rp = t % b;
-    s[bitrev(rp, log_b) * cols + cc] =
-        c[(size_t)(c0 + cc) * n2 + ((size_t)rp << log_a) + ri];
-  }
-  __syncthreads();
-  dit_stages(s, tw, log_b, cols, f);
-  for (int t = threadIdx.x; t < b * cols; t += blockDim.x) {
-    const int r = t / cols, cc = t % cols;
-    uint32_t v = s[t];
-    if (finish) {
-      if (scale) v = mont_mul(v, scale, f);  // n^-1 (inverse only)
-      v = redc(0u, v, f);                    // from_mont
-    }
-    d[((size_t)i * b + r) * n1 + c0 + cc] = v;
-  }
+using Pass1 = void (*)(const uint32_t*, const uint32_t*, const uint32_t*,
+                       const uint32_t*, uint32_t*, int, int, int, Field);
+using Pass2 = void (*)(const uint32_t*, const uint32_t*, uint32_t*, int, int,
+                       Field, uint32_t);
+
+#define STARK_NTT_LOGS(K)                                                   \
+  {K<0>,  K<1>,  K<2>,  K<3>,  K<4>,  K<5>,  K<6>,  K<7>,                   \
+   K<8>,  K<9>,  K<10>, K<11>, K<12>, K<13>, K<14>, K<15>}
+const Pass1 kPass1[kMaxLog + 1] = STARK_NTT_LOGS(ntt_pass1);
+const Pass2 kPass2[kMaxLog + 1] = STARK_NTT_LOGS(ntt_pass2);
+#undef STARK_NTT_LOGS
+
+// a thread for every radix group of a round, within [32, most]
+int threads_for(int words, int most) {
+  const int t = words / kRadix;
+  return t < 32 ? 32 : (t > most ? most : t);
 }
 
-// K2 step 2b: one coarse stage l = 2 * 2^log_half of the length-n2 DIT on
-// the (n2, n1) array d, in place; thread t takes column k1 = t mod n1 of
-// pair row t / n1.  tw[j] = mont(w2^(j * n2 / l)) for j < l/2.
-__global__ void __launch_bounds__(kThreads)
-ntt_coarse_stage(uint32_t* __restrict__ d, const uint32_t* __restrict__ tw,
-                 int log_n1, int log_half, size_t pairs, Field f, int finish,
-                 uint32_t scale) {
-  const size_t t = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= pairs) return;
-  const size_t k1 = t & (((size_t)1 << log_n1) - 1);
-  const size_t pr = t >> log_n1;
-  const size_t j = pr & (((size_t)1 << log_half) - 1);
-  const size_t row0 = ((pr >> log_half) << (log_half + 1)) + j;
-  const size_t i0 = (row0 << log_n1) + k1;
-  const size_t i1 = i0 + ((size_t)1 << (log_half + log_n1));
-  const uint32_t bw = mont_mul(d[i1], __ldg(tw + j), f);
-  const uint32_t a = d[i0];
-  uint32_t top = add_mod(a, bw, f), bot = sub_mod(a, bw, f);
-  if (finish) {
-    if (scale) {
-      top = mont_mul(top, scale, f);
-      bot = mont_mul(bot, scale, f);
-    }
-    top = redc(0u, top, f);
-    bot = redc(0u, bot, f);
-  }
-  d[i0] = top;
-  d[i1] = bot;
+size_t smem_bytes(int words, int len) {
+  const int half = len / 2 > 0 ? len / 2 : 1;
+  return (size_t)(padded_words(words) + padded_words(half)) * sizeof(uint32_t);
 }
 
 }  // namespace
 
-// x, out: n words; c: n words of scratch; table: n1*n2 mont twiddles;
-// tw1 / tw2: n1/2 and n2/2 mont powers of the sub-transform roots.
-// scale = mont(n^-1) for the inverse transform, 0 for the forward one.
-extern "C" int stark_ntt_two_step(const void* x, const void* table,
-                                  const void* tw1, const void* tw2, void* c,
-                                  void* out, int log1, int log2, uint32_t p,
-                                  uint32_t ninv, uint32_t r2, uint32_t scale,
-                                  void* stream) {
-  const int n1 = 1 << log1, n2 = 1 << log2;
-  const int cols1 = n2 < kMaxCols ? n2 : kMaxCols;
-  const int cols2 = n1 < kMaxCols ? n1 : kMaxCols;
-  const size_t smem1 = (size_t)cols1 * n1 * sizeof(uint32_t);
-  const size_t smem2 = (size_t)cols2 * n2 * sizeof(uint32_t);
-  cudaError_t e = cudaFuncSetAttribute(
-      ntt_step1, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem1);
-  if (e != cudaSuccess) return (int)e;
-  e = cudaFuncSetAttribute(
-      ntt_step2, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem2);
-  if (e != cudaSuccess) return (int)e;
-  const Field f{p, ninv};
+// x, out: n = 2^(log1 + log2) canonical words; c: n words of scratch (the
+// intermediate C); tw1 / tw2: mont powers of the pass roots w^n2 / w^n1
+// (max(n1/2, 1) and max(n2/2, 1) words); hi / lo: mont powers of w^(2^h)
+// (n >> h words) and of w (2^h words); cols_log: log2 of pass 1's column
+// group; scale = mont(n^-1) for the inverse transform, 0 for the forward
+// one.  Launches pass 1, then pass 2 in clusters of min(8, n1) blocks.
+extern "C" int stark_ntt(const void* x, const void* tw1, const void* tw2,
+                         const void* hi, const void* lo, void* c, void* out,
+                         int log1, int log2, int cols_log, int h, uint32_t p,
+                         uint32_t pinv, uint32_t scale, void* stream) {
+  if (log1 < 0 || log2 < 0 || log1 > kMaxLog || log2 > kMaxLog ||
+      cols_log < 0 || cols_log > log2 || log1 + cols_log > kMaxLog ||
+      h < 0 || h > log1 + log2)
+    return (int)cudaErrorInvalidValue;
+  const Field f{p, pinv};
   cudaStream_t st = (cudaStream_t)stream;
-  ntt_step1<<<n2 / cols1, kThreads, smem1, st>>>(
-      (const uint32_t*)x, (const uint32_t*)table, (const uint32_t*)tw1,
-      (uint32_t*)c, log1, n2, cols1, f, r2);
+
+  const int words1 = 1 << (log1 + cols_log);
+  const size_t smem1 = smem_bytes(words1, 1 << log1);
+  const Pass1 k1 = kPass1[log1];
+  cudaError_t e = cudaFuncSetAttribute(
+      k1, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem1);
+  if (e != cudaSuccess) return (int)e;
+  k1<<<1u << (log2 - cols_log), threads_for(words1, kThreads1), smem1, st>>>(
+      (const uint32_t*)x, (const uint32_t*)tw1, (const uint32_t*)hi,
+      (const uint32_t*)lo, (uint32_t*)c, log2, cols_log, h, f);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  ntt_step2<<<n1 / cols2, kThreads, smem2, st>>>(
-      (const uint32_t*)c, (const uint32_t*)tw2, (uint32_t*)out, log1, log2,
-      cols2, f, scale);
-  return (int)cudaGetLastError();
-}
 
-// K2.  x, out: n = 2^(log1 + log2) words; c: n words of scratch; table:
-// n1*n2 mont twiddles w^(j2*k1); tw1: n1/2 mont powers of w^n2; tw2a: b/2
-// mont powers of w2^a; tw2b: the coarse stages' tables one after another,
-// stage l = 2*half holding `half` mont powers of w2^(n2/l) at offset
-// half - b.
-// scale = mont(n^-1) for the inverse transform, 0 for the forward one.
-// Launches: step 1, the block stages, then log2(a) coarse stages in place
-// on out.
-extern "C" int stark_ntt_three_step(const void* x, const void* table,
-                                    const void* tw1, const void* tw2a,
-                                    const void* tw2b, void* c, void* out,
-                                    int log1, int log2, uint32_t p,
-                                    uint32_t ninv, uint32_t r2, uint32_t scale,
-                                    void* stream) {
-  const int n1 = 1 << log1, n2 = 1 << log2;
-  const int log_b = log1 < log2 ? log1 : log2;
-  const int log_a = log2 - log_b;
-  const int b = 1 << log_b;
-  const int cols1 = n2 < kMaxCols ? n2 : kMaxCols;
-  const int cols2 = n1 < kMaxCols ? n1 : kMaxCols;
-  const size_t smem1 = (size_t)cols1 * n1 * sizeof(uint32_t);
-  const size_t smem2 = (size_t)cols2 * b * sizeof(uint32_t);
-  cudaError_t e = cudaFuncSetAttribute(
-      ntt_step1, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem1);
-  if (e != cudaSuccess) return (int)e;
-  e = cudaFuncSetAttribute(ntt_block_stages,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+  const int lcl = log1 < kClusterLog ? log1 : kClusterLog;
+  const size_t smem2 = smem_bytes(1 << log2, 1 << log2);
+  const Pass2 k2 = kPass2[log2];
+  e = cudaFuncSetAttribute(k2, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)smem2);
   if (e != cudaSuccess) return (int)e;
-  const Field f{p, ninv};
-  cudaStream_t st = (cudaStream_t)stream;
-  ntt_step1<<<n2 / cols1, kThreads, smem1, st>>>(
-      (const uint32_t*)x, (const uint32_t*)table, (const uint32_t*)tw1,
-      (uint32_t*)c, log1, n2, cols1, f, r2);
-  e = cudaGetLastError();
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(1u << log1);
+  cfg.blockDim = dim3(threads_for(1 << log2, kThreads2));
+  cfg.dynamicSmemBytes = smem2;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1u << lcl;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, k2, (const uint32_t*)c, (const uint32_t*)tw2,
+                         (uint32_t*)out, log1, lcl, f, scale);
   if (e != cudaSuccess) return (int)e;
-  ntt_block_stages<<<dim3(1u << log_a, n1 / cols2), kThreads, smem2, st>>>(
-      (const uint32_t*)c, (const uint32_t*)tw2a, (uint32_t*)out, log_a, log_b,
-      n1, cols2, f, log_a == 0, scale);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  const size_t pairs = ((size_t)n1 * n2) >> 1;
-  const unsigned grid = (unsigned)((pairs + kThreads - 1) / kThreads);
-  for (int log_half = log_b; log_half < log2; ++log_half) {
-    ntt_coarse_stage<<<grid, kThreads, 0, st>>>(
-        (uint32_t*)out, (const uint32_t*)tw2b + ((1 << log_half) - b), log1,
-        log_half, pairs, f, log_half == log2 - 1, scale);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-  }
-  return (int)cudaSuccess;
+  return (int)cudaGetLastError();
 }

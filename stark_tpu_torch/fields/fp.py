@@ -29,6 +29,10 @@ import numpy as np
 import torch
 
 MASK32 = 0xFFFFFFFF
+# Fp.powers multiplies at most this many entries at a time: the int64
+# temporaries of a Montgomery product stay near 10 x 32 MB, not 10 x
+# 8 * count bytes (a 2^26-entry coset domain)
+POWERS_CHUNK = 1 << 22
 
 
 def lift(x: torch.Tensor) -> torch.Tensor:
@@ -174,35 +178,30 @@ class Fp:
             out = out * np.uint64(self.r) % np.uint64(p)
         return out.astype(np.uint32)
 
-    def host_geometric_table(self, ratios, count: int, mont: bool = False):
-        """numpy uint32 T[i, j] = ratios[i]^j, canonical (or mont)."""
-        p = np.uint64(self.p)
-        r = np.asarray(ratios, dtype=np.uint64) % p
-        cols = np.ones(r.shape + (1,), dtype=np.uint64)
-        cur = r[..., None]
-        c = 1
-        while c < count:
-            cols = np.concatenate([cols, cols * cur % p], axis=-1)[..., :count]
-            cur = cur * cur % p
-            c *= 2
-        if mont:
-            cols = cols * np.uint64(self.r) % p
-        return cols.astype(np.uint32)
-
-    def host_coset_domain(self, offset: int, omega: int, size: int):
-        """numpy uint32 {offset * omega^i : i < size}."""
-        pw = self.host_powers(omega, size).astype(np.uint64)
-        return (pw * np.uint64(int(offset) % self.p)
-                % np.uint64(self.p)).astype(np.uint32)
-
     def powers(self, base: int, count: int, device) -> torch.Tensor:
-        """[base^0 .. base^(count-1)] canonical, as int64 on `device`."""
-        return torch.from_numpy(
-            self.host_powers(base, count).astype(np.int64)).to(device)
+        """[base^0 .. base^(count-1)] canonical, as int64 built on `device`:
+        the outer product base^(i*2^k) * base^j of two host tables of about
+        sqrt(count) entries, one Montgomery product on the device (the JAX
+        ``Fp.powers`` doubles on the device; the values are the same).  No
+        count-entry table is built on the host or uploaded."""
+        base = int(base) % self.p
+        k = (max(count, 1).bit_length()) // 2
+        cols = 1 << k
+        lo = self.host_powers(base, cols, mont=True)
+        hi = self.host_powers(pow(base, cols, self.p), -(-count // cols))
+        lo_t = torch.from_numpy(lo.astype(np.int64)).to(device)
+        hi_t = torch.from_numpy(hi.astype(np.int64)).to(device)
+        out = torch.empty(len(hi) * cols, dtype=torch.int64, device=device)
+        rows = max(1, POWERS_CHUNK // cols)
+        for r in range(0, len(hi), rows):
+            out[r * cols:(r + rows) * cols] = self.mont_mul(
+                hi_t[r:r + rows, None], lo_t[None, :]).reshape(-1)
+        return out[:count]
 
     def coset_domain(self, offset: int, omega: int, size: int, device):
-        """{offset * omega^i} as int32 storage on `device`."""
-        return upload_u32(self.host_coset_domain(offset, omega, size), device)
+        """{offset * omega^i} as int32 storage, built on `device`."""
+        pw = self.powers(omega, size, device)
+        return store(self.mul(pw, torch.full_like(pw, int(offset) % self.p)))
 
 
 def upload_u32(arr, device) -> torch.Tensor:

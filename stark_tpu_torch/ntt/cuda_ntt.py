@@ -1,44 +1,49 @@
-"""K1 and K2 wrappers: the two-step and three-step NTT/INTT kernels
-(``csrc/ntt.cu``; K1 replaces ``stark_tpu/ntt/pallas_ntt.py``
-``_PallasNTT._step1_kernel`` and ``_step2_kernel``, K2
-``_ThreeStepNTT._k1_kernel`` and ``_k2a_kernel`` with the XLA coarse
-stages after them).
+"""K1 and K2 wrappers: one two-pass NTT/INTT kernel family
+(``csrc/ntt.cu``) for every power-of-two n from 2 to 2^30.  K1 replaces
+``stark_tpu/ntt/pallas_ntt.py`` ``_PallasNTT._step1_kernel`` and
+``_step2_kernel``, K2 ``_ThreeStepNTT._k1_kernel`` and ``_k2a_kernel``
+with the XLA coarse stages after them; on the card both are the same two
+kernels, and the two routes differ only in their launch counts.
 
-Same decomposition and twiddle conventions as the TPU plan: n = n1 * n2
-with n1 = 2^ceil(log2(n)/2); step 1 runs a length-n1 DIT down each column
-of x.reshape(n1, n2) (rows bit-reversed) and multiplies by
-T[k1, j2] = w^(j2*k1); step 2 runs a length-n2 DIT down each column of
-the transpose (rows bit-reversed), scales by n^-1 for the inverse and
-leaves Montgomery form.  The row permutations and the transpose are
-folded into the kernels' load addresses.
+Same algebra as the TPU plans: n = n1 * n2, j = j1*n2 + j2,
+k = k1 + n1*k2.  Pass 1 runs a length-n1 transform down each column of
+x.reshape(n1, n2) and multiplies by w^(j2*k1); pass 2 runs a length-n2
+transform along each row k1 of that intermediate, scales by n^-1 for the
+inverse and writes X[k1 + n1*k2], natural order.  Both passes are
+decimation in frequency (natural input, bit-reversed output), so the
+bit-reversal folds into the rows pass 1 writes and the positions pass 2
+writes.  The data stay canonical: every twiddle is in Montgomery form,
+and a Montgomery product of a canonical value and mont(t) is the
+canonical product.
 
-K1 takes every power-of-two n from 2 to 2^MAX_LOG_N = 2^22.  Above that a
-length-sqrt(n) sub-transform no longer fits one block's shared memory,
-and K2 takes n up to 2^30: n = n1 * n2 with n1 = 2^ROWS_LOG rows; step 1
-is K1's at n1 rows, then the length-n2 transform of each column runs its
-stages l <= b = min(n1, n2) segment by segment in shared memory and its
-log2(n2 / b) coarse stages one launch each (see ``csrc/ntt.cu``).
+The split (:func:`split`): a block holds at most 2^BLOCK_LOG words of
+one pass; pass 1 holds 2^COLS_LOG adjacent columns (32 bytes of each
+row) while n1 <= 2^(BLOCK_LOG - COLS_LOG), and narrower groups above;
+pass 2 holds one row.  So n <= 2^27 runs with 8-column groups and
+n <= 2^30 in two passes.  The twiddle w^(j2*k1) comes from two tables of
+about sqrt(n) words: w^e = w^(hi(e)*2^h) * w^(lo(e)).
 
-:func:`ntt_two_step` and :func:`ntt_three_step` are the wrappers: a CPU
-tensor runs the plain version (:func:`ntt_plain`, the Stockham dataflow;
-:func:`ntt_three_step_plain`, K2's own three steps with its own tables),
-a CUDA tensor launches the kernel or raises.
+:func:`ntt_k1` (n <= 2^MAX_LOG_N) and :func:`ntt_k2` (any n, the route
+above it) are the wrappers: a CPU tensor runs :func:`ntt_passes_plain`
+(the kernels' own passes, index maps and tables), a CUDA tensor launches
+the kernels or raises.  :func:`ntt_plain` (the Stockham dataflow) is the
+second oracle.  The constants are read at call time, so the CPU tests
+shrink them to reach every branch at small sizes.
 """
 
 from __future__ import annotations
 
 import functools
 
-import numpy as np
 import torch
 
 from stark_tpu_torch import _build
 from stark_tpu_torch.fields.fp import Fp, lift, store, upload_u32
 from stark_tpu_torch.ntt.reference_ntt import ntt_available, root_of_unity
 
-MAX_LOG_N = 22  # K1 up to 2^MAX_LOG_N, K2 above
-MAX_LOG_N3 = 30  # K2's top size
-ROWS_LOG = 11  # K2's default row split n1 = 2^ROWS_LOG
+MAX_LOG_N = 22  # the K1 route up to 2^22 (the TPU K1's range), K2 above
+BLOCK_LOG = 15  # at most 2^15 words of a pass a block (128 KB): n <= 2^30
+COLS_LOG = 3  # pass 1's column group: 8 words, one 32-byte sector a row
 
 
 @functools.lru_cache(maxsize=None)
@@ -58,10 +63,7 @@ def _stage_twiddles(p: int, n: int, inverse: bool, device: str) -> tuple:
     return tuple(out)
 
 
-def ntt_plain(x: torch.Tensor, p: int, inverse: bool = False) -> torch.Tensor:
-    """Plain version of K1: radix-2 Stockham autosort of an (n,) tensor,
-    Montgomery domain inside, natural order in and out; int32 storage in
-    and out."""
+def _check_size(x: torch.Tensor, p: int) -> int:
     if x.dim() != 1:
         raise ValueError(f"NTT input must be 1-D, got shape {tuple(x.shape)}")
     n = int(x.shape[0])
@@ -69,6 +71,14 @@ def ntt_plain(x: torch.Tensor, p: int, inverse: bool = False) -> torch.Tensor:
         raise ValueError(f"NTT size must be a power of two, got {n}")
     if not ntt_available(p, n):
         raise ValueError(f"GF({p}) has no order-{n} subgroup")
+    return n
+
+
+def ntt_plain(x: torch.Tensor, p: int, inverse: bool = False) -> torch.Tensor:
+    """Second oracle: radix-2 Stockham autosort of an (n,) tensor (the
+    JAX ``NTTPlan``'s dataflow), Montgomery domain inside, natural order
+    in and out; int32 storage in and out."""
+    n = _check_size(x, p)
     f = Fp.get(p)
     xm = f.to_mont(lift(x))
     l, m = n, 1
@@ -86,214 +96,157 @@ def ntt_plain(x: torch.Tensor, p: int, inverse: bool = False) -> torch.Tensor:
     return store(f.from_mont(xm))
 
 
-class CudaNTTPlan:
-    """Device tables for one (p, n, direction) on one device."""
-
-    def __init__(self, p: int, n: int, inverse: bool, device):
-        if n & (n - 1) or n < 2:
-            raise ValueError(f"K1 needs a power-of-two n >= 2, got {n}")
-        if n > 1 << MAX_LOG_N:
-            raise ValueError(
-                f"K1 covers n <= 2^{MAX_LOG_N}; an NTT of size {n} takes the "
-                "three-step kernel K2 (ntt_three_step)")
-        if not ntt_available(p, n):
-            raise ValueError(f"GF({p}) has no order-{n} subgroup")
-        self.p, self.n, self.inverse = p, n, inverse
-        self.fp = f = Fp.get(p)
-        log_n = n.bit_length() - 1
-        self.log1 = (log_n + 1) // 2
-        self.log2 = log_n - self.log1
-        n1, n2 = 1 << self.log1, 1 << self.log2
-        w = root_of_unity(p, n)
-        if inverse:
-            w = pow(w, p - 2, p)
-        self.table = upload_u32(
-            f.host_geometric_table(f.host_powers(w, n1), n2, mont=True)
-            .reshape(-1), device)
-        # sub-transform roots: step 1 w^n2 (order n1), step 2 w^n1 (order n2)
-        self.tw1 = upload_u32(
-            f.host_powers(pow(w, n2, p), max(n1 // 2, 1), mont=True), device)
-        self.tw2 = upload_u32(
-            f.host_powers(pow(w, n1, p), max(n2 // 2, 1), mont=True), device)
-        self.scale = pow(n, p - 2, p) * f.r % p if inverse else 0
-
-    def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        n, f = self.n, self.fp
-        _build.require(x, "x", (n,))
-        scratch = torch.empty(n, dtype=torch.int32, device=x.device)
-        out = torch.empty(n, dtype=torch.int32, device=x.device)
-        _build.check(_build.lib("ntt").stark_ntt_two_step(
-            x.data_ptr(), self.table.data_ptr(), self.tw1.data_ptr(),
-            self.tw2.data_ptr(), scratch.data_ptr(), out.data_ptr(),
-            self.log1, self.log2, f.p, f.ninv, f.r2, self.scale,
-            _build.stream_ptr(x.device)), "K1 ntt_two_step")
-        ntt_two_step.launches += 1
-        return out
+def split(log_n: int) -> tuple[int, int, int]:
+    """(log n1, log n2, log of pass 1's column group) for n = 2^log_n."""
+    log1 = max(min((log_n + 1) // 2, BLOCK_LOG - COLS_LOG),
+               log_n - BLOCK_LOG)
+    log2 = log_n - log1
+    return log1, log2, min(COLS_LOG, log2, BLOCK_LOG - log1)
 
 
-@functools.lru_cache(maxsize=None)
-def get_cuda_plan(p: int, n: int, inverse: bool, device: str) -> CudaNTTPlan:
-    return CudaNTTPlan(p, n, inverse, torch.device(device))
-
-
-def ntt_two_step(x: torch.Tensor, p: int, inverse: bool = False):
-    """NTT (or INTT) of an (n,) int32 tensor of canonical values, natural
-    order in and out: K1 on a CUDA tensor, :func:`ntt_plain` on a CPU
-    one."""
-    if _build.plain_device(x):
-        return ntt_plain(x, p, inverse)
-    return get_cuda_plan(p, int(x.shape[0]), inverse, str(x.device))(x)
-
-
-ntt_two_step.launches = 0
-ntt_two_step.plain = ntt_plain
-
-
-def _bitrev(bits: int) -> np.ndarray:
+def _bitrev(bits: int, device) -> torch.Tensor:
     """The bit-reversal permutation of 2^bits indices (int64)."""
-    idx = np.arange(1 << bits, dtype=np.int64)
-    out = np.zeros_like(idx)
+    idx = torch.arange(1 << bits, dtype=torch.int64, device=device)
+    out = torch.zeros_like(idx)
     for k in range(bits):
         out |= ((idx >> k) & 1) << (bits - 1 - k)
     return out
 
 
-class CudaThreeStepPlan:
-    """K2's tables for one (p, n, direction, row split) on one device:
-    n = n1 * n2, n1 = 2^rows_log, b = min(n1, n2), a = n2 / b."""
+class CudaNTTPlan:
+    """Tables for one (p, n, direction) on one device, every one of at
+    most 2^15 words: the two passes' mont twiddles [root^k, k < len/2],
+    and the split table of w^(j2*k1)."""
 
-    def __init__(self, p: int, n: int, inverse: bool, device,
-                 rows_log: int = ROWS_LOG):
+    def __init__(self, p: int, n: int, inverse: bool, device):
         if n & (n - 1) or n < 1:
-            raise ValueError(f"K2 needs a power-of-two n, got {n}")
-        if n > 1 << MAX_LOG_N3:
-            raise ValueError(f"K2 covers n <= 2^{MAX_LOG_N3}, got {n}")
-        if not 1 <= rows_log <= 12 or n < 1 << rows_log:
-            raise ValueError(
-                f"K2 needs 1 <= rows_log <= 12 (8 columns of 2^rows_log "
-                f"words in shared memory) and n >= 2^rows_log; got "
-                f"rows_log {rows_log}, n {n}")
+            raise ValueError(f"the NTT kernels need a power-of-two n, got "
+                             f"{n}")
+        log_n = n.bit_length() - 1
+        if log_n > 2 * BLOCK_LOG:
+            raise ValueError(f"the NTT kernels cover n <= 2^{2 * BLOCK_LOG}, "
+                             f"got {n}")
         if not ntt_available(p, n):
             raise ValueError(f"GF({p}) has no order-{n} subgroup")
         self.p, self.n, self.inverse = p, n, inverse
         self.fp = f = Fp.get(p)
-        self.log1 = rows_log
-        self.log2 = n.bit_length() - 1 - rows_log
-        self.log_b = min(self.log1, self.log2)
-        self.log_a = self.log2 - self.log_b
-        n1, n2, b = 1 << self.log1, 1 << self.log2, 1 << self.log_b
+        self.log1, self.log2, self.cols_log = split(log_n)
+        n1, n2 = 1 << self.log1, 1 << self.log2
         w = root_of_unity(p, n)
         if inverse:
             w = pow(w, p - 2, p)
-        w2 = pow(w, n1, p)  # order-n2 root
-        self.table = upload_u32(
-            f.host_geometric_table(f.host_powers(w, n1), n2, mont=True)
-            .reshape(-1), device)
-        # step 1: root w^n2 (order n1); block stages: length-b DIT of the
-        # root w2^a; coarse stage l = 2b .. n2: l/2 powers of w2^(n2/l),
-        # one after another (stage l at offset l/2 - b)
+        # pass roots: pass 1 w^n2 (order n1), pass 2 w^n1 (order n2)
         self.tw1 = upload_u32(
             f.host_powers(pow(w, n2, p), max(n1 // 2, 1), mont=True), device)
-        self.tw2a = upload_u32(
-            f.host_powers(pow(w2, n2 // b, p), max(b // 2, 1), mont=True),
-            device)
-        segs = [f.host_powers(pow(w2, n2 // (2 * h), p), h, mont=True)
-                for h in (b << k for k in range(self.log_a))]
-        self.tw2b = upload_u32(
-            np.concatenate(segs) if segs else np.zeros(0, np.uint32), device)
+        self.tw2 = upload_u32(
+            f.host_powers(pow(w, n1, p), max(n2 // 2, 1), mont=True), device)
+        # w^e = hi[e >> h] * lo[e & (2^h - 1)], e = j2*k1 < n
+        self.h = (log_n + 1) // 2
+        self.lo = upload_u32(f.host_powers(w, 1 << self.h, mont=True), device)
+        self.hi = upload_u32(f.host_powers(pow(w, 1 << self.h, p),
+                                           n >> self.h, mont=True), device)
         self.scale = pow(n, p - 2, p) * f.r % p if inverse else 0
-        # the plain version's gathers: step 1's bit-reversed rows, and row
-        # r of segment i reading column bitrev_b(r) * a + bitrev_a(i) of C
-        self.rev1 = torch.from_numpy(_bitrev(self.log1)).to(device)
-        seg = (_bitrev(self.log_b)[None, :] << self.log_a) \
-            + _bitrev(self.log_a)[:, None]
-        self.seg_cols = torch.from_numpy(seg.reshape(-1)).to(device)
+        self.pinv = pow(p, -1, 1 << 32)
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        n, f = self.n, self.fp
-        _build.require(x, "x", (n,))
-        scratch = torch.empty(n, dtype=torch.int32, device=x.device)
-        out = torch.empty(n, dtype=torch.int32, device=x.device)
-        _build.check(_build.lib("ntt").stark_ntt_three_step(
-            x.data_ptr(), self.table.data_ptr(), self.tw1.data_ptr(),
-            self.tw2a.data_ptr(), self.tw2b.data_ptr(), scratch.data_ptr(),
-            out.data_ptr(), self.log1, self.log2, f.p, f.ninv, f.r2,
-            self.scale, _build.stream_ptr(x.device)), "K2 ntt_three_step")
-        ntt_three_step.launches += 1
+        f = self.fp
+        _build.require(x, "x", (self.n,))
+        scratch = torch.empty(self.n, dtype=torch.int32, device=x.device)
+        out = torch.empty(self.n, dtype=torch.int32, device=x.device)
+        _build.check(_build.lib("ntt").stark_ntt(
+            x.data_ptr(), self.tw1.data_ptr(), self.tw2.data_ptr(),
+            self.hi.data_ptr(), self.lo.data_ptr(), scratch.data_ptr(),
+            out.data_ptr(), self.log1, self.log2, self.cols_log, self.h,
+            f.p, self.pinv, self.scale, _build.stream_ptr(x.device)),
+            "ntt passes")
         return out
 
 
 @functools.lru_cache(maxsize=None)
-def get_three_step_plan(p: int, n: int, inverse: bool, device: str,
-                        rows_log: int) -> CudaThreeStepPlan:
-    return CudaThreeStepPlan(p, n, inverse, torch.device(device), rows_log)
+def _cached_plan(p: int, n: int, inverse: bool, device: str,
+                 limits: tuple) -> CudaNTTPlan:
+    return CudaNTTPlan(p, n, inverse, torch.device(device))
 
 
-def _dit_stage(f: Fp, xm: torch.Tensor, tw: torch.Tensor, l: int):
-    """One radix-2 DIT stage of block length l along axis -2 of
-    (..., length, m) Montgomery values: the top and bottom halves of each
-    l-row block, bottom * tw[j]."""
-    *lead, length, m = xm.shape
-    v = xm.reshape(*lead, length // l, l, m)
-    top = v[..., :l // 2, :]
-    bw = f.mont_mul(v[..., l // 2:, :], tw[:, None])
-    return torch.cat([f.add(top, bw), f.sub(top, bw)], dim=-2).reshape(
-        xm.shape)
+def get_cuda_plan(p: int, n: int, inverse: bool, device: str) -> CudaNTTPlan:
+    """The cached plan, keyed also by the split constants in force."""
+    return _cached_plan(p, n, inverse, device, (BLOCK_LOG, COLS_LOG))
 
 
-def _dit(f: Fp, xm: torch.Tensor, tw: torch.Tensor, length: int):
-    """Every DIT stage along axis -2 (input rows bit-reversed, output
-    natural); tw[k] = mont(root^k) for k < length/2, stage l reading
-    tw[j * length / l] (the kernels' ``dit_stages``)."""
-    l = 2
-    while l <= length:
-        xm = _dit_stage(f, xm, tw[::length // l][:l // 2], l)
-        l *= 2
-    return xm
+get_cuda_plan.cache_clear = _cached_plan.cache_clear
 
 
-def ntt_three_step_plain(x: torch.Tensor, p: int, inverse: bool = False,
-                         rows_log: int | None = None) -> torch.Tensor:
-    """Plain version of K2 in torch ops: the kernels' three steps, index
-    maps and tables (those of :class:`CudaThreeStepPlan` on x's device);
-    int32 storage in and out, natural order."""
-    if x.dim() != 1:
-        raise ValueError(f"NTT input must be 1-D, got shape {tuple(x.shape)}")
-    pl = get_three_step_plan(p, int(x.shape[0]), inverse, str(x.device),
-                             ROWS_LOG if rows_log is None else rows_log)
+def _dif(f: Fp, v: torch.Tensor, tw: torch.Tensor, length: int):
+    """Every radix-2 DIF stage along axis 0 of (length, m) canonical
+    values: natural input, bit-reversed output.  The stage of block length
+    l reads tw[j * length / l], j < l/2 (tw[k] = mont(root^k)), as the
+    kernels' register rounds do."""
+    l = length
+    while l > 1:
+        h = l // 2
+        b = v.reshape(length // l, 2, h, -1)
+        top, bot = b[:, 0], b[:, 1]
+        t = tw[::length // l][:h, None]
+        v = torch.stack([f.add(top, bot), f.mont_mul(f.sub(top, bot), t)],
+                        dim=1).reshape(length, -1)
+        l = h
+    return v
+
+
+def ntt_passes_plain(x: torch.Tensor, p: int,
+                     inverse: bool = False) -> torch.Tensor:
+    """Plain version of the kernels in torch ops: their split, index maps
+    and tables (those of :class:`CudaNTTPlan` on x's device); int32
+    storage in and out, natural order."""
+    n = _check_size(x, p)
+    pl = get_cuda_plan(p, n, inverse, str(x.device))
     f = pl.fp
     n1, n2 = 1 << pl.log1, 1 << pl.log2
-    a, b = 1 << pl.log_a, 1 << pl.log_b
-    # step 1: DIT_n1 down the columns of the bit-reversed rows, * T
-    xm = f.to_mont(lift(x)).reshape(n1, n2)[pl.rev1]
-    xm = _dit(f, xm, lift(pl.tw1), n1)
-    c = f.mont_mul(xm, lift(pl.table).reshape(n1, n2))
-    # step 2a: segment i of column k1 gathers C[k1, bitrev_b(r)*a +
-    # bitrev_a(i)]; the stages l <= b of each segment
-    d = c[:, pl.seg_cols].T.reshape(a, b, n1)
-    d = _dit(f, d, lift(pl.tw2a), b).reshape(n2, n1)
-    # step 2b: the coarse stages l = 2b .. n2
-    tw2b = lift(pl.tw2b)
-    for k in range(pl.log_a):
-        h = b << k
-        d = _dit_stage(f, d, tw2b[h - b:2 * h - b], 2 * h)
+    rev1 = _bitrev(pl.log1, x.device)
+    # pass 1: position q of column j2 holds k1 = bitrev(q); row k1 of the
+    # intermediate is that row times w^(j2*k1)
+    y = _dif(f, lift(x).reshape(n1, n2), lift(pl.tw1), n1)
+    e = rev1[:, None] * torch.arange(n2, device=x.device)[None, :]
+    tw = f.mont_mul(lift(pl.hi)[e >> pl.h], lift(pl.lo)[e & ((1 << pl.h) - 1)])
+    c = f.mont_mul(y, tw)[rev1]
+    # pass 2: position q of row k1 holds k2 = bitrev(q); X[k1 + n1*k2]
+    z = _dif(f, c.T.contiguous(), lift(pl.tw2), n2)
+    out = z[_bitrev(pl.log2, x.device)].reshape(-1)
     if inverse:
-        d = f.mont_mul(d, torch.full_like(d, pl.scale))
-    return store(f.from_mont(d)).reshape(-1)  # (n2, n1) is natural order
+        out = f.mont_mul(out, torch.full_like(out, pl.scale))
+    return store(out)
 
 
-def ntt_three_step(x: torch.Tensor, p: int, inverse: bool = False,
-                   rows_log: int | None = None):
-    """NTT (or INTT) of an (n,) int32 tensor of canonical values, natural
-    order in and out, n = 2^rows_log * n2 (rows_log defaults to
-    ROWS_LOG): K2 on a CUDA tensor, :func:`ntt_three_step_plain` on a CPU
-    one."""
-    rows_log = ROWS_LOG if rows_log is None else rows_log
+def _launch(x: torch.Tensor, p: int, inverse: bool) -> torch.Tensor:
+    return get_cuda_plan(p, int(x.shape[0]), inverse, str(x.device))(x)
+
+
+def ntt_k1(x: torch.Tensor, p: int, inverse: bool = False) -> torch.Tensor:
+    """The K1 route: NTT (or INTT) of an (n,) int32 tensor of canonical
+    values, n <= 2^MAX_LOG_N, natural order in and out; the kernels on a
+    CUDA tensor, :func:`ntt_passes_plain` on a CPU one."""
+    n = _check_size(x, p)
+    if n > 1 << MAX_LOG_N:
+        raise ValueError(f"K1 covers n <= 2^{MAX_LOG_N}; an NTT of size {n} "
+                         "takes the K2 route (ntt_k2)")
     if _build.plain_device(x):
-        return ntt_three_step_plain(x, p, inverse, rows_log)
-    return get_three_step_plan(p, int(x.shape[0]), inverse, str(x.device),
-                               rows_log)(x)
+        return ntt_passes_plain(x, p, inverse)
+    out = _launch(x, p, inverse)
+    ntt_k1.launches += 1
+    return out
 
 
-ntt_three_step.launches = 0
-ntt_three_step.plain = ntt_three_step_plain
+def ntt_k2(x: torch.Tensor, p: int, inverse: bool = False) -> torch.Tensor:
+    """The K2 route (the sizes above 2^MAX_LOG_N, up to 2^30; any n is
+    taken): as :func:`ntt_k1`."""
+    _check_size(x, p)
+    if _build.plain_device(x):
+        return ntt_passes_plain(x, p, inverse)
+    out = _launch(x, p, inverse)
+    ntt_k2.launches += 1
+    return out
+
+
+for _w in (ntt_k1, ntt_k2):
+    _w.launches = 0
+    _w.plain = ntt_passes_plain

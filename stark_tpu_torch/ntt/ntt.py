@@ -2,13 +2,13 @@
 of ``stark_tpu/ntt/ntt.py`` + ``ntt/fourstep.py``).
 
 :func:`ntt` / :func:`intt` go through the kernel wrappers
-(``ntt/cuda_ntt.py``): n <= 2^MAX_LOG_N (2^22) to K1, larger n (up to
-2^30) to K2 with a row split of 2^ROWS_LOG (both read at call time).  A
-CUDA tensor launches the kernel — the trace INTT included, which on the
-TPU took the XLA plan because it ran inside an outer ``jax.jit`` — and a
-CPU tensor runs the kernel's plain version: ``ntt_plain``, the radix-2
-Stockham dataflow of the JAX ``NTTPlan``, or ``ntt_three_step_plain``.
-Field arithmetic is exact, so every route gives the same bits.
+(``ntt/cuda_ntt.py``): n <= 2^MAX_LOG_N (2^22) by the K1 route, larger n
+(up to 2^30) by the K2 route (read at call time); both launch the same
+two-pass kernels.  A CUDA tensor launches them — the trace INTT included,
+which on the TPU took the XLA plan because it ran inside an outer
+``jax.jit`` — and a CPU tensor runs their plain version
+``ntt_passes_plain``.  Field arithmetic is exact, so every route gives
+the same bits as the JAX ``NTTPlan``.
 """
 
 from __future__ import annotations
@@ -17,13 +17,13 @@ import torch
 
 from stark_tpu_torch.fields.fp import Fp, store
 from stark_tpu_torch.ntt import cuda_ntt
-from stark_tpu_torch.ntt.cuda_ntt import ntt_three_step, ntt_two_step
+from stark_tpu_torch.ntt.cuda_ntt import ntt_k1, ntt_k2
 
 
 def _transform(x: torch.Tensor, p: int, inverse: bool) -> torch.Tensor:
     if int(x.shape[-1]) <= 1 << cuda_ntt.MAX_LOG_N:
-        return ntt_two_step(x, p, inverse)
-    return ntt_three_step(x, p, inverse, cuda_ntt.ROWS_LOG)
+        return ntt_k1(x, p, inverse)
+    return ntt_k2(x, p, inverse)
 
 
 def ntt(x: torch.Tensor, p: int) -> torch.Tensor:

@@ -89,16 +89,36 @@ def test_host_tables_match_jax(p):
     for mont in (False, True):
         np.testing.assert_array_equal(tf.host_powers(5, 37, mont),
                                       jf.host_powers(5, 37, mont))
-        ratios = jf.host_powers(7, 8)
-        np.testing.assert_array_equal(
-            tf.host_geometric_table(ratios, 16, mont),
-            jf.host_geometric_table(ratios, 16, mont))
     np.testing.assert_array_equal(
         tensor_to_u32(tf.coset_domain(5, 3, 32, "cpu")),
         np.asarray(jf.jit_coset_domain(5, 3, 32)))
     np.testing.assert_array_equal(
         tf.powers(3, 33, "cpu").numpy().astype(np.uint32),
         np.asarray(jf.powers(3, 33)))
+
+
+@pytest.mark.parametrize("p", [3 * 2**30 + 1, 97])
+@pytest.mark.parametrize("count", [1, 2, 33, 2**10 + 3, 2**16])
+def test_device_powers_match_jax(p, count):
+    """Fp.powers builds the vector on the tensor's device by doubling, as
+    the JAX Fp.powers does: same canonical values, int64 on the device."""
+    got = Fp.get(p).powers(5, count, "cpu")
+    assert got.dtype == torch.int64 and got.shape == (count,)
+    want = np.asarray(JFp.get(p).powers(5, count))
+    np.testing.assert_array_equal(got.numpy().astype(np.uint32), want)
+
+
+@pytest.mark.parametrize("p", [3 * 2**30 + 1, 97])
+@pytest.mark.parametrize("count", [33, 2**10 + 3, 2**16])
+def test_device_powers_in_chunks_match_jax(monkeypatch, p, count):
+    """The outer product taken a few rows at a time (the chunk shrunk from
+    2^22 entries to 64) gives the same vector."""
+    from stark_tpu_torch.fields import fp as fp_module
+
+    monkeypatch.setattr(fp_module, "POWERS_CHUNK", 64)
+    got = Fp.get(p).powers(3, count, "cpu")
+    want = np.asarray(JFp.get(p).powers(3, count))
+    np.testing.assert_array_equal(got.numpy().astype(np.uint32), want)
 
 
 def test_lift_store_roundtrip_keeps_bits():

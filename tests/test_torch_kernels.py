@@ -31,38 +31,47 @@ def _u32(shape, bound, seed, dev):
     return torch.from_numpy(v.view(np.int32)).to(dev)
 
 
-@pytest.mark.parametrize("p", [P, 97])
-@pytest.mark.parametrize("log_n", [1, 2, 3, 5, 9, 12, 15])
-@pytest.mark.parametrize("inverse", [False, True])
-def test_k1_ntt_matches_plain(dev, p, log_n, inverse):
-    from stark_tpu_torch.ntt.cuda_ntt import ntt_plain, ntt_two_step
+def _ntt_case(route, dev, p, log_n, inverse):
+    """One launch through `route` against both plain versions (the
+    kernels' own passes and the Stockham dataflow)."""
+    from stark_tpu_torch.ntt.cuda_ntt import ntt_passes_plain, ntt_plain
 
-    if p == 97 and log_n > 5:
-        pytest.skip("GF(97) has roots of unity up to order 32 only")
     x = _u32(1 << log_n, p, log_n, dev)
-    before = ntt_two_step.launches
-    got = ntt_two_step(x, p, inverse)
+    before = route.launches
+    got = route(x, p, inverse)
     torch.cuda.synchronize()
-    assert ntt_two_step.launches == before + 1
+    assert route.launches == before + 1
+    assert torch.equal(got, ntt_passes_plain(x, p, inverse))
     assert torch.equal(got, ntt_plain(x, p, inverse))
 
 
-@pytest.mark.parametrize("p,log_n,rows_log", [(P, 12, 5), (P, 14, 4),
-                                              (P, 16, 7), (P, 11, 11),
-                                              (97, 5, 2), (P, 23, 11)])
+# the K1 route at the default limits: n = 2 (a one-word pass 2), 2^12 and
+# 2^13 (pass 1 at 2^6 and 2^7 rows), 2^15, 2^22 (the route's top)
+@pytest.mark.parametrize("p", [P, 97])
+@pytest.mark.parametrize("log_n", [1, 2, 3, 5, 9, 12, 13, 15, 22])
 @pytest.mark.parametrize("inverse", [False, True])
-def test_k2_ntt_matches_plain(dev, p, log_n, rows_log, inverse):
-    from stark_tpu_torch.ntt.cuda_ntt import (ntt_plain, ntt_three_step,
-                                              ntt_three_step_plain)
+def test_k1_ntt_matches_plain(dev, p, log_n, inverse):
+    from stark_tpu_torch.ntt.cuda_ntt import ntt_k1
 
-    x = _u32(1 << log_n, p, log_n, dev)
-    before = ntt_three_step.launches
-    got = ntt_three_step(x, p, inverse, rows_log)
-    torch.cuda.synchronize()
-    assert ntt_three_step.launches == before + 1
-    assert torch.equal(got, ntt_three_step_plain(x, p, inverse, rows_log))
-    if log_n <= 16:
-        assert torch.equal(got, ntt_plain(x, p, inverse))
+    if p == 97 and log_n > 5:
+        pytest.skip("GF(97) has roots of unity up to order 32 only")
+    _ntt_case(ntt_k1, dev, p, log_n, inverse)
+
+
+# the K2 route: 2^23 and 2^24 (n1 = ceil half, 8 columns), 2^25 (the first
+# split set by the 2^15-word row), 2^27 (the last with 8 columns); with a
+# shrunk block budget (2^block_log words) the narrow column groups of
+# n > 2^27 (2^14, 2^16 at 2^8 words) and GF(97) at 2^5 (2^3 words)
+@pytest.mark.parametrize("p,log_n,block_log",
+                         [(P, 23, 15), (P, 24, 15), (P, 25, 15), (P, 27, 15),
+                          (P, 13, 8), (P, 14, 8), (P, 16, 8), (97, 5, 3)])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_k2_ntt_matches_plain(dev, monkeypatch, p, log_n, block_log,
+                              inverse):
+    from stark_tpu_torch.ntt import cuda_ntt
+
+    monkeypatch.setattr(cuda_ntt, "BLOCK_LOG", block_log)
+    _ntt_case(cuda_ntt.ntt_k2, dev, p, log_n, inverse)
 
 
 @pytest.mark.parametrize("n", [1, 2, 255, 4096])

@@ -1,5 +1,5 @@
-"""The port's NTT layer (stark_tpu_torch/ntt, plain versions of kernels
-K1 and K2 on CPU tensors) against the JAX package on the same seeded
+"""The port's NTT layer (stark_tpu_torch/ntt, the plain version of the
+K1/K2 kernels on CPU tensors) against the JAX package on the same seeded
 inputs, exact equality.  The JAX side runs its Pallas kernels in
 interpret mode where it has them."""
 
@@ -16,9 +16,8 @@ from stark_tpu.stark.trace import trace_polynomial as j_trace_polynomial
 from stark_tpu_torch.interop import tensor_to_u32, u32_to_tensor
 from stark_tpu_torch.ntt import ntt as tn
 from stark_tpu_torch.ntt import cuda_ntt
-from stark_tpu_torch.ntt.cuda_ntt import (CudaNTTPlan, CudaThreeStepPlan,
-                                          ntt_plain, ntt_three_step,
-                                          ntt_three_step_plain, ntt_two_step)
+from stark_tpu_torch.ntt.cuda_ntt import (CudaNTTPlan, ntt_k1, ntt_k2,
+                                          ntt_passes_plain, ntt_plain, split)
 from stark_tpu_torch.stark.trace import (fibonacci_square_host,
                                          trace_polynomial)
 
@@ -44,14 +43,14 @@ def test_ntt_matches_jax_stockham(p, log_n, inverse):
 
 @pytest.mark.parametrize("inverse", [False, True])
 def test_ntt_matches_jax_pallas_kernel_interpret(inverse):
-    """K1's plain version vs the TPU kernel it replaces (pallas_ntt, in
-    interpret mode) at 2^14."""
+    """The kernels' plain version (the K1 route) vs the TPU kernel it
+    replaces (pallas_ntt, in interpret mode) at 2^14."""
     from stark_tpu.ntt.pallas_ntt import pallas_intt, pallas_ntt
 
     x = _rand(P, 1 << 14, seed=14 + inverse)
     jfn = pallas_intt if inverse else pallas_ntt
     want = np.asarray(jfn(jnp.asarray(x), P, interpret=True))
-    got = ntt_two_step(u32_to_tensor(x, device="cpu"), P, inverse)
+    got = ntt_k1(u32_to_tensor(x, device="cpu"), P, inverse)
     np.testing.assert_array_equal(tensor_to_u32(got), want)
 
 
@@ -94,83 +93,107 @@ def test_stark101_anchor():
 
 
 def test_k1_plan_bounds():
-    """K1 covers power-of-two 2 <= n <= 2^22 and names K2 above; K2
-    covers n <= 2^30 in fields with the subgroup."""
+    """The kernels cover power-of-two n <= 2^30 in fields with the
+    subgroup, and at most 2^(2 BLOCK_LOG); the K1 route stops at 2^22 and
+    names K2."""
     with pytest.raises(ValueError, match="K2"):
-        CudaNTTPlan(P, 1 << 23, False, "cpu")
+        ntt_k1(torch.zeros(1 << 23, dtype=torch.int32, device="meta"), P)
     with pytest.raises(ValueError):
         CudaNTTPlan(P, 48, False, "cpu")
     with pytest.raises(ValueError, match=r"2\^30"):
-        CudaThreeStepPlan(P, 1 << 31, False, "cpu")
+        CudaNTTPlan(P, 1 << 31, False, "cpu")
     with pytest.raises(ValueError, match="subgroup"):
-        CudaThreeStepPlan(97, 1 << 6, False, "cpu", rows_log=3)
-    with pytest.raises(ValueError, match="rows_log"):
-        CudaThreeStepPlan(P, 1 << 12, False, "cpu", rows_log=13)
+        CudaNTTPlan(97, 1 << 6, False, "cpu")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(cuda_ntt, "BLOCK_LOG", 4)
+        with pytest.raises(ValueError, match=r"2\^8"):
+            CudaNTTPlan(P, 1 << 9, False, "cpu")
 
 
-@pytest.mark.parametrize("wrapper", [ntt_two_step, ntt_three_step])
+@pytest.mark.parametrize("log_n,want", [
+    (1, (1, 0, 0)), (2, (1, 1, 1)), (12, (6, 6, 3)), (22, (11, 11, 3)),
+    (23, (12, 11, 3)), (24, (12, 12, 3)), (25, (12, 13, 3)),
+    (26, (12, 14, 3)), (27, (12, 15, 3)), (28, (13, 15, 2)),
+    (30, (15, 15, 0))])
+def test_split_keeps_every_pass_in_one_block(log_n, want):
+    """Two passes up to 2^30; 8-column groups (32 bytes a row) up to 2^27,
+    narrower above; no pass over 2^15 words."""
+    log1, log2, cols_log = split(log_n)
+    assert (log1, log2, cols_log) == want
+    assert log1 + cols_log <= cuda_ntt.BLOCK_LOG >= log2
+
+
+@pytest.mark.parametrize("wrapper", [ntt_k1, ntt_k2])
 def test_wrapper_refuses_devices_without_a_route(wrapper):
     x = torch.zeros(8, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="no kernel or plain path"):
         wrapper(x, P)
 
 
-# K2 at CPU sizes: the row split shrunk as the JAX package's own tests
-# shrink it (tests/test_pallas.py TestThreeStepNTT), so a = n2/b > 1 and
-# the block stages and the coarse stages both run
-THREE_STEP_CASES = [(15, 7, False), (16, 7, False), (17, 8, False),
-                    (16, 7, True)]
+# the kernels' plain version at CPU sizes: the block budget shrunk so that
+# the passes split as they do at 2^24..2^30 (8-column, then narrower
+# column groups), against the JAX three-step plan at its own shrunk row
+# split (tests/test_pallas.py TestThreeStepNTT): (log n, JAX rows_log,
+# port BLOCK_LOG, inverse)
+PASS_CASES = [(15, 7, 9, False), (16, 7, 9, False), (17, 8, 9, False),
+              (16, 7, 9, True)]
 
 
-@pytest.mark.parametrize("log_n,rows_log,inverse", THREE_STEP_CASES)
-def test_three_step_plain_matches_jax_plan3(log_n, rows_log, inverse):
-    """K2's plain version vs the TPU kernels it replaces
+@pytest.mark.parametrize("log_n,rows_log,block_log,inverse", PASS_CASES)
+def test_passes_plain_matches_jax_plan3(monkeypatch, log_n, rows_log,
+                                        block_log, inverse):
+    """The kernels' plain version vs the TPU kernels of K2
     (pallas_ntt._plan3, interpret mode)."""
     from stark_tpu.ntt.pallas_ntt import _plan3
 
+    monkeypatch.setattr(cuda_ntt, "BLOCK_LOG", block_log)
     x = _rand(P, 1 << log_n, seed=40 + log_n + inverse)
     want = np.asarray(_plan3(P, 1 << log_n, inverse, True, rows_log)(
         jnp.asarray(x)))
-    got = ntt_three_step_plain(u32_to_tensor(x, device="cpu"), P, inverse,
-                               rows_log)
+    got = ntt_passes_plain(u32_to_tensor(x, device="cpu"), P, inverse)
     np.testing.assert_array_equal(tensor_to_u32(got), want)
 
 
-@pytest.mark.parametrize("p,log_n,rows_log,inverse",
-                         [(P, *c) for c in THREE_STEP_CASES]
-                         + [(P, 11, 11, False), (P, 9, 3, True),
-                            (P, 4, 1, False), (97, 5, 2, True)])
-def test_three_step_plain_matches_stockham(p, log_n, rows_log, inverse):
-    """The same transform as K1's plain version, the Stockham dataflow:
-    also at a = 1 (n <= 2^(2 rows_log)) and in GF(97)."""
+@pytest.mark.parametrize("p,log_n,block_log,inverse",
+                         [(P, c[0], c[2], c[3]) for c in PASS_CASES]
+                         + [(P, 11, 15, False), (P, 9, 5, True),
+                            (P, 4, 2, False), (97, 5, 3, True)])
+def test_passes_plain_matches_stockham(monkeypatch, p, log_n, block_log,
+                                       inverse):
+    """The same transform as the Stockham dataflow: also at the default
+    budget, at the top of a shrunk one (one column a group) and in
+    GF(97)."""
+    monkeypatch.setattr(cuda_ntt, "BLOCK_LOG", block_log)
     x = u32_to_tensor(_rand(p, 1 << log_n, seed=log_n + 7), device="cpu")
-    assert torch.equal(ntt_three_step_plain(x, p, inverse, rows_log),
+    assert torch.equal(ntt_passes_plain(x, p, inverse),
                        ntt_plain(x, p, inverse))
 
 
-def test_three_step_plain_round_trips():
+def test_passes_plain_round_trips(monkeypatch):
+    monkeypatch.setattr(cuda_ntt, "BLOCK_LOG", 9)
     x = u32_to_tensor(_rand(P, 1 << 16, seed=45), device="cpu")
-    fwd = ntt_three_step(x, P, False, 7)
-    assert torch.equal(ntt_three_step(fwd, P, True, 7), x)
-    assert ntt_three_step.plain is ntt_three_step_plain
+    fwd = ntt_k2(x, P, False)
+    assert torch.equal(ntt_k2(fwd, P, True), x)
+    assert ntt_k2.plain is ntt_passes_plain is ntt_k1.plain
 
 
 @pytest.fixture
 def k2_route(monkeypatch):
-    """Force K2 above 2^9 with a 2^5-row split, and record which wrapper
-    each transform of ``ntt.ntt`` / ``ntt.intt`` takes."""
+    """Send n above 2^9 to the K2 route with a 2^7-word block budget, and
+    record which wrapper each transform of ``ntt.ntt`` / ``ntt.intt``
+    takes."""
     monkeypatch.setattr(cuda_ntt, "MAX_LOG_N", 9)
-    monkeypatch.setattr(cuda_ntt, "ROWS_LOG", 5)
+    monkeypatch.setattr(cuda_ntt, "BLOCK_LOG", 7)
     calls = []
 
     def spy(name, fn):
-        def wrapped(x, p, inverse, *rest):
-            calls.append((name, int(x.shape[0]), inverse) + tuple(rest))
-            return fn(x, p, inverse, *rest)
+        def wrapped(x, p, inverse):
+            calls.append((name, int(x.shape[0]), inverse))
+            return fn(x, p, inverse)
         return wrapped
 
-    monkeypatch.setattr(tn, "ntt_two_step", spy("K1", ntt_two_step))
-    monkeypatch.setattr(tn, "ntt_three_step", spy("K2", ntt_three_step))
+    monkeypatch.setattr(tn, "ntt_k1", spy("K1", ntt_k1))
+    monkeypatch.setattr(tn, "ntt_k2", spy("K2", ntt_k2))
     return calls
 
 
@@ -183,7 +206,7 @@ def test_ntt_routes_large_sizes_to_k2(k2_route, log_n, inverse):
     fn = tn.intt if inverse else tn.ntt
     got = fn(u32_to_tensor(x, device="cpu"), P)
     np.testing.assert_array_equal(tensor_to_u32(got), want)
-    assert k2_route == [("K2", 1 << log_n, inverse, 5)]
+    assert k2_route == [("K2", 1 << log_n, inverse)]
     small = u32_to_tensor(_rand(P, 1 << 9, seed=3), device="cpu")
     fn(small, P)
     assert k2_route[-1] == ("K1", 1 << 9, inverse)

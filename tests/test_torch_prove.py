@@ -68,21 +68,22 @@ def test_prove_2e11_equals_jax(proofs_2e11):
 
 
 def test_prove_2e11_through_k2_route_equals_jax(proofs_2e11, monkeypatch):
-    """With K2 forced above 2^9 (a 2^5-row split), the trace INTT (2^11)
-    and the LDE (2^14) both take the three-step dataflow, and the
-    transcript still equals the JAX prove's."""
+    """With the K2 route forced above 2^9 and a 2^7-word block budget, the
+    trace INTT (2^11) and the LDE (2^14, one column a pass-1 group) take
+    the K2 route through the kernels' plain version, and the transcript
+    still equals the JAX prove's."""
     _, ref = proofs_2e11
     monkeypatch.setattr(cuda_ntt, "MAX_LOG_N", 9)
-    monkeypatch.setattr(cuda_ntt, "ROWS_LOG", 5)
+    monkeypatch.setattr(cuda_ntt, "BLOCK_LOG", 7)
     sizes = []
 
-    def k2(x, p, inverse, rows_log):
-        sizes.append((int(x.shape[0]), inverse, rows_log))
-        return cuda_ntt.ntt_three_step(x, p, inverse, rows_log)
+    def k2(x, p, inverse):
+        sizes.append((int(x.shape[0]), inverse))
+        return cuda_ntt.ntt_k2(x, p, inverse)
 
-    monkeypatch.setattr(tn, "ntt_three_step", k2)
+    monkeypatch.setattr(tn, "ntt_k2", k2)
     port = prove(ProverConfig(**CFG_2E11), device="cpu")
-    assert sizes == [(1 << 11, True, 5), (1 << 14, False, 5)]
+    assert sizes == [(1 << 11, True), (1 << 14, False)]
     assert port.serialize() == ref.serialize()
 
 
