@@ -8,19 +8,24 @@ native host trace from ``stark_tpu_torch/native``), holds each kernel
 against its plain torch version on the card at the prover's shapes
 (exact equality; the NTT kernels, one two-pass family counted as K1 up to
 2^22 and as K2 above, also against the Stockham dataflow, on every branch
-of their split), proves the two golden vectors byte-identical to
+of their split, and in their batched form on (C, n) columns), proves the
+four u32 golden vectors byte-identical to
 ``tests/vectors/golden_proofs.json``, then proves the Fibonacci-square
-statement at 2^20 rows and at 2^24 rows (blowup 4, 16 queries; LDE 2^22
-and 2^26) twice each: the two transcripts must agree, the port's host
-verifier must accept the proof and reject it with one byte flipped, and
-the kernels of each path must have launched (K1 on the 2^20 path; K2
-exactly twice, K3, K4 and K5 on the 2^24 path; K5's query form exactly
-once per prove).  K5 has two entry points, the chain form (the
-channel's absorbs and draws) and the query form (all queries of a prove
-in one launch); both count as K5 and both are held against their plain
+statement at 2^20 rows and at 2^24 rows, the MiMC³ statement at 2^20
+rows and the two-column FibMul statement at 2^20 and 2^24 rows (blowup
+4, 16 queries; LDE 2^22 and 2^26) twice each: the two transcripts must
+agree and hash (SHA-256 of the messages) to the pinned transcript
+digest, the port's host verifier must accept the proof and reject it
+with one byte flipped, and the kernels of each path must have launched
+(K1 on the 2^20 paths; K2 on the 2^24 paths; one NTT wrapper call per
+transform whatever C, two a prove; K3 once per tree, its row form for
+FibMul's trace tree; K4; K5's query form exactly once per prove).  K5
+has two entry points, the chain form (the channel's absorbs and draws)
+and the query form (all queries of a prove in one launch); both count
+as K5 and both are held against their plain
 versions: the chain form on a 5,000-block stream with mixed flags and on
 the proves' query streams, the query form on the 2^20 and 2^24 plans
-with seeded trees.
+and on plans of 2- and 6-column row openings, with seeded trees.
 
 The ``kernels`` line gives each kernel's time and its plain version's
 (CUDA events, median of 5 after a warm-up) beside its bound: the larger
@@ -31,10 +36,11 @@ reports.  K5 is one serial chain: its bound is a latency bound, with the
 dependent-issue latency that a clock64 probe measures on the card in
 this run (printed beside the assumed 4 cycles).
 
-``--profile`` then adds where a warm prove spends its time, at 2^20 and
-at 2^24 rows: a phase split synced after each phase, five warm walls,
-and one prove under ``torch.profiler`` (device busy time, the kernels'
-shares; the full tables go to ``chiprun_out/profile_prove_2e*.txt``).
+``--profile`` then adds where a warm prove spends its time, for the
+Fibonacci-square proves at 2^20 and 2^24 rows, MiMC³ at 2^20 and FibMul
+at 2^24: a phase split synced after each phase, five warm walls, and one
+prove under ``torch.profiler`` (device busy time, the kernels' shares;
+the full tables go to ``chiprun_out/profile_prove_*.txt``).
 
 Needs one CUDA device; exits non-zero without one.  Imports nothing of
 JAX.  The last line of standard output is the result object.
@@ -43,6 +49,7 @@ JAX.  The last line of standard output is the result object.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import statistics
@@ -69,16 +76,51 @@ NTT_REDUCED = ((8, 13), (8, 14), (8, 16))  # (BLOCK_LOG, log n)
 # int64 message schedule of 2^26 lanes would need ~32 GiB)
 TREE_LOG = 22
 TREE_TIME_LOG = 26
-PROVES = {"2^20": dict(log2_trace=20, blowup=4, num_queries=16),
-          "2^24": dict(log2_trace=24, blowup=4, num_queries=16)}
-PATH = "2^24"  # this slice's path: its launch counts fill the kernels line
+# the proves: (configuration, AIR name, the AIR's arguments); None is the
+# default Fibonacci-square statement
+_CFG20 = dict(log2_trace=20, blowup=4, num_queries=16)
+_CFG24 = dict(log2_trace=24, blowup=4, num_queries=16)
+PROVES = {"2^20": (_CFG20, None, {}), "2^24": (_CFG24, None, {}),
+          "MiMC 2^20": (_CFG20, "mimc3", dict(x0=271828, k=777)),
+          "FibMul 2^20": (_CFG20, "fibmul", dict(a0=1, b0=2718281)),
+          "FibMul 2^24": (_CFG24, "fibmul", dict(a0=1, b0=2718281))}
+PROFILED = ("2^20", "2^24", "MiMC 2^20", "FibMul 2^24")
+# SHA-256 of each prove's transcript (its messages concatenated): the
+# fib-sq ones are those of the port before the multi-column machinery
+# (commit 1ea9dbe), which the proves must keep byte for byte; the others
+# pin the MiMC³ / FibMul transcripts of the port that added them
+TRANSCRIPT_SHA256 = {
+    "2^20": "c6eccf09e57fe3ac5b23b41b67a0415d88edec9305b7f59804eac2940e37c2b8",
+    "2^24": "d513cf301e6e8c7e2d25c012b971a8f0d84944015ad71f73b9e7a3d3668f7367",
+    "MiMC 2^20":
+        "05510f2e30c1f7d4e9838c1581361b6641b51a70d13a00ff98075cac64644e0e",
+    "FibMul 2^20":
+        "397713f4c901e5f2b914d89eb22b400113dfa0c3c3b236c57a685576957ae9a6",
+    "FibMul 2^24":
+        "c7940dca9a4643a69c4ebe524db4b17f13e54653a6e681c23c3e427573457cb7"}
+# the prove whose launch counts fill each row of the kernels line (rows
+# not named here: the 2^24 Fibonacci-square prove)
+ROW_PATH = {"K1": "2^20", "K1 batched": "FibMul 2^20",
+            "K2 batched": "FibMul 2^24", "K3 row form": "FibMul 2^24",
+            "K5 row messages": "FibMul 2^24"}
+PATH = "2^24"
 # the NTT shapes timed: each path's trace INTT (inverse) and LDE (forward);
 # the LDE's time fills the route's row of the kernels line
 NTT_TIMED = {}
-for _kw in PROVES.values():
+for _kw in (_CFG20, _CFG24):
     _log = _kw["log2_trace"]
     NTT_TIMED[(_log, True)] = False
     NTT_TIMED[(_log + _kw["blowup"].bit_length() - 1, False)] = True
+# the batched NTT: FibMul's two columns on both routes, at its paths'
+# shapes (timed), and under a shrunk block budget (narrow column groups)
+NTT_COLS = 2
+NTT_BATCHED_REDUCED = ((8, 13), (8, 16))
+# K3's row form: every column count at 2^20 rows, FibMul's 2^26-row tree
+ROW_LEAVES_LOG, ROW_LEAVES_TIME = 20, (2, 26)
+# K5's query form on row messages: the FibMul 2^24 prove's plan (C = 2)
+# and a 6-column plan at 2^20 rows (one full hex block before the tail)
+QUERY_ROW_PLANS = {"FibMul 2^24 plan (C = 2)": ("FibMul 2^24", None),
+                   "6-column 2^20 plan": ("FibMul 2^20", 6)}
 
 # the bound's rates: HBM3 of the H100 SXM (its datasheet's rate) and a
 # 32-bit integer peak derived as SMs x 128 x max SM clock: each SM's four
@@ -356,8 +398,47 @@ def phase_ntt(res: Results, dev) -> None:
                     f"{json.dumps(got['passes_ms'])}")
         del x
         torch.cuda.empty_cache()
+    # the batched form: NTT_COLS columns, one launch of each pass, at the
+    # FibMul paths' shapes (each column also against Stockham)
+    for log_n in sorted({k[0] for k in NTT_TIMED}):
+        n = 1 << log_n
+        name, route = ("K1", ntt_k1) if n <= 1 << cuda_ntt.MAX_LOG_N else (
+            "K2", ntt_k2)
+        x = rand_u32_dev(gen, (NTT_COLS, n), P, dev)
+        for inverse in (False, True):
+            kind = f"{'intt' if inverse else 'ntt'}"
+            what = f"{kind} ({NTT_COLS}, 2^{log_n})"
+            got = route(x, P, inverse)
+            res.check(f"{name} batched", f"{what} vs its passes", got,
+                      ntt_passes_plain(x, P, inverse))
+            for c in range(NTT_COLS):
+                res.check(f"{name} batched", f"{what} column {c} vs "
+                          "Stockham", got[c], ntt_plain(x[c], P, inverse))
+            del got
+            if (log_n, inverse) in NTT_TIMED:
+                b = res.card.ntt_bound(n, inverse)
+                got = res.time(f"{name} batched", what,
+                               lambda: route(x, P, inverse),
+                               lambda: ntt_passes_plain(x, P, inverse),
+                               (NTT_COLS * b[0], b[1]),
+                               row=NTT_TIMED[(log_n, inverse)], other=True)
+                got["passes_ms"] = kernel_device_ms(
+                    lambda: route(x, P, inverse), r"ntt_pass[12]<\d+>")
+                log(f"{name} batched {what}: device ms per pass "
+                    f"{json.dumps(got['passes_ms'])}")
+        del x
+        torch.cuda.empty_cache()
     saved = cuda_ntt.BLOCK_LOG
     try:
+        for block_log, log_n in NTT_BATCHED_REDUCED:
+            cuda_ntt.BLOCK_LOG = block_log
+            x = rand_u32(rs, (NTT_COLS, 1 << log_n), P, dev)
+            for inverse in (False, True):
+                what = (f"{'intt' if inverse else 'ntt'} ({NTT_COLS}, "
+                        f"2^{log_n}), block budget 2^{block_log}")
+                res.check("K2 batched", f"{what} vs its passes",
+                          ntt_k2(x, P, inverse),
+                          ntt_passes_plain(x, P, inverse))
         for block_log, log_n in NTT_REDUCED:
             cuda_ntt.BLOCK_LOG = block_log
             x = rand_u32(rs, 1 << log_n, P, dev)
@@ -378,8 +459,10 @@ def phase_ntt(res: Results, dev) -> None:
 def phase_tree(res: Results, dev) -> None:
     """K3 and K4: equality over a 2^22 tree, times at the 2^24 path's
     shapes."""
-    from stark_tpu_torch.hash.cuda_sha import sha_leaves, sha_nodes
-    from stark_tpu_torch.hash.sha256 import sha256_pairs, sha256_u64_leaves
+    from stark_tpu_torch.hash.cuda_sha import (sha_leaves, sha_nodes,
+                                               sha_row_leaves)
+    from stark_tpu_torch.hash.sha256 import (sha256_pairs, sha256_row_leaves,
+                                             sha256_u64_leaves)
     from stark_tpu_torch.merkle.tree import build_tree, level_offsets
 
     rs = np.random.RandomState(SEED + 1)
@@ -423,6 +506,26 @@ def phase_tree(res: Results, dev) -> None:
     res.time("K4", f"nodes m=2^{TREE_TIME_LOG - 1}", lambda: sha_nodes(kids),
              lambda: sliced(sha256_pairs, kids, sl),
              res.card.bound(96 * m, (SHA_OPS + SHA_PAD_OPS) * m))
+    del kids
+
+    # K3's row form: every column count, then FibMul's 2^26-row tree
+    for c in range(1, 7):
+        cols = rand_u32(rs, (c, 1 << ROW_LEAVES_LOG), P, dev)
+        res.check("K3 row form", f"row leaves C={c} n=2^{ROW_LEAVES_LOG}",
+                  sha_row_leaves(cols), sha256_row_leaves(cols))
+    c, log = ROW_LEAVES_TIME
+    cols = rand_u32_dev(gen, (c, 1 << log), P, dev)
+
+    def rows_sliced():
+        return torch.cat([sha256_row_leaves(cols[:, k:k + sl])
+                          for k in range(0, 1 << log, sl)])
+
+    res.check("K3 row form", f"row leaves C={c} n=2^{log} (plain in "
+              f"2^{TREE_LOG} slices)", sha_row_leaves(cols), rows_sliced())
+    # the columns read once (4 bytes a value), the digests written once
+    res.time("K3 row form", f"row leaves C={c} n=2^{log}",
+             lambda: sha_row_leaves(cols), rows_sliced,
+             res.card.bound((4 * c + 32) << log, SHA_OPS << log))
 
 
 def phase_latency(card: Card, dev) -> None:
@@ -470,7 +573,8 @@ def phase_chain(res: Results, dev) -> None:
     trees: all 16 queries in one launch against the per-query plain
     loop, on all four outputs."""
     from stark_tpu_torch.channel.device_channel import absorb_stream
-    from stark_tpu_torch.channel.device_query import (query_chain,
+    from stark_tpu_torch.channel.device_query import (DeviceQueryPlan,
+                                                      query_chain,
                                                       query_chain_plain)
     from stark_tpu_torch.config import ProverConfig
     from stark_tpu_torch.hash.cuda_chain import (FIRST_HEX, FIRST_ROW,
@@ -505,8 +609,8 @@ def phase_chain(res: Results, dev) -> None:
             f"{res.card.clock_hz / 1e6:.0f} MHz")
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 2)
-    for name, kw in PROVES.items():
-        plan = query_plan(ProverConfig(**kw))
+    for name in ("2^20", "2^24"):
+        plan = query_plan(ProverConfig(**PROVES[name][0]))
         tb = plan.pack(dev)
         nv, nd = tb.num_values, int(tb.slots.shape[0]) - tb.num_values
         sq, fq = plan.stream(rand_u32(rs, nv, P, dev),
@@ -554,10 +658,42 @@ def phase_chain(res: Results, dev) -> None:
         del args, got, want
         torch.cuda.empty_cache()
 
+    # the query form on plans of row openings: C values a trace message
+    for what, (prove_name, cols) in QUERY_ROW_PLANS.items():
+        cfg, air = prove_setup(prove_name)
+        plan = query_plan(cfg, air)
+        if cols is not None:
+            plan = DeviceQueryPlan(plan.rng, plan.num_queries, plan.offsets,
+                                   plan.trace_len, plan.fri_lengths, cols)
+        tb = plan.pack(dev)
+        n_f, n_td, n_fv, n_fd = tb.sizes
+        args = (rand_u32(rs, 8, 1 << 32, dev),
+                rand_words_dev(gen, (n_f,), dev),
+                rand_words_dev(gen, (n_td, 8), dev),
+                rand_words_dev(gen, (n_fv,), dev),
+                rand_words_dev(gen, (n_fd, 8), dev))
+        got = query_chain(*args, tb)
+        want = query_chain_plain(*args, tb)
+        for out, a, b in zip(("final chain", "idxs", "vals", "digs"), got,
+                             want):
+            res.check("K5 row messages", f"query form, {what}, "
+                      f"{tb.num_queries} queries: {out}", a, b)
+        blocks = tb.num_queries * int(tb.template.shape[0])
+        got = res.time(
+            "K5 row messages", f"query form, {what}, {tb.num_queries} "
+            f"queries ({blocks} blocks)", lambda: query_chain(*args, tb),
+            lambda: query_chain_plain(*args, tb),
+            res.card.chain_bound(blocks), row=cols is None, other=True,
+            plain_reps=1)
+        log(f"K5 query form, {what}: "
+            f"{res.card.chain_bounds_text(blocks, got['ms'])}")
+        del args, got, want
+        torch.cuda.empty_cache()
+
 
 def phase_golden() -> None:
     from stark_tpu_torch.config import ProverConfig
-    from stark_tpu_torch.stark import StarkProof, prove
+    from stark_tpu_torch.stark import FibMulAIR, MimcAIR, StarkProof, prove
 
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
                         "vectors", "golden_proofs.json")
@@ -568,9 +704,15 @@ def phase_golden() -> None:
                                       blowup=4, num_queries=2), 3),
         "fib_stark101_2e6": (ProverConfig(log2_trace=6, blowup=8,
                                           num_queries=4), 3141592),
+        "mimc3_2e5": (ProverConfig(log2_trace=5, blowup=4, num_queries=3),
+                      MimcAIR(x0=271828, k=777)),
+        "fibmul_2e5": (ProverConfig(log2_trace=5, blowup=4, num_queries=3),
+                       FibMulAIR(a0=1, b0=2718281)),
     }
-    for name, (cfg, a1) in cases.items():
-        got = prove(cfg, a1=a1).proof  # no device: the card by default
+    for name, (cfg, arg) in cases.items():
+        # no device: the card by default
+        got = (prove(cfg, a1=arg) if isinstance(arg, int)
+               else prove(cfg, air=arg)).proof
         want = StarkProof.deserialize(json.dumps(vectors[name]).encode()).proof
         if got != want:
             raise AssertionError(f"golden vector {name}: transcript differs")
@@ -579,63 +721,99 @@ def phase_golden() -> None:
 
 
 def counters() -> dict:
-    """Each kernel's wrappers (K5 has two entry points, both counted)."""
+    """Each row of the kernels line: its wrappers' counters, as (wrapper,
+    attribute) pairs (K5 has two entry points, both counted; the batched
+    NTT rows count the same wrappers' (C, n) launches)."""
     from stark_tpu_torch.channel.device_query import query_chain
     from stark_tpu_torch.hash.cuda_chain import sha_chain
-    from stark_tpu_torch.hash.cuda_sha import sha_leaves, sha_nodes
+    from stark_tpu_torch.hash.cuda_sha import (sha_leaves, sha_nodes,
+                                               sha_row_leaves)
     from stark_tpu_torch.ntt.cuda_ntt import ntt_k1, ntt_k2
 
-    return {"K1": (ntt_k1,), "K2": (ntt_k2,),
-            "K3": (sha_leaves,), "K4": (sha_nodes,),
-            "K5": (sha_chain, query_chain)}
+    return {"K1": ((ntt_k1, "launches"),), "K2": ((ntt_k2, "launches"),),
+            "K1 batched": ((ntt_k1, "column_launches"),),
+            "K2 batched": ((ntt_k2, "column_launches"),),
+            "K3": ((sha_leaves, "launches"),),
+            "K3 row form": ((sha_row_leaves, "launches"),),
+            "K4": ((sha_nodes, "launches"),),
+            "K5": ((sha_chain, "launches"), (query_chain, "launches")),
+            "K5 row messages": ((query_chain, "launches"),)}
+
+
+def read_counts() -> dict:
+    return {k: sum(getattr(fn, a) for fn, a in pairs)
+            for k, pairs in counters().items()}
+
+
+def reset_counts() -> None:
+    for pairs in counters().values():
+        for fn, a in pairs:
+            setattr(fn, a, 0)
+
+
+def prove_setup(name: str):
+    """(config, AIR or None for the default statement) of a prove."""
+    from stark_tpu_torch.config import ProverConfig
+    from stark_tpu_torch.stark import FibMulAIR, MimcAIR
+
+    kw, air, args = PROVES[name]
+    cls = {None: None, "mimc3": MimcAIR, "fibmul": FibMulAIR}[air]
+    return ProverConfig(**kw), cls(**args) if cls else None
 
 
 def drop_plans() -> None:
     """Forget the NTT plans and oracle tables (device memory) that the
-    kernel checks built, so a cold prove builds its own as in a fresh
-    process and its peak memory counts only its own."""
+    kernel checks built, and the AIR contexts and FRI domains of earlier
+    proves, so a cold prove builds its own as in a fresh process and its
+    peak memory counts only its own."""
+    from stark_tpu_torch.fri import commit
     from stark_tpu_torch.ntt import cuda_ntt
+    from stark_tpu_torch.stark import prover
 
     cuda_ntt.get_cuda_plan.cache_clear()
     cuda_ntt._stage_twiddles.cache_clear()  # the Stockham oracle's tables
+    prover._CTX_CACHE.clear()
+    commit._inv_domain.cache_clear()
     torch.cuda.empty_cache()
 
 
 def phase_prove(res: Results, dev, name: str) -> None:
     """Prove the `name` configuration twice (cold, warm): deterministic,
     verified, tamper-rejected, with its kernels launched."""
-    from stark_tpu_torch.config import ProverConfig
-    from stark_tpu_torch.stark import (StarkProof, StarkVerificationError,
-                                       prove, verify)
+    from stark_tpu_torch.ntt import cuda_ntt
+    from stark_tpu_torch.stark import (FibonacciSquareAIR, StarkProof,
+                                       StarkVerificationError, prove, verify)
 
-    cfg = ProverConfig(**PROVES[name])
+    cfg, air = prove_setup(name)
+    air_used = air or FibonacciSquareAIR()
     drop_plans()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    for fns in counters().values():
-        for fn in fns:
-            fn.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
-    cold = prove(cfg, device=dev)
+    cold = prove(cfg, air=air, device=dev)
     torch.cuda.synchronize()
     cold_s = time.perf_counter() - t0
-    launches = {k: sum(fn.launches for fn in fns)
-                for k, fns in counters().items()}
-    query_form = counters()["K5"][1].launches
+    launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
     t0 = time.perf_counter()
-    warm = prove(cfg, device=dev)
+    warm = prove(cfg, air=air, device=dev)
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
-    log(f"prove {name} {PROVES[name]}: cold {cold_s:.3f} s, warm "
-        f"{warm_s:.3f} s, peak device memory {peak / 2**20:.1f} MiB "
-        f"({base / 2**20:.1f} MiB allocated before it), "
-        f"{len(cold.proof)} messages, {cold.size_bytes()} bytes")
-    log(f"launches during the cold {name} prove: {launches} (K5: "
-        f"{query_form} of the query form)")
+    log(f"prove {name} ({air_used.name}, {PROVES[name][0]}): cold "
+        f"{cold_s:.3f} s, warm {warm_s:.3f} s, peak device memory "
+        f"{peak / 2**20:.1f} MiB ({base / 2**20:.1f} MiB allocated before "
+        f"it), {len(cold.proof)} messages, {cold.size_bytes()} bytes, "
+        f"publics {cold.publics}")
+    log(f"launches during the cold {name} prove: {launches}")
     if cold.proof != warm.proof:
         raise AssertionError(f"{name} prove is not deterministic")
+    digest = hashlib.sha256(b"".join(cold.proof)).hexdigest()
+    if digest != TRANSCRIPT_SHA256[name]:
+        raise AssertionError(f"{name} transcript sha256 {digest} differs "
+                             f"from the pinned {TRANSCRIPT_SHA256[name]}")
+    log(f"{name} transcript sha256 {digest}: as pinned")
     blob = cold.serialize()
     if not verify(StarkProof.deserialize(blob), expected_config=cfg):
         raise AssertionError(f"verifier rejected the {name} proof")
@@ -651,26 +829,33 @@ def phase_prove(res: Results, dev, name: str) -> None:
     else:
         raise AssertionError("verifier accepted a tampered proof")
     log(f"{name} proof deterministic and accepted by the host verifier")
-    # K1 carries NTTs up to 2^22 (the 2^20 path), K2 the larger ones: the
-    # 2^24 path's trace INTT and LDE, one launch each
-    need = ("K1", "K3", "K4", "K5") if name == "2^20" else ("K3", "K4", "K5")
-    for k in need:
+    # one NTT wrapper call a transform (trace INTT, LDE) whatever the
+    # column count: K1 up to 2^MAX_LOG_N (the 2^20 paths), K2 above; K3
+    # once per tree (the trace tree and one a FRI layer), its row form for
+    # a multi-column trace; K4; K5's query form once
+    cols = air_used.num_columns
+    k1 = sum(n <= 1 << cuda_ntt.MAX_LOG_N
+             for n in (cfg.trace_domain_size, cfg.eval_domain_size))
+    trees = air_used.num_folds(cfg) + 2
+    want = {"K1": k1, "K2": 2 - k1,
+            "K1 batched": k1 * (cols > 1), "K2 batched": (2 - k1) * (cols > 1),
+            "K3": trees - (cols > 1), "K3 row form": int(cols > 1),
+            "K5 row messages": 1}
+    for k, n in want.items():
+        if launches[k] != n:
+            raise AssertionError(f"{k} launched {launches[k]} times in the "
+                                 f"{name} prove, expected {n}")
+    for k in ("K4", "K5"):
         if launches[k] == 0:
             raise AssertionError(f"kernel {k} never launched in the {name} "
                                  "prove")
-    if query_form != 1:
-        raise AssertionError(f"K5's query form launched {query_form} times "
-                             f"in the {name} prove, expected 1")
-    if name == "2^24" and launches["K2"] != 2:
-        raise AssertionError(f"K2 launched {launches['K2']} times in the "
-                             "2^24 prove, expected 2 (trace INTT, LDE)")
     for k, count in launches.items():
         res.rows[k]["launches_by_prove"][name] = count
-        if name == ("2^20" if k == "K1" else PATH):
+        if name == ROW_PATH.get(k, PATH):
             res.rows[k]["launches"] = count
 
 
-def phase_split(cfg, dev) -> dict:
+def phase_split(cfg, air, dev) -> dict:
     """One prove's steps as ``prove()`` runs them, with the wall of each
     in ms (``torch.cuda.synchronize()`` after each step)."""
     from stark_tpu_torch.channel.channel import Channel
@@ -697,8 +882,9 @@ def phase_split(cfg, dev) -> dict:
         out[name] = round((now - t) * 1e3, 3)
         t = now
 
-    air, p, h = FibonacciSquareAIR(), cfg.modulus, cfg.offset
-    plan = query_plan(cfg)
+    air = air or FibonacciSquareAIR()
+    p, h = cfg.modulus, cfg.offset
+    plan = query_plan(cfg, air)
     host = air.host_trace(cfg)
     mark("host trace (native)")
     trace = upload_u32(host, dev)
@@ -707,8 +893,12 @@ def phase_split(cfg, dev) -> dict:
     mark(f"trace INTT ({kernel(cfg.trace_domain_size)}) + correction")
     lde = coset_evaluate(coeffs, p, cfg.eval_domain_size, h)
     mark(f"scale-pad + LDE NTT ({kernel(cfg.eval_domain_size)})")
-    tree = MerkleTree(lde)
-    mark("trace tree (K3+K4)")
+    if lde.dim() == 2:
+        tree = MerkleTree.from_columns(lde)
+        mark("trace tree (K3 row form + K4)")
+    else:
+        tree = MerkleTree(lde)
+        mark("trace tree (K3+K4)")
     fs = DeviceFS(p, Channel(p).state, device=dev)
     fs.absorb_root(tree.root_digest)
     alphas = tuple(fs.draw() for _ in range(air.num_alphas))
@@ -748,20 +938,19 @@ def phase_profile(dev, name: str) -> None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from stark_tpu_torch.config import ProverConfig
     from stark_tpu_torch.stark import prove
 
-    cfg = ProverConfig(**PROVES[name])
-    prove(cfg, device=dev)
+    cfg, air = prove_setup(name)
+    prove(cfg, air=air, device=dev)
     for _ in range(3):
-        split = phase_split(cfg, dev)
+        split = phase_split(cfg, air, dev)
     log(f"{name} phase split ms (synced after each, third of 3 runs): "
         f"{json.dumps(split)}; sum {sum(split.values()):.3f}")
     walls = []
     for _ in range(5):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        prove(cfg, device=dev)
+        prove(cfg, air=air, device=dev)
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
     wall = statistics.median(walls)
@@ -770,7 +959,7 @@ def phase_profile(dev, name: str) -> None:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        prove(cfg, device=dev)
+        prove(cfg, air=air, device=dev)
         torch.cuda.synchronize()
         prof_wall = (time.perf_counter() - t0) * 1e3
     gpu = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -794,7 +983,9 @@ def phase_profile(dev, name: str) -> None:
     out = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        "chiprun_out")
     os.makedirs(out, exist_ok=True)
-    fname = f"profile_prove_2e{name.split('^')[1]}.txt"
+    # profile_prove_2e24.txt (Fibonacci-square), _fibmul_2e24.txt, ...
+    fname = "profile_prove_" + "_".join(
+        ([air.name] if air else []) + [f"2e{cfg.log2_trace}"]) + ".txt"
     with open(os.path.join(out, fname), "w") as fh:
         fh.write(ka.table(sort_by="self_device_time_total", row_limit=60,
                           max_name_column_width=90))
@@ -803,7 +994,8 @@ def phase_profile(dev, name: str) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[1])
     ap.add_argument("--profile", action="store_true",
-                    help="also profile warm 2^20 and 2^24 proves")
+                    help="also profile warm proves (" + ", ".join(PROFILED)
+                    + ")")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; the port's "
@@ -829,7 +1021,19 @@ def main() -> int:
              "stark_tpu/hash/pallas_sha.py:124"),
             ("K5", "stark_tpu_torch/csrc/sha_chain.cu",
              "stark_tpu/hash/pallas_chain.py:80 (and, for the query form, "
-             "the lax.scan of stark_tpu/channel/device_query.py:314)")):
+             "the lax.scan of stark_tpu/channel/device_query.py:314)"),
+            ("K1 batched", "stark_tpu_torch/csrc/ntt.cu",
+             "stark_tpu/ntt/pallas_ntt.py:188 and :194 over (C, n) columns "
+             "(stark_tpu/ntt/ntt.py:291-303)"),
+            ("K2 batched", "stark_tpu_torch/csrc/ntt.cu",
+             "stark_tpu/ntt/pallas_ntt.py:328 and :334 over (C, n) columns "
+             "(stark_tpu/ntt/ntt.py:291-303)"),
+            ("K3 row form", "stark_tpu_torch/csrc/sha256_tree.cu",
+             "stark_tpu/hash/pallas_sha.py:100 (u32 mode) and the XLA "
+             "sha256_row_leaves, stark_tpu/hash/sha256_jax.py:106"),
+            ("K5 row messages", "stark_tpu_torch/csrc/sha_chain.cu",
+             "stark_tpu/hash/pallas_chain.py:80 in the lax.scan of "
+             "stark_tpu/channel/device_query.py:314 with num_columns > 1")):
         res.add(name, source, replaces)
     phase_latency(card, dev)
     phase_ntt(res, dev)
@@ -839,7 +1043,7 @@ def main() -> int:
     for name in PROVES:
         phase_prove(res, dev, name)
     if args.profile:
-        for name in PROVES:
+        for name in PROFILED:
             phase_profile(dev, name)
     print(json.dumps({"kernels": list(res.rows.values())}))
     print(json.dumps({"ok": True, "device": {

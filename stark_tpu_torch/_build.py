@@ -33,15 +33,17 @@ CXX_FLAGS = ["-std=c++17", "-O3", "-shared", "-fPIC"]
 _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
 _U64, _SZ = ctypes.c_uint64, ctypes.c_size_t
 SIGNATURES = {
-    "ntt": {"stark_ntt": [_P] * 7 + [_I] * 4 + [_U] * 3 + [_P]},
-    "sha256_tree": {"stark_sha_leaves": [_P, _P, _I, _P],
+    "ntt": {"stark_ntt": [_P] * 7 + [_I] * 5 + [_U] * 3 + [_P]},
+    "sha256_tree": {"stark_sha_leaves": [_P, _P, _I, _I, _P],
                     "stark_sha_nodes": [_P, _P, _I, _P]},
     "sha_chain": {"stark_sha_chain": [_P, _P, _P, _P, _I, _P],
                   "stark_query_chain": [_P] * 8 + [_I, _I, _I, _U, _I]
                                        + [_P] * 5,
                   "stark_query_chain_max_rows": [],
                   "stark_dep_latency": [_P, _I, _I, _P]},
-    "host_trace": {"stark_fib_trace": [_U64, _U64, _U64, _SZ, _P]},
+    "host_trace": {fn: [_U64, _U64, _U64, _SZ, _P]
+                   for fn in ("stark_fib_trace", "stark_mimc_trace",
+                              "stark_fibmul_trace")},
 }
 # host libraries (C++ for the CPU, functions return void): name -> source
 # under the package; every other library is csrc/<name>.cu

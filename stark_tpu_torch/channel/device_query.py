@@ -1,5 +1,5 @@
 """Device-resident query phase (counterpart of
-``stark_tpu/channel/device_query.py``; u32 field, one trace column,
+``stark_tpu/channel/device_query.py``; u32 field, 1..6 trace columns,
 unpruned power-of-two trees).
 
 For each query, on the device and without a host sync:
@@ -12,9 +12,13 @@ For each query, on the device and without a host sync:
 Every ``Channel.send`` hashes utf8(state_hex ++ msg_hex): a first block
 that is exactly the 64-char state hex, then the message's hex chars and
 static SHA padding.  So a query is one flagged block stream (see
-``hash/cuda_chain.py``); queries chain through the state.  The stream's
-constant rows and flags are built once per plan and packed, with one
-gather slot per opened value and digest, into :class:`QueryTables`.  On
+``hash/cuda_chain.py``); queries chain through the state.  A trace
+opening of a C-column AIR is one row message of C values (8 big-endian
+bytes each, the leaf preimage of ``MerkleTree.from_columns``), 4C hex
+words that spill into a full block for C >= 4; FRI openings stay single
+values.  The stream's constant words and flags are built once per plan
+and packed, with one gather slot per opened value and digest, into
+:class:`QueryTables`; a slot names the stream word its hex starts at.  On
 a CUDA device the whole phase is ONE launch of K5's query form
 (``csrc/sha_chain.cu`` ``stark_query_chain``): per query the kernel
 draws idx, gathers through the slot table, writes the hex rows into its
@@ -34,8 +38,7 @@ import numpy as np
 import torch
 
 from stark_tpu_torch import _build
-from stark_tpu_torch.channel.device_channel import (VALUE_TAIL,
-                                                    ascii_hex_words,
+from stark_tpu_torch.channel.device_channel import (ascii_hex_words,
                                                     mod_state, pad_row)
 from stark_tpu_torch.fields.fp import store
 from stark_tpu_torch.fri.commit import layer_layout
@@ -43,13 +46,30 @@ from stark_tpu_torch.hash.cuda_chain import FIRST_HEX, sha_chain_plain
 from stark_tpu_torch.merkle.tree import level_offsets
 
 # the slot table's columns; a slot reads position
-# base + ((((idx + add) & mask) ^ xr) >> shift) ^ flip of its source
+# base + ((((idx + add) & mask) ^ xr) >> shift) ^ flip of its source and
+# writes its hex from word `word` of the query's stream (row-major (R, 16)
+# words): a value's 2 hex words, a digest's 16
 SLOT_COLUMNS = ("source", "base", "add", "mask", "xr", "shift", "flip",
-                "row")
+                "word")
 # sources, in slot order: trace values, FRI values, trace digests, FRI
 # digests (the order of DeviceQueryPlan._slots and of the kernel's enum)
 TRACE_VALUE, FRI_VALUE, TRACE_DIGEST, FRI_DIGEST = range(4)
 HEX_ZEROS = 0x30303030  # "0000"
+MAX_COLUMNS = 6  # a row leaf's message is one SHA block (sha256_row_leaves)
+
+
+def value_rows(ncols: int) -> np.ndarray:
+    """The constant words of a value message's payload rows (the JAX
+    package's ``_value_rows``): `ncols` 8-byte BE values are 16 hex chars
+    each, 8 zeros (the high word, 0 in a u32 field) then the value's 8,
+    written per query; then SHA padding.  4 * ncols hex words fill full
+    blocks first, and the 0, 4, 8 or 12 words left share the padded tail
+    block.  (rows, 16) int64."""
+    words = np.tile(np.array([HEX_ZEROS, HEX_ZEROS, 0, 0], np.int64), ncols)
+    tail = np.zeros(16 - len(words) % 16, np.int64)
+    tail[0] = 0x80000000
+    tail[-1] = (64 + 16 * ncols) * 8
+    return np.concatenate([words, tail]).reshape(-1, 16)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,18 +83,21 @@ class QueryTables:
     num_values: int
     rng: int
     num_queries: int
-    # f_evals length, trace tree rows, FRI values length, FRI digest rows
+    # f_evals words (C x trace length), trace tree rows, FRI values
+    # length, FRI digest rows
     sizes: tuple
 
 
 def _assemble(tb: QueryTables, v: torch.Tensor, d: torch.Tensor):
     """One query's stream: the template with the hex of the opened values
-    (Nv,) and digests (Nd, 8) written into their rows."""
+    (Nv,) and digests (Nd, 8) written at their slots' words."""
     nv = tb.num_values
-    rows = tb.slots[:, 7]
+    word = tb.slots[:, 7]
     stream = tb.template.clone()
-    stream[rows[:nv], 2:4] = store(ascii_hex_words(v[:, None]))
-    stream[rows[nv:]] = store(ascii_hex_words(d))
+    flat = stream.view(-1)
+    span = torch.arange(16, device=word.device)
+    flat[word[:nv, None] + span[:2]] = store(ascii_hex_words(v[:, None]))
+    flat[word[nv:, None] + span] = store(ascii_hex_words(d))
     return stream
 
 
@@ -176,14 +199,15 @@ def _log2(n: int) -> int:
 
 class _Slots:
     """Gather slots of one source buffer: slot s reads position
-    base[s] + ((((idx + add[s]) & mask[s]) ^ xr[s]) >> shift[s]) ^ flip[s]."""
+    base[s] + ((((idx + add[s]) & mask[s]) ^ xr[s]) >> shift[s]) ^ flip[s]
+    and writes its hex from stream word word[s]."""
 
     def __init__(self):
-        self.cols = {k: [] for k in ("base", "add", "mask", "xr", "shift",
-                                     "flip")}
+        self.cols = {k: [] for k in SLOT_COLUMNS[1:]}
 
-    def add(self, base, add, mask, xr, shift=0, flip=0):
-        for k, v in zip(self.cols, (base, add, mask, xr, shift, flip)):
+    def add(self, word, base, add, mask, xr, shift=0, flip=0):
+        for k, v in zip(SLOT_COLUMNS[1:],
+                        (base, add, mask, xr, shift, flip, word)):
             self.cols[k].append(v)
 
 
@@ -194,13 +218,18 @@ def _positions(t: dict, idx: torch.Tensor) -> torch.Tensor:
 
 class DeviceQueryPlan:
     """The whole query phase for one static configuration: draw range,
-    query count, trace offsets, trace length and the FRI length ladder
-    (all powers of two)."""
+    query count, trace offsets, trace length (of each column), the FRI
+    length ladder (all powers of two) and the trace's column count."""
 
     def __init__(self, rng: int, num_queries: int, offsets: tuple,
-                 trace_len: int, fri_lengths: tuple):
+                 trace_len: int, fri_lengths: tuple, num_columns: int = 1):
         if rng <= 0 or rng >= 1 << 32:
             raise ValueError(f"draw range {rng} not in [1, 2^32)")
+        if not 1 <= num_columns <= MAX_COLUMNS:
+            raise ValueError(
+                f"the device query phase takes 1..{MAX_COLUMNS} trace "
+                f"columns (a row leaf's one-block message), got "
+                f"{num_columns}")
         for ln in fri_lengths + (trace_len,):
             if ln & (ln - 1):
                 raise ValueError("device query phase needs power-of-two sizes")
@@ -208,36 +237,36 @@ class DeviceQueryPlan:
         self.num_queries = num_queries
         self.offsets = tuple(int(o) for o in offsets)
         self.trace_len = int(trace_len)
+        self.num_columns = int(num_columns)
         self.fri_lengths = tuple(int(x) for x in fri_lengths)
         self.script = build_script(len(self.offsets), self.fri_lengths)
         self.fri_layout = layer_layout(self.fri_lengths)[0]
 
-        # static stream template, flags, and the gather slots in script
-        # order (trace ops come first in the script, so trace slots then
-        # FRI slots is script order)
+        # static stream template (constant words in place), flags, and the
+        # gather slots in script order (trace ops come first in the
+        # script, so trace slots then FRI slots is script order)
         rows, first, last = [], [], []
         val_rows, dig_rows = [], []
         tv, fv, td, fd = _Slots(), _Slots(), _Slots(), _Slots()
         tlevels = level_offsets(self.trace_len)
 
-        def message(dynamic: list, tail):
+        def message(payload: np.ndarray, tail=None) -> int:
+            """Append a message (state-hex row, payload rows, tail row);
+            returns the stream row of its first payload row."""
             rows.append(np.zeros(16, np.int64))  # replaced by the state hex
             first.append(FIRST_HEX)
             last.append(0)
-            for kind in dynamic:
-                (val_rows if kind == "v" else dig_rows).append(len(rows))
-                rows.append(np.zeros(16, np.int64))
-                first.append(0)
-                last.append(0)
-            if tail is not None:
-                rows.append(tail)
-                first.append(0)
-                last.append(0)
+            start = len(rows)
+            body = list(payload) + ([] if tail is None else [tail])
+            rows.extend(body)
+            first.extend([0] * len(body))
+            last.extend([0] * len(body))
             last[-1] = 1
+            return start
 
         for op in self.script:
             if op[0] == "draw":
-                message([], pad_row(64))
+                message(np.zeros((0, 16), np.int64), pad_row(64))
                 continue
             src = op[1]
             if src[0] in ("trace_v", "trace_p"):
@@ -247,24 +276,34 @@ class DeviceQueryPlan:
                 xr = ln // 2 if src[0] != "fri_q" and src[2] else 0
             mask = 0 if src[0] == "fri_q" else ln - 1
             if op[0] == "value":
-                if src[0] == "trace_v":
-                    tv.add(0, add, mask, xr)
-                else:
-                    fv.add(self.fri_layout[src[1]][1], add, mask, xr)
-                message(["v"], None)
+                # a trace opening: one row message of every column's value
+                # (column c at c * trace_len of the (C, M) LDE); an FRI
+                # opening: one value
+                ncols = self.num_columns if src[0] == "trace_v" else 1
+                row = message(value_rows(ncols))
+                val_rows.append(row)
+                for c in range(ncols):
+                    word = 16 * row + 4 * c + 2  # after the 8 hex zeros
+                    if src[0] == "trace_v":
+                        tv.add(word, c * self.trace_len, add, mask, xr)
+                    else:
+                        fv.add(word, self.fri_layout[src[1]][1], add, mask,
+                               xr)
                 continue
             h = _log2(ln)
+            row = message(np.zeros((h, 16), np.int64), pad_row(64 + 64 * h))
+            dig_rows.extend(range(row, row + h))
             if src[0] == "trace_p":
                 for l in range(h):
-                    td.add(tlevels[l][0], add, mask, xr, l, 1)
+                    td.add(16 * (row + l), tlevels[l][0], add, mask, xr, l,
+                           1)
             else:
                 doff = self.fri_layout[src[1]][2]
                 for l, (loff, _) in enumerate(level_offsets(ln)[:h]):
-                    fd.add(doff + loff, add, mask, xr, l, 1)
-            message(["d"] * h, pad_row(64 + 64 * h))
+                    fd.add(16 * (row + l), doff + loff, add, mask, xr, l, 1)
         self._template = np.stack(rows)
         self._flags = np.stack([first, last], axis=1).astype(np.int32)
-        self._val_rows = val_rows
+        self._val_rows = val_rows  # first payload row of each value message
         self._dig_rows = dig_rows
         self._slots = (tv, fv, td, fd)
         self._packed: dict = {}
@@ -276,24 +315,20 @@ class DeviceQueryPlan:
         opened value and digest, values first."""
         key = str(device)
         if key not in self._packed:
-            tmpl = self._template.copy()
-            # a value row: the 16 hex chars of the 8-byte big-endian value
-            # (8 zeros, then the value's 8, written per query), then padding
-            tmpl[self._val_rows] = np.concatenate(
-                [[HEX_ZEROS, HEX_ZEROS, 0, 0], VALUE_TAIL])
-            rows = iter(self._val_rows + self._dig_rows)
-            slots = [(src, *cols, next(rows))
+            slots = [(src, *cols)
                      for src, sl in enumerate(self._slots)
                      for cols in zip(*sl.cols.values())]
             _, vt, dt = layer_layout(self.fri_lengths)
             self._packed[key] = QueryTables(
-                template=torch.from_numpy(
-                    tmpl.astype(np.uint32).view(np.int32)).to(device),
+                template=torch.from_numpy(self._template.astype(
+                    np.uint32).view(np.int32)).to(device),
                 flags=torch.from_numpy(self._flags).to(device),
                 slots=torch.tensor(slots, dtype=torch.int64, device=device),
-                num_values=len(self._val_rows), rng=self.rng,
-                num_queries=self.num_queries,
-                sizes=(self.trace_len, 2 * self.trace_len - 1, vt, dt))
+                num_values=len(self._slots[0].cols["word"])
+                + len(self._slots[1].cols["word"]),
+                rng=self.rng, num_queries=self.num_queries,
+                sizes=(self.num_columns * self.trace_len,
+                       2 * self.trace_len - 1, vt, dt))
         return self._packed[key]
 
     def stream(self, v: torch.Tensor, d: torch.Tensor):
@@ -306,12 +341,14 @@ class DeviceQueryPlan:
                    fri_digests):
         """The query phase on the device, no fetch: one launch of K5's
         query form on a CUDA device.  `state`: (8,) int32 Fiat-Shamir
-        state; `trace_digests` / `fri_digests`: tree buffers in the
-        layout of ``merkle/tree.py`` / ``fri/commit.py``; `fri_values`:
-        every FRI layer concatenated.  Returns (final_state (8,), idxs (Q,)
-        int64, vals (Q, Nv), digs (Q, Nd, 8)) in script order."""
-        return query_chain(state, f_evals, trace_digests, fri_values,
-                           fri_digests, self.pack(state.device))
+        state; `f_evals`: the (M,) or (C, M) trace LDE; `trace_digests` /
+        `fri_digests`: tree buffers in the layout of ``merkle/tree.py`` /
+        ``fri/commit.py``; `fri_values`: every FRI layer concatenated.
+        Returns (final_state (8,), idxs (Q,) int64, vals (Q, Nv), digs
+        (Q, Nd, 8)) in script order, a trace opening's C values
+        together."""
+        return query_chain(state, f_evals.reshape(-1), trace_digests,
+                           fri_values, fri_digests, self.pack(state.device))
 
     def replay(self, channel, final_h, idxs_h, vals_h, digs_h) -> None:
         """Replay the canonical transcript into `channel` from fetched
@@ -326,9 +363,13 @@ class DeviceQueryPlan:
             vi = di = 0
             for op in self.script:
                 if op[0] == "value":
-                    val = int(vals_h[q][vi]) & 0xFFFFFFFF
-                    vi += 1
-                    channel.send(val.to_bytes(8, "big"))
+                    k = self.num_columns if op[1][0] == "trace_v" else 1
+                    row = np.asarray(vals_h[q][vi:vi + k], dtype=np.int64)
+                    vi += k
+                    # each value as 8 BE bytes: a zero high word, the value
+                    words = np.stack([np.zeros_like(row), row & 0xFFFFFFFF],
+                                     axis=1)
+                    channel.send(words.astype(">u4").tobytes())
                 elif op[0] == "path":
                     src = op[1]
                     ln = (self.trace_len if src[0] == "trace_p"
@@ -345,10 +386,11 @@ class DeviceQueryPlan:
                 "host replay — transcript would not verify")
 
 
-def supported(rng: int, trace_len: int, fri_lengths) -> bool:
+def supported(rng: int, trace_len: int, fri_lengths,
+              num_columns: int = 1) -> bool:
     """Whether this plan handles the configuration (power-of-two sizes,
-    draw range below 2^32)."""
-    if not 0 < rng < 1 << 32:
+    draw range below 2^32, 1..6 trace columns)."""
+    if not 0 < rng < 1 << 32 or not 1 <= num_columns <= MAX_COLUMNS:
         return False
     sizes = list(fri_lengths) + [trace_len]
     return all(s > 0 and not (s & (s - 1)) for s in sizes)

@@ -8,7 +8,11 @@
 //       :343 and :360, with the XLA coarse stages after them (:374-388)
 //       (2^22 < n <= 2^30).
 // On the card both are these two kernels; the wrappers count K1 and K2 by
-// the route (ntt/cuda_ntt.py).
+// the route (ntt/cuda_ntt.py).  A batch of C transforms of one length (the
+// trace columns of a multi-column AIR, stark_tpu/ntt/ntt.py:291-303 and
+// stark/trace.py:120-136) is one launch of each pass with the transform
+// index as blockIdx.y: no pass-1 column group and no pass-2 cluster ever
+// spans two transforms.
 //
 // Algebra (the TPU plans' own): n = n1 * n2, j = j1*n2 + j2,
 // k = k1 + n1*k2, w the order-n root (its inverse for the INTT):
@@ -208,6 +212,10 @@ ntt_pass1(const uint32_t* __restrict__ x, const uint32_t* __restrict__ tw_g,
   uint32_t* tw = smem + padded_words(words);
   const int cmask = (1 << lc) - 1;
   const uint32_t j0 = blockIdx.x << lc;
+  // column blockIdx.y of a batched (C, n) input
+  const size_t column = (size_t)blockIdx.y << (LN + log_n2);
+  x += column;
+  c += column;
   for (int i = threadIdx.x; i < N / 2; i += blockDim.x)
     cp_async4(tw + pad(i), tw_g + i);
   for (int i = threadIdx.x; i < words; i += blockDim.x)
@@ -238,6 +246,10 @@ ntt_pass2(const uint32_t* __restrict__ c, const uint32_t* __restrict__ tw_g,
   uint32_t* s = smem;
   uint32_t* tw = smem + padded_words(N);
   const uint32_t k1 = blockIdx.x;
+  // column blockIdx.y of a batched (C, n) input
+  const size_t column = (size_t)blockIdx.y << (LN + log_n1);
+  c += column;
+  out += column;
   const uint32_t* row = c + ((size_t)k1 << LN);
   for (int i = threadIdx.x; i < N / 2; i += blockDim.x)
     cp_async4(tw + pad(i), tw_g + i);
@@ -291,19 +303,23 @@ size_t smem_bytes(int words, int len) {
 
 }  // namespace
 
-// x, out: n = 2^(log1 + log2) canonical words; c: n words of scratch (the
-// intermediate C); tw1 / tw2: mont powers of the pass roots w^n2 / w^n1
-// (max(n1/2, 1) and max(n2/2, 1) words); hi / lo: mont powers of w^(2^h)
-// (n >> h words) and of w (2^h words); cols_log: log2 of pass 1's column
-// group; scale = mont(n^-1) for the inverse transform, 0 for the forward
-// one.  Launches pass 1, then pass 2 in clusters of min(8, n1) blocks.
+// x, out: `columns` transforms of n = 2^(log1 + log2) canonical words
+// each, one after another ((C, n) row-major); c: as many words of scratch
+// (the intermediate C); tw1 / tw2: mont powers of the pass roots w^n2 /
+// w^n1 (max(n1/2, 1) and max(n2/2, 1) words); hi / lo: mont powers of
+// w^(2^h) (n >> h words) and of w (2^h words); cols_log: log2 of pass 1's
+// column group; scale = mont(n^-1) for the inverse transform, 0 for the
+// forward one.  Launches pass 1, then pass 2 in clusters of min(8, n1)
+// blocks, each with the transforms as the grid's y dimension: a column
+// group and a cluster always lie in one transform.
 extern "C" int stark_ntt(const void* x, const void* tw1, const void* tw2,
                          const void* hi, const void* lo, void* c, void* out,
-                         int log1, int log2, int cols_log, int h, uint32_t p,
-                         uint32_t pinv, uint32_t scale, void* stream) {
+                         int log1, int log2, int cols_log, int h,
+                         int columns, uint32_t p, uint32_t pinv,
+                         uint32_t scale, void* stream) {
   if (log1 < 0 || log2 < 0 || log1 > kMaxLog || log2 > kMaxLog ||
       cols_log < 0 || cols_log > log2 || log1 + cols_log > kMaxLog ||
-      h < 0 || h > log1 + log2)
+      h < 0 || h > log1 + log2 || columns < 1 || columns > 65535)
     return (int)cudaErrorInvalidValue;
   const Field f{p, pinv};
   cudaStream_t st = (cudaStream_t)stream;
@@ -314,7 +330,8 @@ extern "C" int stark_ntt(const void* x, const void* tw1, const void* tw2,
   cudaError_t e = cudaFuncSetAttribute(
       k1, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem1);
   if (e != cudaSuccess) return (int)e;
-  k1<<<1u << (log2 - cols_log), threads_for(words1, kThreads1), smem1, st>>>(
+  k1<<<dim3(1u << (log2 - cols_log), columns), threads_for(words1, kThreads1),
+       smem1, st>>>(
       (const uint32_t*)x, (const uint32_t*)tw1, (const uint32_t*)hi,
       (const uint32_t*)lo, (uint32_t*)c, log2, cols_log, h, f);
   e = cudaGetLastError();
@@ -327,7 +344,7 @@ extern "C" int stark_ntt(const void* x, const void* tw1, const void* tw2,
                            (int)smem2);
   if (e != cudaSuccess) return (int)e;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(1u << log1);
+  cfg.gridDim = dim3(1u << log1, columns);
   cfg.blockDim = dim3(threads_for(1 << log2, kThreads2));
   cfg.dynamicSmemBytes = smem2;
   cfg.stream = st;

@@ -1,10 +1,12 @@
 // K3 (leaves) and K4 (nodes): the batched SHA-256 of a Merkle tree build.
 //
 // Replaces the TPU kernels stark_tpu/hash/pallas_sha.py _make_leaf_kernel
-// (driven by _leaf_call / _leaf_jit) and _make_node_kernel (driven by
-// _node_call_halves and _node_call, orchestrated by build_tree_bitrev);
-// the bit-reversed plane layout, the lane transposes and the XLA tail
-// scan below 1024 nodes are not carried over.
+// in its u32 mode (driven by _leaf_call / _leaf_jit; its 64-bit `wide`
+// mode waits for the Goldilocks field), the XLA sha256_row_leaves of the
+// multi-column trees (hash/sha256_jax.py:106), and _make_node_kernel
+// (driven by _node_call_halves and _node_call, orchestrated by
+// build_tree_bitrev); the bit-reversed plane layout, the lane transposes
+// and the XLA tail scan below 1024 nodes are not carried over.
 //
 // Layout: a tree is one (2n-1, 8) buffer of digest rows in natural node
 // order, level after level; the children of parent j are rows 2j and 2j+1
@@ -13,12 +15,12 @@
 //
 // What bounds it on an H100: 32-bit integer work (one compression per
 // leaf, two per node, ~2k simple ops each), with device-memory traffic
-// small beside it (4 bytes in and 32 out per leaf, 64 in and 32 out per
-// node).  Design: one thread per hash with the whole message schedule and
-// working state in registers (64 rounds unrolled, rotates as funnel
-// shifts); the constant words of the leaf preimage and of the node's
-// padding block fold into immediates.  Nodes run for every level down to
-// the root, so no level takes another path.
+// small beside it (4C bytes in and 32 out per leaf of C columns, 64 in
+// and 32 out per node).  Design: one thread per hash with the whole
+// message schedule and working state in registers (64 rounds unrolled,
+// rotates as funnel shifts); the constant words of the leaf preimage and
+// of the node's padding block fold into immediates.  Nodes run for every
+// level down to the root, so no level takes another path.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -29,15 +31,28 @@ namespace {
 
 constexpr int kThreads = 256;
 
-// Leaf i = SHA-256 of the 8-byte big-endian value (high word 0): the
-// reference's Sha256::hash(value.to_be_bytes()).
+// Leaf i = SHA-256 of row i of the (C, n) column-major values: each
+// column's value as 8 big-endian bytes (high word 0), C = 1..6, so the
+// message (8C bytes, then 0x80 and the 64-bit length) is one block.  C = 1
+// is the reference's Sha256::hash(value.to_be_bytes()) of a one-column
+// tree; C > 1 is the row form (stark_tpu/hash/sha256_jax.py
+// sha256_row_leaves, the leaves of MerkleTree.from_columns).  C is a
+// template parameter, so the message words, the padding word and the bit
+// length 64C are immediates and C = 1 compiles to the one-column kernel.
+template <int C>
 __global__ void __launch_bounds__(kThreads)
 sha_leaves(const uint32_t* __restrict__ values, uint4* __restrict__ out,
            int n) {
+  static_assert(C >= 1 && C <= 6, "one block holds at most 6 values");
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  uint32_t w[16] = {0u, values[i], 0x80000000u, 0u, 0u, 0u, 0u, 0u,
-                    0u, 0u, 0u, 0u, 0u, 0u, 0u, 64u};
+  uint32_t w[16];
+#pragma unroll
+  for (int k = 0; k < 16; ++k) w[k] = 0u;
+#pragma unroll
+  for (int c = 0; c < C; ++c) w[2 * c + 1] = values[(size_t)c * n + i];
+  w[2 * C] = 0x80000000u;
+  w[15] = 64u * C;
   uint32_t st[8];
   sha::init(st);
   sha::compress(st, w);
@@ -71,13 +86,19 @@ sha_nodes(const uint4* __restrict__ children, uint4* __restrict__ out,
 
 }  // namespace
 
-// values: n words; out: (n, 8) digest rows (16-byte aligned).
+// values: (cols, n) words, column-major rows of a trace (cols = 1: n
+// values); out: (n, 8) digest rows (16-byte aligned).
 extern "C" int stark_sha_leaves(const void* values, void* out, int n,
-                                void* stream) {
+                                int cols, void* stream) {
+  using Leaves = void (*)(const uint32_t*, uint4*, int);
+  static const Leaves kLeaves[6] = {sha_leaves<1>, sha_leaves<2>,
+                                    sha_leaves<3>, sha_leaves<4>,
+                                    sha_leaves<5>, sha_leaves<6>};
+  if (cols < 1 || cols > 6 || n < 0) return (int)cudaErrorInvalidValue;
   if (n > 0)
-    sha_leaves<<<(n + kThreads - 1) / kThreads, kThreads, 0,
-                 (cudaStream_t)stream>>>((const uint32_t*)values,
-                                         (uint4*)out, n);
+    kLeaves[cols - 1]<<<(n + kThreads - 1) / kThreads, kThreads, 0,
+                        (cudaStream_t)stream>>>((const uint32_t*)values,
+                                                (uint4*)out, n);
   return (int)cudaGetLastError();
 }
 

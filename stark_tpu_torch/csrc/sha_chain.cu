@@ -39,7 +39,9 @@
 //   for each query the block draws idx = int(state_hex, 16) mod range,
 //   gathers every opened value and authentication-path digest through
 //   the plan's slot table, writes them as hex into its shared-memory copy
-//   of the plan's stream template, then runs the chain over that stream.
+//   of the plan's stream template at the word each slot names (so a trace
+//   opening of C columns is one row message of C values), then runs the
+//   chain over that stream.
 //   Every plan of a u32 field (domains below 2^32) has at most ~1,350
 //   rows a query, ~125 KB of shared memory with the ring, so the whole
 //   stream stays in shared memory; the wrapper raises for a plan that
@@ -297,8 +299,12 @@ __global__ void __launch_bounds__(kThreads, 1)
 // ---- the query form --------------------------------------------------
 
 // slot table columns (int64): source, base, add, mask, xr, shift, flip,
-// stream row; position = base + ((((idx + add) & mask) ^ xr) >> shift)
-// ^ flip into the source's buffer
+// stream word; position = base + ((((idx + add) & mask) ^ xr) >> shift)
+// ^ flip into the source's buffer, and the slot's hex is written from word
+// `word` of the query's (nrows, 16) stream: the 2 hex words of a value's
+// low word (a row message of C values has its slots at words 4c + 2 of its
+// payload, column c at base c * M of the (C, M) trace LDE), the 16 of a
+// digest
 enum Source { kTraceValue = 0, kFriValue = 1, kTraceDigest = 2,
               kFriDigest = 3 };
 
@@ -354,12 +360,12 @@ __global__ void __launch_bounds__(kThreads, 1)
       const long long* t = slots + 8 * static_cast<size_t>(s);
       const long long j = ((idx + t[2]) & t[3]) ^ t[4];
       const long long pos = t[1] + ((j >> t[5]) ^ t[6]);
-      uint32_t* row = words + 16 * t[7];
+      uint32_t* dst = words + t[7];
       if (t[0] == kTraceValue || t[0] == kFriValue) {
         const uint32_t v = (t[0] == kTraceValue ? f_evals : fri_values)[pos];
         // the 8-byte big-endian value: 8 hex zeros (in the template),
         // then the 8 hex chars of v
-        hex_words(v, row + 2);
+        hex_words(v, dst);
         vals[static_cast<size_t>(q) * nvalues + s] = v;
       } else {
         const uint4* src =
@@ -370,7 +376,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                                 (s - nvalues)) * 8;
 #pragma unroll
         for (int k = 0; k < 8; ++k) {
-          hex_words(d[k], row + 2 * k);
+          hex_words(d[k], dst + 2 * k);
           out[k] = d[k];
         }
       }

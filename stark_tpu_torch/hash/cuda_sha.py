@@ -1,10 +1,15 @@
 """K3 / K4 wrappers: SHA-256 Merkle leaves and nodes
 (``csrc/sha256_tree.cu``; replaces ``stark_tpu/hash/pallas_sha.py``
-``_make_leaf_kernel`` / ``_make_node_kernel``).
+``_make_leaf_kernel`` in its u32 mode / ``_make_node_kernel``).
 
-A CPU tensor runs the plain torch version (``hash/sha256.py``); a CUDA
-tensor launches the kernel or raises.  Each wrapper counts its launches
-in its ``launches`` attribute.
+K3 has two wrappers over one kernel templated on the column count:
+:func:`sha_leaves` hashes one value a leaf (every FRI tree and a
+one-column trace), :func:`sha_row_leaves` the rows of a (C, n)
+multi-column trace (the row form, C = 1..6; the XLA
+``sha256_row_leaves`` of the JAX package).  A CPU tensor runs the plain
+torch version (``hash/sha256.py``); a CUDA tensor launches the kernel or
+raises.  Each wrapper counts its launches in its ``launches``
+attribute.
 """
 
 from __future__ import annotations
@@ -12,7 +17,18 @@ from __future__ import annotations
 import torch
 
 from stark_tpu_torch import _build
-from stark_tpu_torch.hash.sha256 import sha256_pairs, sha256_u64_leaves
+from stark_tpu_torch.hash.sha256 import (sha256_pairs, sha256_row_leaves,
+                                         sha256_u64_leaves)
+
+
+def _launch_leaves(values, out, n: int, cols: int, what: str):
+    if out is None:
+        out = torch.empty((n, 8), dtype=torch.int32, device=values.device)
+    _build.require(out, "out", (n, 8), align=16)
+    _build.check(_build.lib("sha256_tree").stark_sha_leaves(
+        values.data_ptr(), out.data_ptr(), n, cols,
+        _build.stream_ptr(values.device)), what)
+    return out
 
 
 def sha_leaves(values: torch.Tensor, out: torch.Tensor | None = None):
@@ -24,13 +40,25 @@ def sha_leaves(values: torch.Tensor, out: torch.Tensor | None = None):
         res = sha256_u64_leaves(values)
         return res if out is None else out.copy_(res)
     _build.require(values, "values", (n,))
-    if out is None:
-        out = torch.empty((n, 8), dtype=torch.int32, device=values.device)
-    _build.require(out, "out", (n, 8), align=16)
-    _build.check(_build.lib("sha256_tree").stark_sha_leaves(
-        values.data_ptr(), out.data_ptr(), n,
-        _build.stream_ptr(values.device)), "K3 sha_leaves")
+    out = _launch_leaves(values, out, n, 1, "K3 sha_leaves")
     sha_leaves.launches += 1
+    return out
+
+
+def sha_row_leaves(cols: torch.Tensor, out: torch.Tensor | None = None):
+    """K3's row form: (C, n) int32 columns, C = 1..6 -> (n, 8) int32
+    digests of the rows' 8C-byte messages, written into `out` when
+    given."""
+    if cols.dim() != 2 or not 1 <= cols.shape[0] <= 6:
+        raise ValueError(f"row leaves take a (C, n) tensor with C = 1..6, "
+                         f"got shape {tuple(cols.shape)}")
+    if _build.plain_device(cols):
+        res = sha256_row_leaves(cols)
+        return res if out is None else out.copy_(res)
+    c, n = (int(d) for d in cols.shape)
+    _build.require(cols, "cols", (c, n))
+    out = _launch_leaves(cols, out, n, c, "K3 sha_row_leaves")
+    sha_row_leaves.launches += 1
     return out
 
 
@@ -53,6 +81,8 @@ def sha_nodes(children: torch.Tensor, out: torch.Tensor | None = None):
 
 
 sha_leaves.launches = 0
+sha_row_leaves.launches = 0
 sha_nodes.launches = 0
 sha_leaves.plain = sha256_u64_leaves
+sha_row_leaves.plain = sha256_row_leaves
 sha_nodes.plain = sha256_pairs

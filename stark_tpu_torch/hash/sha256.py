@@ -1,5 +1,5 @@
 """Batched SHA-256 in plain torch ops, one hash per lane (counterpart of
-``stark_tpu/hash/sha256_jax.py``; u32 leaves only).
+``stark_tpu/hash/sha256_jax.py``; u32 fields only).
 
 These are the plain versions of the tree kernels K3/K4
 (``hash/cuda_sha.py``) and run on whatever device their inputs are on.
@@ -67,6 +67,24 @@ def sha256_u64_leaves(values: torch.Tensor) -> torch.Tensor:
     # 8-byte BE preimage: [0, value], then SHA padding for a 64-bit message
     w = [zero, lo, 0x80000000] + [0] * 12 + [64]
     out = compress([torch.full_like(lo, h) for h in H0], w)
+    return torch.stack(out, dim=-1).to(torch.int32)
+
+
+def sha256_row_leaves(cols: torch.Tensor) -> torch.Tensor:
+    """SHA-256 of multi-column row messages (``sha256_row_leaves`` of the
+    JAX package, u32 columns): leaf i hashes col_0[i] || ... ||
+    col_{C-1}[i], each value as 8 big-endian bytes (high word 0).
+    (C, n) words -> (n, 8) int32 digest rows, C = 1..6 (one block: 8C +
+    9 <= 64 bytes); C = 1 equals :func:`sha256_u64_leaves`."""
+    c = int(cols.shape[0])
+    if cols.dim() != 2 or not 1 <= c <= 6:
+        raise ValueError(f"row leaves take a (C, n) tensor with C = 1..6, "
+                         f"got shape {tuple(cols.shape)}")
+    v = lift(cols)
+    zero = torch.zeros_like(v[0])
+    w = [x for k in range(c) for x in (zero, v[k])] + [0x80000000]
+    w += [0] * (15 - len(w)) + [64 * c]  # bit length of 8C bytes
+    out = compress([torch.full_like(zero, h) for h in H0], w)
     return torch.stack(out, dim=-1).to(torch.int32)
 
 

@@ -1,5 +1,6 @@
 """Converters between the JAX package's host values and the port's
-tensors — the port's "weights carried across", used by the tests.
+tensors, configurations and statements — the port's "weights carried
+across", used by the tests.
 
 Field values and digest words are uint32 in JAX and int32 (same bits) in
 the port, so numpy views carry them over without copying values.
@@ -46,3 +47,16 @@ def config_from(cfg) -> ProverConfig:
 def config_fields(cfg: ProverConfig) -> dict:
     """The port's config as a plain dict (to build the JAX package's)."""
     return dataclasses.asdict(cfg)
+
+
+def air_from(jax_air):
+    """The port's AIR of the same statement as a JAX package AIR, rebuilt
+    from its `name` and `witness_params()` (a declarative AirSpec raises:
+    ROADMAP Queue 1 item 11)."""
+    from stark_tpu_torch.stark.air import (FibMulAIR, FibonacciSquareAIR,
+                                           MimcAIR, air_from_name)
+
+    for cls in (FibonacciSquareAIR, MimcAIR, FibMulAIR):
+        if jax_air.name == cls.name:
+            return cls(**jax_air.witness_params())
+    return air_from_name(jax_air.name, {})  # raises: not ported, unknown

@@ -3,7 +3,9 @@
 
 Node semantics are the reference's rs_merkle wrapper:
 
-* leaf hash = SHA-256(8-byte big-endian field value)   (merkle/mod.rs:14-16)
+* leaf hash = SHA-256(8-byte big-endian field value)   (merkle/mod.rs:14-16);
+  for a multi-column codeword (:meth:`MerkleTree.from_columns`),
+  SHA-256 of the row's values, 8 big-endian bytes each
 * node hash = SHA-256(left_digest || right_digest)
 * root      = lowercase hex string                     (merkle/mod.rs:24-26)
 
@@ -15,9 +17,9 @@ and the authentication path of leaf j is the rows
 ``offset_l + ((j >> l) ^ 1)``.  Digests do not depend on the storage
 layout, so roots and paths equal the JAX package's.
 
-On a CUDA tensor the leaves go through kernel K3 and every level above
-them, down to the root, through K4 (``hash/cuda_sha.py``); on a CPU
-tensor through their plain versions.
+On a CUDA tensor the leaves go through kernel K3 (its row form for
+columns) and every level above them, down to the root, through K4
+(``hash/cuda_sha.py``); on a CPU tensor through their plain versions.
 """
 
 from __future__ import annotations
@@ -26,7 +28,8 @@ import hashlib
 
 import torch
 
-from stark_tpu_torch.hash.cuda_sha import sha_leaves, sha_nodes
+from stark_tpu_torch.hash.cuda_sha import (sha_leaves, sha_nodes,
+                                           sha_row_leaves)
 
 
 def level_offsets(n: int) -> list[tuple[int, int]]:
@@ -46,10 +49,10 @@ def digest_bytes(words) -> bytes:
 
 
 def build_tree(values: torch.Tensor, out: torch.Tensor | None = None):
-    """All digest levels of the tree over `values` ((n,) int32, n a power
-    of two) into `out` (a contiguous (2n-1, 8) int32 buffer, allocated
-    when None).  Returns the buffer."""
-    n = int(values.shape[0])
+    """All digest levels of the tree over `values` ((n,) int32, or the
+    rows of (C, n) columns; n a power of two) into `out` (a contiguous
+    (2n-1, 8) int32 buffer, allocated when None).  Returns the buffer."""
+    n = int(values.shape[-1])
     if n < 1 or n & (n - 1):
         raise NotImplementedError(
             "the port builds power-of-two trees only; odd-size trees "
@@ -58,7 +61,8 @@ def build_tree(values: torch.Tensor, out: torch.Tensor | None = None):
         out = torch.empty((2 * n - 1, 8), dtype=torch.int32,
                           device=values.device)
     offs = level_offsets(n)
-    sha_leaves(values, out=out[:n])
+    leaves = sha_leaves if values.dim() == 1 else sha_row_leaves
+    leaves(values, out=out[:n])
     for (off_c, size_c), (off_p, size_p) in zip(offs, offs[1:]):
         sha_nodes(out[off_c:off_c + size_c], out=out[off_p:off_p + size_p])
     return out
@@ -73,9 +77,26 @@ class MerkleTree:
     def __init__(self, values: torch.Tensor, out: torch.Tensor | None = None):
         if values.dim() != 1 or values.shape[0] == 0:
             raise ValueError("MerkleTree needs a non-empty 1-D vector")
-        self.num_leaves = int(values.shape[0])
+        self._build(values, out)
+
+    def _build(self, values, out) -> None:
+        self.num_leaves = int(values.shape[-1])
         self.buffer = build_tree(values, out)
         self.offsets = level_offsets(self.num_leaves)
+
+    @classmethod
+    def from_columns(cls, cols: torch.Tensor,
+                     out: torch.Tensor | None = None) -> "MerkleTree":
+        """Commit a multi-column codeword: cols (C, n), C = 1..6; leaf i =
+        SHA-256 of row i's values, 8 big-endian bytes each (the row
+        message a query opens, so the verifier hashes it as the leaf
+        preimage).  The same (2n-1, 8) buffer as a one-column tree."""
+        if (cols.dim() != 2 or not 1 <= cols.shape[0] <= 6
+                or cols.shape[1] == 0):
+            raise ValueError("from_columns needs a (C, n) tensor, C = 1..6")
+        tree = cls.__new__(cls)
+        tree._build(cols, out)
+        return tree
 
     @property
     def levels(self) -> list[torch.Tensor]:
@@ -109,8 +130,9 @@ class MerkleTree:
     @staticmethod
     def validate(root_hex: str, proof: bytes, index: int, leaf_bytes: bytes,
                  num_leaves: int) -> bool:
-        """Host-side auth-path check (hashlib); `leaf_bytes` is the raw
-        8-byte BE field value, hashed here like tree construction does."""
+        """Host-side auth-path check (hashlib); `leaf_bytes` is the leaf's
+        preimage, hashed here like tree construction does: the raw 8-byte
+        BE field value, or a row message of 8C bytes."""
         if index < 0 or index >= num_leaves or num_leaves <= 0:
             return False
         if len(proof) % 32:

@@ -24,11 +24,14 @@ n <= 2^30 in two passes.  The twiddle w^(j2*k1) comes from two tables of
 about sqrt(n) words: w^e = w^(hi(e)*2^h) * w^(lo(e)).
 
 :func:`ntt_k1` (n <= 2^MAX_LOG_N) and :func:`ntt_k2` (any n, the route
-above it) are the wrappers: a CPU tensor runs :func:`ntt_passes_plain`
-(the kernels' own passes, index maps and tables), a CUDA tensor launches
-the kernels or raises.  :func:`ntt_plain` (the Stockham dataflow) is the
-second oracle.  The constants are read at call time, so the CPU tests
-shrink them to reach every branch at small sizes.
+above it) are the wrappers, for an (n,) vector or the C columns of a
+(C, n) tensor (a grid dimension of both passes, so a pass-1 column group
+or a pass-2 cluster never crosses a column): a CPU tensor runs
+:func:`ntt_passes_plain` (the kernels' own passes, index maps and
+tables), a CUDA tensor launches the kernels or raises.
+:func:`ntt_plain` (the Stockham dataflow) is the second oracle.  The
+constants are read at call time, so the CPU tests shrink them to reach
+every branch at small sizes.
 """
 
 from __future__ import annotations
@@ -63,10 +66,13 @@ def _stage_twiddles(p: int, n: int, inverse: bool, device: str) -> tuple:
     return tuple(out)
 
 
-def _check_size(x: torch.Tensor, p: int) -> int:
-    if x.dim() != 1:
-        raise ValueError(f"NTT input must be 1-D, got shape {tuple(x.shape)}")
-    n = int(x.shape[0])
+def _check_size(x: torch.Tensor, p: int, batched: bool = False) -> int:
+    """The transform length n of x: (n,), or (C, n) columns when
+    `batched`."""
+    if x.dim() != 1 and not (batched and x.dim() == 2):
+        raise ValueError(f"NTT input must be 1-D{' or (C, n)' * batched}, "
+                         f"got shape {tuple(x.shape)}")
+    n = int(x.shape[-1])
     if n & (n - 1) or n < 1:
         raise ValueError(f"NTT size must be a power of two, got {n}")
     if not ntt_available(p, n):
@@ -149,15 +155,21 @@ class CudaNTTPlan:
         self.pinv = pow(p, -1, 1 << 32)
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        """One launch of each pass for x of shape (n,) or (C, n): the C
+        columns are a grid dimension of both passes."""
         f = self.fp
-        _build.require(x, "x", (self.n,))
-        scratch = torch.empty(self.n, dtype=torch.int32, device=x.device)
-        out = torch.empty(self.n, dtype=torch.int32, device=x.device)
+        cols = int(x.shape[0]) if x.dim() == 2 else 1
+        _build.require(x, "x", tuple(x.shape[:-1]) + (self.n,))
+        if not 1 <= cols <= 65535:
+            raise ValueError(f"the NTT kernels take 1..65535 columns, got "
+                             f"{cols}")
+        scratch = torch.empty_like(x)
+        out = torch.empty_like(x)
         _build.check(_build.lib("ntt").stark_ntt(
             x.data_ptr(), self.tw1.data_ptr(), self.tw2.data_ptr(),
             self.hi.data_ptr(), self.lo.data_ptr(), scratch.data_ptr(),
             out.data_ptr(), self.log1, self.log2, self.cols_log, self.h,
-            f.p, self.pinv, self.scale, _build.stream_ptr(x.device)),
+            cols, f.p, self.pinv, self.scale, _build.stream_ptr(x.device)),
             "ntt passes")
         return out
 
@@ -197,56 +209,66 @@ def ntt_passes_plain(x: torch.Tensor, p: int,
                      inverse: bool = False) -> torch.Tensor:
     """Plain version of the kernels in torch ops: their split, index maps
     and tables (those of :class:`CudaNTTPlan` on x's device); int32
-    storage in and out, natural order."""
-    n = _check_size(x, p)
+    storage in and out, natural order; x is (n,) or (C, n), each column
+    transformed on its own."""
+    n = _check_size(x, p, batched=True)
+    cols = int(x.shape[0]) if x.dim() == 2 else 1
     pl = get_cuda_plan(p, n, inverse, str(x.device))
     f = pl.fp
     n1, n2 = 1 << pl.log1, 1 << pl.log2
     rev1 = _bitrev(pl.log1, x.device)
-    # pass 1: position q of column j2 holds k1 = bitrev(q); row k1 of the
+    # pass 1, down the (n1, C * n2) view of the columns side by side:
+    # position q of column j2 holds k1 = bitrev(q); row k1 of the
     # intermediate is that row times w^(j2*k1)
-    y = _dif(f, lift(x).reshape(n1, n2), lift(pl.tw1), n1)
+    xs = lift(x).reshape(cols, n1, n2).permute(1, 0, 2).reshape(n1, -1)
+    y = _dif(f, xs, lift(pl.tw1), n1).reshape(n1, cols, n2)
     e = rev1[:, None] * torch.arange(n2, device=x.device)[None, :]
     tw = f.mont_mul(lift(pl.hi)[e >> pl.h], lift(pl.lo)[e & ((1 << pl.h) - 1)])
-    c = f.mont_mul(y, tw)[rev1]
-    # pass 2: position q of row k1 holds k2 = bitrev(q); X[k1 + n1*k2]
-    z = _dif(f, c.T.contiguous(), lift(pl.tw2), n2)
-    out = z[_bitrev(pl.log2, x.device)].reshape(-1)
+    c = f.mont_mul(y, tw[:, None, :])[rev1]  # (k1, column, j2)
+    # pass 2 along each row: position q of row k1 holds k2 = bitrev(q);
+    # X[k1 + n1*k2]
+    z = _dif(f, c.permute(2, 1, 0).reshape(n2, -1), lift(pl.tw2), n2)
+    out = z[_bitrev(pl.log2, x.device)].reshape(n2, cols, n1)
+    out = out.permute(1, 0, 2).reshape(x.shape)
     if inverse:
         out = f.mont_mul(out, torch.full_like(out, pl.scale))
     return store(out)
 
 
-def _launch(x: torch.Tensor, p: int, inverse: bool) -> torch.Tensor:
-    return get_cuda_plan(p, int(x.shape[0]), inverse, str(x.device))(x)
+def _launch(wrapper, x: torch.Tensor, p: int,
+            inverse: bool) -> torch.Tensor:
+    out = get_cuda_plan(p, int(x.shape[-1]), inverse, str(x.device))(x)
+    wrapper.launches += 1
+    wrapper.column_launches += x.dim() == 2
+    return out
 
 
 def ntt_k1(x: torch.Tensor, p: int, inverse: bool = False) -> torch.Tensor:
     """The K1 route: NTT (or INTT) of an (n,) int32 tensor of canonical
-    values, n <= 2^MAX_LOG_N, natural order in and out; the kernels on a
-    CUDA tensor, :func:`ntt_passes_plain` on a CPU one."""
-    n = _check_size(x, p)
+    values, or of each column of a (C, n) one, n <= 2^MAX_LOG_N, natural
+    order in and out; the kernels on a CUDA tensor (one launch of each
+    pass whatever C), :func:`ntt_passes_plain` on a CPU one."""
+    n = _check_size(x, p, batched=True)
     if n > 1 << MAX_LOG_N:
         raise ValueError(f"K1 covers n <= 2^{MAX_LOG_N}; an NTT of size {n} "
                          "takes the K2 route (ntt_k2)")
     if _build.plain_device(x):
         return ntt_passes_plain(x, p, inverse)
-    out = _launch(x, p, inverse)
-    ntt_k1.launches += 1
-    return out
+    return _launch(ntt_k1, x, p, inverse)
 
 
 def ntt_k2(x: torch.Tensor, p: int, inverse: bool = False) -> torch.Tensor:
     """The K2 route (the sizes above 2^MAX_LOG_N, up to 2^30; any n is
     taken): as :func:`ntt_k1`."""
-    _check_size(x, p)
+    _check_size(x, p, batched=True)
     if _build.plain_device(x):
         return ntt_passes_plain(x, p, inverse)
-    out = _launch(x, p, inverse)
-    ntt_k2.launches += 1
-    return out
+    return _launch(ntt_k2, x, p, inverse)
 
 
+# launches: every call that launched the kernels; column_launches: those
+# of them on a (C, n) input (the batched form)
 for _w in (ntt_k1, ntt_k2):
     _w.launches = 0
+    _w.column_launches = 0
     _w.plain = ntt_passes_plain

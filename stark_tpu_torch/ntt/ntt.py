@@ -8,7 +8,9 @@ two-pass kernels.  A CUDA tensor launches them — the trace INTT included,
 which on the TPU took the XLA plan because it ran inside an outer
 ``jax.jit`` — and a CPU tensor runs their plain version
 ``ntt_passes_plain``.  Field arithmetic is exact, so every route gives
-the same bits as the JAX ``NTTPlan``.
+the same bits as the JAX ``NTTPlan``.  Every function takes an (n,)
+vector or a (C, n) batch of columns (a multi-column trace), transformed
+along the last axis in one call of the wrapper.
 """
 
 from __future__ import annotations
@@ -27,7 +29,8 @@ def _transform(x: torch.Tensor, p: int, inverse: bool) -> torch.Tensor:
 
 
 def ntt(x: torch.Tensor, p: int) -> torch.Tensor:
-    """Forward NTT, natural order: X[k] = sum_j x[j] w^(jk)."""
+    """Forward NTT, natural order: X[k] = sum_j x[j] w^(jk), of an (n,)
+    vector or of each row of a (C, n) batch of columns."""
     return _transform(x, p, False)
 
 
@@ -38,17 +41,20 @@ def intt(x: torch.Tensor, p: int) -> torch.Tensor:
 
 def scale_pad(coeffs: torch.Tensor, p: int, big_n: int,
               offset: int) -> torch.Tensor:
-    """coeffs[i] * offset^i, zero-padded to big_n (``_scale_pad_jit``)."""
+    """coeffs[..., i] * offset^i, zero-padded to big_n along the last axis
+    (``_scale_pad_jit``)."""
     f = Fp.get(p)
     n = int(coeffs.shape[-1])
-    out = torch.zeros(big_n, dtype=torch.int32, device=coeffs.device)
-    out[:n] = store(f.mul(coeffs, f.powers(offset, n, coeffs.device)))
+    out = torch.zeros(coeffs.shape[:-1] + (big_n,), dtype=torch.int32,
+                      device=coeffs.device)
+    out[..., :n] = store(f.mul(coeffs, f.powers(offset, n, coeffs.device)))
     return out
 
 
 def coset_evaluate(coeffs: torch.Tensor, p: int, big_n: int,
                    offset: int) -> torch.Tensor:
-    """Evaluate a coefficient vector on {offset * W^i : i < big_n}."""
+    """Evaluate a coefficient vector (or each row of a (C, n) batch) on
+    {offset * W^i : i < big_n}."""
     return ntt(scale_pad(coeffs, p, big_n, int(offset) % p), p)
 
 

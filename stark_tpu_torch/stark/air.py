@@ -1,11 +1,20 @@
-"""The Fibonacci-square AIR (STARK-101) and its per-config context
-(counterpart of ``stark_tpu/stark/air.py``).
+"""The hand-written AIRs and their per-config contexts (counterpart of
+``stark_tpu/stark/air.py``):
 
-a_{i+2} = a_{i+1}^2 + a_i^2 over GF(p); publics a_0 and a_{T-1}.  The
-context holds the LDE coset domain and the boundary / zerofier inverse
-tables on the device; the composition is pointwise torch ops on them.
-Other statement families (MiMC, FibMul, declarative AirSpecs) wait for
-ROADMAP Queue 1 item 11.
+* :class:`FibonacciSquareAIR` — STARK-101's a_{i+2} = a_{i+1}^2 + a_i^2
+  (degree-2 transition, CP degree < N, log2(N) folds); publics a_0 and
+  a_{T-1}.
+* :class:`MimcAIR` — the MiMC cube chain x_{i+1} = (x_i + k)^3 (degree 3,
+  CP degree < 2N: one more fold, blowup >= 4); publics input, output, k.
+* :class:`FibMulAIR` — the two-column a_{i+1} = b_i, b_{i+1} = a_i * b_i
+  (a (2, T) trace, row-leaf commitment, row openings); publics input,
+  output, b0.
+
+Each context holds the LDE coset domain and the boundary / zerofier
+inverse tables on the device; the composition is pointwise torch ops on
+them and on the LDE rolled by the blowup along its last axis.  The
+declarative AirSpecs (``stark_tpu/stark/air_builder.py`` and
+``families.py``) wait for ROADMAP Queue 1 item 11.
 """
 
 from __future__ import annotations
@@ -103,6 +112,9 @@ class FibonacciSquareAIR:
     def publics_from_host(self, trace_host) -> dict:
         return {"a0": int(trace_host[0]), "a_last": int(trace_host[-1])}
 
+    def witness_params(self) -> dict:
+        return {"a1": self.a1, "a0": self.a0}
+
     def num_folds(self, cfg: ProverConfig) -> int:
         return cfg.log2_trace  # CP degree < N
 
@@ -127,9 +139,180 @@ class FibonacciSquareAIR:
         return (alphas[0] * p0 + alphas[1] * p1 + alphas[2] * p2) % p
 
 
-def air_from_name(name: str):
-    """The AIR a proof names; only the Fibonacci-square AIR is ported."""
-    if name == "fibonacci-square":
-        return FibonacciSquareAIR()
-    raise NotImplementedError(
-        f"AIR {name!r} is not ported yet (ROADMAP Queue 1 item 11)")
+def _inv(x: int, p: int) -> int:
+    return pow(x % p, p - 2, p)
+
+
+class _NextRowContext(_BaseContext):
+    """The tables of an AIR whose transition reads rows i and i + 1
+    (MiMC³, FibMul): boundaries at g^0 and g^(N-2), the transition at
+    g^0..g^(T-2)."""
+
+    def __init__(self, cfg: ProverConfig, device):
+        super().__init__(cfg, device)
+        p, g, N = cfg.modulus, self.g, self.N
+        self.inv_b0 = self.boundary_inv(1)
+        self.inv_b1 = self.boundary_inv(pow(g, N - 2, p))
+        self.trans_mult = self.zerofier_inv_excluding(
+            (pow(g, N - 2, p), pow(g, N - 1, p)))
+
+
+class _MimcContext(_NextRowContext):
+    def __init__(self, cfg: ProverConfig, k: int, device):
+        super().__init__(cfg, device)
+        self.k = k
+
+    def compose(self, lde: torch.Tensor, alphas, publics: dict):
+        f = self.fp
+        b = self.cfg.blowup
+        al = [a if torch.is_tensor(a) else self._const(a) for a in alphas]
+        f_x = lde
+        f_gx = torch.roll(lde, -b, -1)
+        p0 = f.mul(f.sub(f_x, self._const(publics["input"])), self.inv_b0)
+        p1 = f.mul(f.sub(f_x, self._const(publics["output"])), self.inv_b1)
+        t = f.add(f_x, self._const(self.k))
+        num = f.sub(f_gx, f.mul(f.mul(t, t), t))
+        p2 = f.mul(num, self.trans_mult)
+        return store(f.add(f.add(f.mul(al[0], p0), f.mul(al[1], p1)),
+                           f.mul(al[2], p2)))
+
+
+class MimcAIR:
+    """x_{i+1} = (x_i + k)^3 over GF(p); publics x_0 (input), x_{T-1}
+    (output) and the round key k."""
+
+    name = "mimc3"
+    shifts = (0, 1)
+    num_alphas = 3
+    num_columns = 1
+
+    def __init__(self, x0: int = 271828, k: int = 777):
+        self.x0 = x0
+        self.k = k
+
+    def validate(self, cfg: ProverConfig) -> None:
+        cfg.validate()
+        if cfg.blowup < 4:
+            raise ValueError("MimcAIR needs blowup >= 4 (CP degree < 2N)")
+
+    def host_trace(self, cfg: ProverConfig):
+        return native.mimc_trace(cfg.modulus, self.x0, self.k,
+                                 cfg.trace_length).astype(np.uint32)
+
+    def publics_from_host(self, trace_host) -> dict:
+        return {"input": int(trace_host[0]), "output": int(trace_host[-1]),
+                "k": self.k}
+
+    def witness_params(self) -> dict:
+        return {"x0": self.x0, "k": self.k}
+
+    def num_folds(self, cfg: ProverConfig) -> int:
+        return cfg.log2_trace + 1  # CP degree < 2N
+
+    def context(self, cfg: ProverConfig, device) -> _MimcContext:
+        return _MimcContext(cfg, self.k, device)
+
+    def cp_at(self, cfg: ProverConfig, x: int, opened, alphas,
+              publics: dict) -> int:
+        p, N = cfg.modulus, cfg.trace_domain_size
+        g = root_of_unity(p, N)
+        fx, fgx = opened
+        p0 = (fx - publics["input"]) * _inv(x - 1, p) % p
+        p1 = (fx - publics["output"]) * _inv(x - pow(g, N - 2, p), p) % p
+        t = (fx + publics["k"]) % p
+        num = (fgx - t * t % p * t) % p
+        excl = (x - pow(g, N - 2, p)) * (x - pow(g, N - 1, p)) % p
+        p2 = num * excl * _inv(pow(x, N, p) - 1, p) % p
+        return (alphas[0] * p0 + alphas[1] * p1 + alphas[2] * p2) % p
+
+
+class _FibMulContext(_NextRowContext):
+    def compose(self, lde: torch.Tensor, alphas, publics: dict):
+        """`lde`: the (2, M) LDE of the columns a and b."""
+        f = self.fp
+        b = self.cfg.blowup
+        al = [a if torch.is_tensor(a) else self._const(a) for a in alphas]
+        a_x, b_x = lde[0], lde[1]
+        a_gx = torch.roll(a_x, -b, -1)
+        b_gx = torch.roll(b_x, -b, -1)
+        terms = (
+            f.mul(f.sub(a_x, self._const(publics["input"])), self.inv_b0),
+            f.mul(f.sub(b_x, self._const(publics["b0"])), self.inv_b0),
+            f.mul(f.sub(b_x, self._const(publics["output"])), self.inv_b1),
+            f.mul(f.sub(a_gx, b_x), self.trans_mult),
+            f.mul(f.sub(b_gx, f.mul(a_x, b_x)), self.trans_mult))
+        acc = f.mul(al[0], terms[0])
+        for a, term in zip(al[1:], terms[1:]):
+            acc = f.add(acc, f.mul(a, term))
+        return store(acc)
+
+
+class FibMulAIR:
+    """a_{i+1} = b_i, b_{i+1} = a_i * b_i over GF(p), a two-column trace;
+    publics a_0 (input), b_{T-1} (output) and b_0."""
+
+    name = "fibmul"
+    shifts = (0, 1)
+    num_alphas = 5
+    num_columns = 2
+
+    def __init__(self, a0: int = 1, b0: int = 2718281):
+        self.a0 = a0
+        self.b0 = b0
+
+    def validate(self, cfg: ProverConfig) -> None:
+        cfg.validate()
+
+    def host_trace(self, cfg: ProverConfig):
+        """The (2, T) trace, rows a and b, as numpy uint32."""
+        return native.fibmul_trace(cfg.modulus, self.a0, self.b0,
+                                   cfg.trace_length).astype(np.uint32)
+
+    def publics_from_host(self, trace_host) -> dict:
+        return {"input": int(trace_host[0, 0]),
+                "output": int(trace_host[1, -1]),
+                "b0": int(trace_host[1, 0])}
+
+    def witness_params(self) -> dict:
+        return {"a0": self.a0, "b0": self.b0}
+
+    def num_folds(self, cfg: ProverConfig) -> int:
+        return cfg.log2_trace  # CP degree < N
+
+    def context(self, cfg: ProverConfig, device) -> _FibMulContext:
+        return _FibMulContext(cfg, device)
+
+    def cp_at(self, cfg: ProverConfig, x: int, opened, alphas,
+              publics: dict) -> int:
+        p, N = cfg.modulus, cfg.trace_domain_size
+        g = root_of_unity(p, N)
+        (ax, bx), (agx, bgx) = opened
+        inv_x1 = _inv(x - 1, p)
+        terms = (
+            (ax - publics["input"]) * inv_x1 % p,
+            (bx - publics["b0"]) * inv_x1 % p,
+            (bx - publics["output"]) * _inv(x - pow(g, N - 2, p), p) % p)
+        quad = (x - pow(g, N - 2, p)) * (x - pow(g, N - 1, p)) % p
+        tm = quad * _inv(pow(x, N, p) - 1, p) % p
+        terms += ((agx - bx) * tm % p, (bgx - ax * bx) * tm % p)
+        return sum(al * t % p for al, t in zip(alphas, terms)) % p
+
+
+# the JAX package's declarative families (stark_tpu/stark/families.py)
+AIRSPEC_FAMILIES = ("tribmul", "mimc5", "mimc5rc")
+
+
+def air_from_name(name: str, publics: dict):
+    """The verifier-side AIR a proof names, from its publics (as
+    ``stark_tpu/stark/air.py:597-611``)."""
+    if name == FibonacciSquareAIR.name:
+        return FibonacciSquareAIR(a0=publics.get("a0", 1))
+    if name == MimcAIR.name:
+        return MimcAIR(x0=publics.get("input", 0), k=publics.get("k", 0))
+    if name == FibMulAIR.name:
+        return FibMulAIR(a0=publics.get("input", 1), b0=publics.get("b0", 1))
+    if name in AIRSPEC_FAMILIES:
+        raise NotImplementedError(
+            f"AIR {name!r} is a declarative AirSpec family, not ported yet "
+            "(ROADMAP Queue 1 item 11)")
+    raise ValueError(f"unknown AIR {name!r}")

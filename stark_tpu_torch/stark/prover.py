@@ -1,11 +1,14 @@
 """Top-level STARK prover (counterpart of ``stark_tpu/stark/prover.py``;
-the single-fetch pipeline only).
+the single-fetch pipeline only), generic over the AIR
+(``stark/air.py``: Fibonacci-square, MiMC³, the two-column FibMul).
 
-    host trace -> trace polynomial (INTT, K1) -> coset LDE (NTT, K1) ->
-    trace Merkle tree (K3/K4) -> device Fiat-Shamir absorb + alpha draws
-    (K5) -> composition -> FRI fold + per-layer tree + absorb ->
-    device query phase (one launch of K5's query form) -> ONE
-    device->host copy -> host transcript replay -> StarkProof
+    host trace -> trace polynomial (INTT, K1/K2) -> coset LDE (NTT,
+    K1/K2; a C-column trace as one batched transform each) -> trace
+    Merkle tree (K3, its row form for C > 1, and K4) -> device
+    Fiat-Shamir absorb + alpha draws (K5) -> composition -> FRI fold +
+    per-layer tree + absorb -> device query phase (one launch of K5's
+    query form, row openings of C values) -> ONE device->host copy ->
+    host transcript replay -> StarkProof
 
 Everything after the trace upload stays on the device with a
 device-resident Fiat-Shamir state; the host replays the canonical
@@ -39,7 +42,12 @@ LAST_PROVE_PATH: str | None = None
 
 @dataclasses.dataclass
 class StarkProof:
-    """A complete proof: the transcript plus the public statement."""
+    """A complete proof: the transcript plus the public statement.
+
+    `a0` / `a_last` are the first two publics of the AIR (the first and
+    last trace values of Fibonacci-square, named a0 / a_last; input /
+    output for every other AIR); AIRs with more statement data put it in
+    `extra_publics`."""
 
     proof: list[bytes]
     a0: int
@@ -50,7 +58,10 @@ class StarkProof:
 
     @property
     def publics(self) -> dict:
-        base = {"a0": self.a0, "a_last": self.a_last}
+        if self.air_name == FibonacciSquareAIR.name:
+            base = {"a0": self.a0, "a_last": self.a_last}
+        else:
+            base = {"input": self.a0, "output": self.a_last}
         if self.extra_publics:
             base.update(self.extra_publics)
         return base
@@ -104,8 +115,9 @@ _CTX_CACHE: dict = {}
 
 
 def get_air_context(air, cfg: ProverConfig, device):
-    """Per-(AIR, config, device) context cache (the inverse tables)."""
-    key = (air.name, cfg, str(device))
+    """Per-(AIR, config, device) context cache (the inverse tables; MiMC's
+    round key is part of its context)."""
+    key = (air.name, getattr(air, "k", None), cfg, str(device))
     ctx = _CTX_CACHE.get(key)
     if ctx is None:
         ctx = _CTX_CACHE[key] = air.context(cfg, device)
@@ -113,39 +125,47 @@ def get_air_context(air, cfg: ProverConfig, device):
 
 
 @functools.lru_cache(maxsize=None)
-def query_plan(cfg: ProverConfig) -> _dq.DeviceQueryPlan:
-    """The device query plan of the Fibonacci-square prove of `cfg`, built
-    once per configuration."""
-    air = FibonacciSquareAIR()
+def _query_plan(cfg: ProverConfig, offsets: tuple, num_folds: int,
+                num_columns: int) -> _dq.DeviceQueryPlan:
     M = cfg.eval_domain_size
-    offsets = tuple(s * cfg.blowup for s in air.shifts)
     rng = M - max(offsets)
-    fri_lengths = tuple(M >> k for k in range(air.num_folds(cfg) + 1))
-    if not _dq.supported(rng, M, fri_lengths):
+    fri_lengths = tuple(M >> k for k in range(num_folds + 1))
+    if not _dq.supported(rng, M, fri_lengths, num_columns):
         raise NotImplementedError(
             "configuration outside the single-fetch path; the per-phase "
             "path waits for ROADMAP Queue 1 item 14")
-    return _dq.DeviceQueryPlan(rng, cfg.num_queries, offsets, M, fri_lengths)
+    return _dq.DeviceQueryPlan(rng, cfg.num_queries, offsets, M,
+                               fri_lengths, num_columns)
 
 
-def prove(cfg: ProverConfig, a1: int = 3141592, *,
+def query_plan(cfg: ProverConfig, air=None) -> _dq.DeviceQueryPlan:
+    """The device query plan of `air`'s prove of `cfg` (Fibonacci-square
+    by default), built once per (configuration, trace offsets, fold
+    count, column count)."""
+    air = air or FibonacciSquareAIR()
+    return _query_plan(cfg, tuple(s * cfg.blowup for s in air.shifts),
+                       air.num_folds(cfg), air.num_columns)
+
+
+def prove(cfg: ProverConfig, a1: int = 3141592, *, air=None,
           device="cuda") -> StarkProof:
-    """Prove the Fibonacci-square statement with secret a_1 on `device`:
-    the card by default, where the kernels run; a CPU device runs their
-    plain versions."""
+    """Prove a statement of `air` on `device` (default: Fibonacci-square
+    with secret a_1): the card by default, where the kernels run; a CPU
+    device runs their plain versions."""
     if cfg.mesh_shape is not None:
         raise NotImplementedError(
             "sharded proving on several GPUs waits for ROADMAP Queue 1 "
             "item 15")
     device = torch.device(device)
-    air = FibonacciSquareAIR(a1=a1)
+    if air is None:
+        air = FibonacciSquareAIR(a1=a1)
     air.validate(cfg)
     p, M, h = cfg.modulus, cfg.eval_domain_size, cfg.offset
     Fp.get(p)  # u32 fields only: raises for 64-bit moduli
-    plan = query_plan(cfg)
+    plan = query_plan(cfg, air)
 
     # -- trace + LDE: one upload of the host trace -------------------------
-    trace_host = air.host_trace(cfg)
+    trace_host = air.host_trace(cfg)  # (T,), or (C, T) for C columns
     publics = air.publics_from_host(trace_host)
     trace = upload_u32(trace_host, device)
     f_evals = coset_evaluate(trace_polynomial(trace, p), p, M, h)
@@ -159,7 +179,8 @@ def _prove_single_fetch(cfg, air, channel, f_evals, publics,
     p, h = cfg.modulus, cfg.offset
     device = f_evals.device
 
-    trace_tree = MerkleTree(f_evals)
+    trace_tree = (MerkleTree.from_columns(f_evals) if f_evals.dim() == 2
+                  else MerkleTree(f_evals))
     fs = DeviceFS(p, channel.state, device=device)
     fs.mark("trace-commit")
     fs.absorb_root(trace_tree.root_digest)
@@ -199,6 +220,11 @@ def _prove_single_fetch(cfg, air, channel, f_evals, publics,
 
 
 def _finish_proof(cfg, air, channel, publics) -> StarkProof:
+    """The proof of `publics` (the JAX rule: the first two publics are
+    a0 / a_last, the rest go to extra_publics)."""
+    pub_vals = list(publics.values())
+    extra = {k: v for k, v in publics.items()
+             if k not in ("a0", "a_last", "input", "output")}
     return StarkProof(proof=[bytes(m) for m in channel.proof],
-                      a0=publics["a0"], a_last=publics["a_last"], config=cfg,
-                      air_name=air.name)
+                      a0=pub_vals[0], a_last=pub_vals[1], config=cfg,
+                      air_name=air.name, extra_publics=extra or None)

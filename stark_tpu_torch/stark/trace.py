@@ -1,10 +1,11 @@
 """Trace generation + trace polynomial (counterpart of
-``stark_tpu/stark/trace.py``; Fibonacci-square, u32 field).
+``stark_tpu/stark/trace.py``; u32 field).
 
-The trace is a sequential recurrence, so it is built on the host by the
-native C++ loop (``stark_tpu_torch/native``), then uploaded to the
-device in one copy.  :func:`fibonacci_square_host`, the same recurrence
-over Python ints, is the oracle the tests hold the native loop against.
+Each AIR's trace is a sequential recurrence, so it is built on the host
+by the native C++ loops (``stark_tpu_torch/native``), then uploaded to
+the device in one copy.  :func:`fibonacci_square_host`, the same
+recurrence over Python ints, is the oracle the tests hold the native
+loop against.
 
 The trace polynomial is one INTT plus a closed-form degree correction:
 INTT of (trace ++ [0]) gives the interpolant with value 0 at the unused
@@ -35,15 +36,19 @@ def fibonacci_square_host(p: int, length: int, a0: int = 1,
 
 def trace_polynomial(trace: torch.Tensor, p: int) -> torch.Tensor:
     """Coefficients (N,) of STARK-101's trace interpolant over the order-N
-    subgroup, top coefficient identically zero (degree <= N-2)."""
+    subgroup, top coefficient identically zero (degree <= N-2); for a
+    (C, N-1) multi-column trace, (C, N): each column interpolated on its
+    own by one batched INTT."""
     f = Fp.get(p)
     n = int(trace.shape[-1]) + 1
     if n & (n - 1):
         raise ValueError("trace length must be 2^k - 1")
-    padded = torch.zeros(n, dtype=torch.int32, device=trace.device)
-    padded[: n - 1] = trace
+    padded = torch.zeros(trace.shape[:-1] + (n,), dtype=torch.int32,
+                         device=trace.device)
+    padded[..., : n - 1] = trace
     coeffs0 = intt(padded, p)
     g = root_of_unity(p, n)
     g_t = torch.tensor(g, device=trace.device)
     gp = f.mul(f.powers(g, n, trace.device), g_t)  # g^(i+1)
-    return store(f.sub(coeffs0, f.mul(gp, coeffs0[n - 1])))
+    # each column's top coefficient, kept as a (.., 1) axis to broadcast
+    return store(f.sub(coeffs0, f.mul(gp, coeffs0[..., n - 1:])))

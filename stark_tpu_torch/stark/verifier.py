@@ -2,10 +2,11 @@
 pure Python ints plus hashlib, so it checks a proof on a machine without
 JAX.
 
-Replays the full transcript: the trace openings (one per AIR shift)
-against the trace Merkle root, the recomputed composition value against
-the FRI layer-0 opening, every FRI layer's Merkle proofs, the fold
-relation between layers, and the final constant.  All challenges are
+Replays the full transcript: the trace openings (one row message of the
+AIR's columns per shift) against the trace Merkle root, the recomputed
+composition value against the FRI layer-0 opening, every FRI layer's
+Merkle proofs, the fold relation between layers, and the final
+constant.  All challenges are
 re-derived from the transcript.
 """
 
@@ -46,12 +47,13 @@ def verify(proof: StarkProof, air=None, *, expected_config=None,
         raise StarkVerificationError(
             f"proof has {cfg.num_queries} queries < required {min_queries}")
     if air is None:
-        air = air_from_name(proof.air_name)
+        air = air_from_name(proof.air_name, proof.publics)
     air.validate(cfg)
     p, M, b, h = cfg.modulus, cfg.eval_domain_size, cfg.blowup, cfg.offset
     w = root_of_unity(p, M)
     offsets = [s * b for s in air.shifts]
     publics = proof.publics
+    ncols = air.num_columns
 
     try:
         ch = VerifierChannel(p, proof.proof)
@@ -63,16 +65,21 @@ def verify(proof: StarkProof, air=None, *, expected_config=None,
             idx = ch.receive_random_int(0, M - max(offsets) - 1, True)
             opened = []
             for off in offsets:
+                # a row message of ncols values, 8-byte BE each: its bytes
+                # are the committed leaf's preimage
                 msg = ch.read()
-                if len(msg) != 8:
+                if len(msg) != 8 * ncols:
                     raise StarkVerificationError(
-                        f"query {q}: opening is {len(msg)} bytes, expected 8")
+                        f"query {q}: row opening is {len(msg)} bytes, "
+                        f"expected {8 * ncols}")
                 path = ch.read()
                 if not MerkleTree.validate(trace_root, path, idx + off, msg,
                                            M):
                     raise StarkVerificationError(
                         f"query {q}: trace Merkle proof fails at offset {off}")
-                opened.append(int.from_bytes(msg, "big"))
+                vals = tuple(int.from_bytes(msg[8 * i:8 * i + 8], "big")
+                             for i in range(ncols))
+                opened.append(vals[0] if ncols == 1 else vals)
             x = h * pow(w, idx, p) % p
             verify_query_layers(
                 ch, idx, roots, betas, final_value, p, M, h,

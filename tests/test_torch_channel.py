@@ -321,7 +321,10 @@ def test_packed_tables_reproduce_the_stream(log2_trace, blowup):
                                       for k, c in sl.cols.items()}, idx)
                           for sl in plan._slots])
         assert torch.equal(_positions(cols, idx), want)
-    assert cols["row"].tolist() == plan._val_rows + plan._dig_rows
+    # a slot names the stream word its hex starts at: a value's low word
+    # after its 8 hex zeros, a digest's row
+    assert cols["word"].tolist() == ([16 * r + 2 for r in plan._val_rows]
+                                     + [16 * r for r in plan._dig_rows])
 
 
 def test_query_replay_matches_jax_transcript():
@@ -365,3 +368,87 @@ def test_supported_mirrors_the_plan():
         DeviceQueryPlan(100, 1, (0,), 16, (12,))
     with pytest.raises(ValueError, match="draw range"):
         DeviceQueryPlan(2**32, 1, (0,), 16, (16,))
+
+
+def _column_case(c, q_n=3, n=32, offsets=(0, 4), fri=(32, 16, 8, 4, 2)):
+    """Seeded (C, n) LDE, FRI layers and state, and the JAX plan of C
+    columns run through its XLA scan: (inputs, JAX outputs)."""
+    f_evals = _words(c * n, 700 + c, P).reshape(c, n)
+    layers = [_words(ln, 710 + i, P) for i, ln in enumerate(fri)]
+    state = _words(8, 720 + c)
+    jplan = jdq.DeviceQueryPlan(n - max(offsets), q_n, offsets, n, fri,
+                                num_columns=c)
+    jf = jnp.asarray(f_evals if c > 1 else f_evals[0])
+    jt = (JMerkleTree.from_columns(jf) if c > 1 else JMerkleTree(jf))
+    jlv = [JMerkleTree(jnp.asarray(v)).levels[:-1] for v in layers]
+    want = jax.device_get(jax.jit(functools.partial(jplan._run, mode=0))(
+        jnp.asarray(state), jf, tuple(jt.levels[:-1]),
+        tuple(jnp.asarray(v) for v in layers), tuple(tuple(l) for l in jlv)))
+    return (f_evals, layers, state, jplan), want
+
+
+@pytest.mark.parametrize("c", [1, 2, 4, 6])
+def test_multi_column_query_plan_matches_jax(c):
+    """K5's query form (plain version) on row openings of C columns
+    against the JAX plan's scan: final chain, idxs and every opened value
+    (a trace opening's C values together) equal; C >= 4 spills a full hex
+    block before the padded tail."""
+    (f_evals, layers, state, jplan), want = _column_case(c)
+    want_final, (want_idx, outs) = want
+    plan = DeviceQueryPlan(jplan.rng, jplan.num_queries, jplan.offsets, 32,
+                           jplan.fri_lengths, c)
+    f_t = u32_to_tensor(f_evals, device="cpu")
+    tree = MerkleTree.from_columns(f_t)
+    values, digests = _fri_buffers(layers)
+    final, idxs, vals, digs = plan.run_device(
+        u32_to_tensor(state, device="cpu"), f_t, tree.buffer, values,
+        digests)
+    np.testing.assert_array_equal(tensor_to_u32(final), want_final)
+    np.testing.assert_array_equal(idxs.numpy(), want_idx)
+    want_vals = np.concatenate([np.asarray(o).reshape(len(want_idx), -1)
+                                for o in outs if np.asarray(o).ndim <= 2
+                                and np.asarray(o).shape[-1] != 8], axis=1)
+    np.testing.assert_array_equal(tensor_to_u32(vals), want_vals)
+    want_digs = np.concatenate([np.asarray(o) for o in outs
+                                if np.asarray(o).ndim == 3], axis=1)
+    np.testing.assert_array_equal(tensor_to_u32(digs), want_digs)
+    # the message layout: a trace row message takes ceil((4C + 3) / 16)
+    # payload rows, an FRI value one
+    tb = plan.pack("cpu")
+    assert tb.num_values == c * 2 + 2 * len(plan.fri_lengths)
+    assert int(tb.template.shape[0]) == int(np.asarray(jplan._flags).shape[0])
+    np.testing.assert_array_equal(tensor_to_u32(tb.flags),
+                                  np.asarray(jplan._flags))
+
+
+@pytest.mark.parametrize("c", [2, 6])
+def test_multi_column_replay_matches_jax_transcript(c):
+    """The host replay sends one 8C-byte row message a trace opening:
+    the transcript equals the JAX plan's run."""
+    (f_evals, layers, state, jplan), _ = _column_case(c, q_n=2)
+    jch, ch = JChannel(P), Channel(P)
+    for ch_ in (jch, ch):
+        ch_.send(b"statement")
+    jf = jnp.asarray(f_evals)
+    jplan.run(jch, jf, JMerkleTree.from_columns(jf).levels[:-1],
+              [jnp.asarray(v) for v in layers],
+              [JMerkleTree(jnp.asarray(v)).levels[:-1] for v in layers])
+    plan = DeviceQueryPlan(jplan.rng, 2, jplan.offsets, 32,
+                           jplan.fri_lengths, c)
+    f_t = u32_to_tensor(f_evals, device="cpu")
+    values, digests = _fri_buffers(layers)
+    out = plan.run_device(hex_to_state(ch.state, device="cpu"), f_t,
+                          MerkleTree.from_columns(f_t).buffer, values,
+                          digests)
+    plan.replay(ch, *(t.numpy() for t in out))
+    assert ch.proof == jch.proof and ch.state == jch.state
+    # after the statement and the first draw: the first trace row message
+    assert len(ch.proof[2]) == 8 * c
+
+
+def test_supported_and_plan_bound_the_column_count():
+    assert supported(100, 16, (16, 8), 6)
+    assert not supported(100, 16, (16, 8), 7)
+    assert not supported(100, 16, (16, 8), 0)
+    with pytest.raises(ValueError, match="1..6 trace columns"):
+        DeviceQueryPlan(10, 1, (0,), 16, (16,), 7)

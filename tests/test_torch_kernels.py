@@ -74,6 +74,40 @@ def test_k2_ntt_matches_plain(dev, monkeypatch, p, log_n, block_log,
     _ntt_case(cuda_ntt.ntt_k2, dev, p, log_n, inverse)
 
 
+# the batched form: C columns as the grid's y dimension, on both routes
+# and across the narrow column groups (shrunk block budget)
+@pytest.mark.parametrize("route,log_n,block_log",
+                         [("K1", 1, 15), ("K1", 12, 15), ("K1", 22, 15),
+                          ("K2", 23, 15), ("K2", 13, 8), ("K2", 16, 8)])
+@pytest.mark.parametrize("cols", [2, 3])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_batched_ntt_matches_plain(dev, monkeypatch, route, log_n, block_log,
+                                   cols, inverse):
+    from stark_tpu_torch.ntt import cuda_ntt
+
+    monkeypatch.setattr(cuda_ntt, "BLOCK_LOG", block_log)
+    fn = cuda_ntt.ntt_k1 if route == "K1" else cuda_ntt.ntt_k2
+    x = _u32((cols, 1 << log_n), P, log_n + cols, dev)
+    before = (fn.launches, fn.column_launches)
+    got = fn(x, P, inverse)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.column_launches) == (before[0] + 1,
+                                                 before[1] + 1)
+    assert torch.equal(got, cuda_ntt.ntt_passes_plain(x, P, inverse))
+    for c in range(cols):
+        assert torch.equal(got[c], cuda_ntt.ntt_plain(x[c], P, inverse))
+
+
+@pytest.mark.parametrize("cols", range(1, 7))
+@pytest.mark.parametrize("n", [1, 255, 4096])
+def test_k3_row_form_matches_plain(dev, cols, n):
+    from stark_tpu_torch.hash.cuda_sha import sha_row_leaves
+    from stark_tpu_torch.hash.sha256 import sha256_row_leaves
+
+    v = _u32((cols, n), P, 10 * cols + n, dev)
+    assert torch.equal(sha_row_leaves(v), sha256_row_leaves(v))
+
+
 @pytest.mark.parametrize("n", [1, 2, 255, 4096])
 def test_k3_k4_match_plain(dev, n):
     from stark_tpu_torch.hash.cuda_sha import sha_leaves, sha_nodes
@@ -152,6 +186,24 @@ def test_k5_query_form_matches_plain(dev, log2_trace):
         assert torch.equal(g, w)
 
 
+@pytest.mark.parametrize("cols", [2, 4, 6])
+def test_k5_query_form_row_messages_match_plain(dev, cols):
+    """The query form on a plan of C-column row openings (C >= 4 spills a
+    full hex block before the padded tail)."""
+    from stark_tpu_torch.channel.device_query import (DeviceQueryPlan,
+                                                      query_chain,
+                                                      query_chain_plain)
+
+    plan = DeviceQueryPlan(28, 4, (0, 4), 32, (32, 16, 8, 4, 2), cols)
+    tb = plan.pack(dev)
+    n_f, n_td, n_fv, n_fd = tb.sizes
+    args = (_u32(8, 2**32, 30, dev), _u32(n_f, P, 31, dev),
+            _u32((n_td, 8), 2**32, 32, dev), _u32(n_fv, P, 33, dev),
+            _u32((n_fd, 8), 2**32, 34, dev))
+    for g, w in zip(query_chain(*args, tb), query_chain_plain(*args, tb)):
+        assert torch.equal(g, w)
+
+
 def test_golden_vectors_on_card(dev):
     from stark_tpu_torch.config import ProverConfig
     from stark_tpu_torch.stark import StarkProof, prove
@@ -165,3 +217,19 @@ def test_golden_vectors_on_card(dev):
                              num_queries=2), a1=3)
     assert got.proof == StarkProof.deserialize(
         json.dumps(vec["fib_gf97_2e2"]).encode()).proof
+
+
+@pytest.mark.parametrize("name", ["mimc3_2e5", "fibmul_2e5"])
+def test_golden_mimc_fibmul_on_card(dev, name):
+    from stark_tpu_torch.config import ProverConfig
+    from stark_tpu_torch.stark import FibMulAIR, MimcAIR, StarkProof, prove
+
+    path = os.path.join(os.path.dirname(__file__), "vectors",
+                        "golden_proofs.json")
+    with open(path) as fh:
+        vec = json.load(fh)
+    air = (MimcAIR(x0=271828, k=777) if name == "mimc3_2e5"
+           else FibMulAIR(a0=1, b0=2718281))
+    got = prove(ProverConfig(log2_trace=5, blowup=4, num_queries=3), air=air)
+    assert got.serialize() == StarkProof.deserialize(
+        json.dumps(vec[name]).encode()).serialize()

@@ -11,10 +11,13 @@ import torch
 import jax.numpy as jnp
 
 from stark_tpu.hash.sha256_jax import sha256_pairs as j_pairs
+from stark_tpu.hash.sha256_jax import sha256_row_leaves as j_row_leaves
 from stark_tpu.hash.sha256_jax import sha256_u64_leaves as j_leaves
 from stark_tpu.merkle.tree import MerkleTree as JMerkleTree
-from stark_tpu_torch.hash.cuda_sha import sha_leaves, sha_nodes
-from stark_tpu_torch.hash.sha256 import sha256_pairs, sha256_u64_leaves
+from stark_tpu_torch.hash.cuda_sha import (sha_leaves, sha_nodes,
+                                           sha_row_leaves)
+from stark_tpu_torch.hash.sha256 import (sha256_pairs, sha256_row_leaves,
+                                         sha256_u64_leaves)
 from stark_tpu_torch.interop import tensor_to_u32, u32_to_tensor
 from stark_tpu_torch.merkle.tree import (MerkleTree, level_offsets,
                                          merkle_root_host)
@@ -117,3 +120,58 @@ def test_storage_layout_is_natural_and_contiguous():
 def test_unported_tree_shapes_raise():
     with pytest.raises(NotImplementedError, match="power-of-two"):
         MerkleTree(u32_to_tensor(_vals(6, 1), device="cpu"))
+
+
+def _row_msg(cols, i) -> bytes:
+    """Row i of (C, n) columns as its leaf preimage: 8 BE bytes a value."""
+    return b"".join(int(x).to_bytes(8, "big") for x in cols[:, i])
+
+
+@pytest.mark.parametrize("c", range(1, 7))
+def test_row_leaves_match_hashlib_and_jax(c):
+    """K3's row form (plain version): SHA-256 of each row's 8C-byte
+    message, equal to JAX's sha256_row_leaves; at C = 1 the one-column
+    leaf."""
+    cols = _vals((c, 40), 70 + c)
+    cols[:, 0] = [0, P - 1, 1, 2**32 - 1, 5, 6][:c]
+    t = u32_to_tensor(cols, device="cpu")
+    got = tensor_to_u32(sha256_row_leaves(t))
+    np.testing.assert_array_equal(got, np.asarray(j_row_leaves(
+        jnp.asarray(cols))))
+    for i in (0, 17, 39):
+        assert _bytes(got[i]) == hashlib.sha256(_row_msg(cols, i)).digest()
+    assert torch.equal(sha_row_leaves(t), sha256_row_leaves(t))
+    if c == 1:
+        assert torch.equal(sha256_row_leaves(t), sha256_u64_leaves(t[0]))
+
+
+@pytest.mark.parametrize("c", range(1, 7))
+@pytest.mark.parametrize("log_n", [0, 5])
+def test_from_columns_root_and_paths_match_jax(c, log_n):
+    n = 1 << log_n
+    cols = _vals((c, n), 80 + 7 * c + log_n)
+    t = MerkleTree.from_columns(u32_to_tensor(cols, device="cpu"))
+    jt = JMerkleTree.from_columns(jnp.asarray(cols))
+    assert t.root() == jt.root()
+    assert t.buffer.shape == (2 * n - 1, 8)
+    for i in sorted({0, n - 1, n // 3}):
+        path = t.get_authentication_path(i)
+        assert path == jt.get_authentication_path(i)
+        assert MerkleTree.validate(t.root(), path, i, _row_msg(cols, i), n)
+        bad = bytearray(_row_msg(cols, i))
+        bad[-1] ^= 1
+        assert not MerkleTree.validate(t.root(), path, i, bytes(bad), n)
+
+
+def test_row_leaves_wrapper_writes_into_out_and_rejects_shapes():
+    cols = u32_to_tensor(_vals((2, 16), 90), device="cpu")
+    buf = torch.zeros((31, 8), dtype=torch.int32)
+    sha_row_leaves(cols, out=buf[:16])
+    assert torch.equal(buf[:16], sha256_row_leaves(cols))
+    assert sha_row_leaves.plain is sha256_row_leaves
+    for bad in (torch.zeros((7, 4), dtype=torch.int32),
+                torch.zeros(4, dtype=torch.int32)):
+        with pytest.raises(ValueError, match="C = 1..6"):
+            sha_row_leaves(bad)
+        with pytest.raises(ValueError, match="C = 1..6"):
+            MerkleTree.from_columns(bad)

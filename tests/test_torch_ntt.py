@@ -210,3 +210,96 @@ def test_ntt_routes_large_sizes_to_k2(k2_route, log_n, inverse):
     small = u32_to_tensor(_rand(P, 1 << 9, seed=3), device="cpu")
     fn(small, P)
     assert k2_route[-1] == ("K1", 1 << 9, inverse)
+
+
+# the batched form: a (C, n) tensor of columns, one wrapper call a
+# transform, on the K1 route and (budget and route limit shrunk) the K2
+# route with 8-column and narrower pass-1 groups
+BATCH_ROUTES = {"K1": (22, 15), "K2": (9, 7), "K2-narrow": (7, 5)}
+
+
+@pytest.fixture(params=sorted(BATCH_ROUTES))
+def batch_route(request, monkeypatch):
+    max_log, block_log = BATCH_ROUTES[request.param]
+    monkeypatch.setattr(cuda_ntt, "MAX_LOG_N", max_log)
+    monkeypatch.setattr(cuda_ntt, "BLOCK_LOG", block_log)
+    calls = []
+
+    def spy(name, fn):
+        def wrapped(x, p, inverse):
+            calls.append((name, tuple(x.shape)))
+            return fn(x, p, inverse)
+        return wrapped
+
+    monkeypatch.setattr(tn, "ntt_k1", spy("K1", ntt_k1))
+    monkeypatch.setattr(tn, "ntt_k2", spy("K2", ntt_k2))
+    return request.param, calls
+
+
+@pytest.mark.parametrize("cols", [2, 3])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_batched_ntt_matches_jax(batch_route, cols, inverse):
+    """ntt / intt of (C, 2^12) columns: one wrapper call, each row equal
+    to the JAX transform of that column."""
+    route, calls = batch_route
+    log_n = 9 if route == "K2-narrow" else 12  # 2 columns a pass-1 group
+    x = _rand(P, cols << log_n, seed=300 + cols + inverse).reshape(cols, -1)
+    plan = get_stockham_plan(P, 1 << log_n, inverse)
+    want = np.stack([np.asarray(plan(jnp.asarray(r))) for r in x])
+    fn = tn.intt if inverse else tn.ntt
+    got = fn(u32_to_tensor(x, device="cpu"), P)
+    np.testing.assert_array_equal(tensor_to_u32(got), want)
+    assert calls == [(route[:2], (cols, 1 << log_n))]
+
+
+@pytest.mark.parametrize("cols", [2, 3])
+@pytest.mark.parametrize("log_n", [6, 11])
+def test_batched_trace_polynomial_and_lde_match_jax(batch_route, cols,
+                                                    log_n):
+    """trace_polynomial over a (C, N-1) trace and coset_evaluate of its
+    (C, N) coefficients (blowup 4) against JAX's on the same (C, n)
+    input, exact: two wrapper calls in all, whatever C."""
+    route, calls = batch_route
+    if route == "K2-narrow":
+        log_n = min(log_n, 8)  # the LDE at the 2^10 top of a 2^5 budget
+    trace = _rand(P, cols * ((1 << log_n) - 1), seed=400 + log_n + cols)
+    trace = trace.reshape(cols, -1)
+    want = np.asarray(j_trace_polynomial(jnp.asarray(trace), P))
+    got = trace_polynomial(u32_to_tensor(trace, device="cpu"), P)
+    np.testing.assert_array_equal(tensor_to_u32(got), want)
+    assert (want[:, -1] == 0).all()
+    want_e = np.asarray(j_coset_evaluate(jnp.asarray(want), P,
+                                         4 << log_n, 5))
+    got_e = tn.coset_evaluate(got, P, 4 << log_n, 5)
+    np.testing.assert_array_equal(tensor_to_u32(got_e), want_e)
+    assert [s for _, s in calls] == [(cols, 1 << log_n),
+                                     (cols, 4 << log_n)]
+
+
+@pytest.mark.parametrize("cols", [1, 2, 3])
+def test_batched_passes_plain_equals_each_column(monkeypatch, cols):
+    """The kernels' plain version on (C, n) is the 1-D transform of each
+    column, also when one pass-1 group spans a whole row of the (n1, n2)
+    view (block budget 2^7 at 2^12)."""
+    monkeypatch.setattr(cuda_ntt, "BLOCK_LOG", 7)
+    x = u32_to_tensor(_rand(P, cols << 12, seed=500 + cols),
+                      device="cpu").reshape(cols, -1)
+    for inverse in (False, True):
+        got = ntt_passes_plain(x, P, inverse)
+        assert got.shape == x.shape
+        for c in range(cols):
+            assert torch.equal(got[c], ntt_plain(x[c], P, inverse))
+    one = x[0]
+    assert torch.equal(ntt_k2(one[None], P)[0], ntt_k2(one, P))
+
+
+def test_batched_scale_pad_and_interpolate_match_jax():
+    c = _rand(P, 2 * 64, seed=600).reshape(2, 64)
+    got = tn.scale_pad(u32_to_tensor(c, device="cpu"), P, 256, 7)
+    assert got.shape == (2, 256) and not got[:, 64:].any()
+    for r in range(2):
+        assert torch.equal(got[r], tn.scale_pad(
+            u32_to_tensor(c[r], device="cpu"), P, 256, 7))
+    want = np.asarray(j_coset_interpolate(jnp.asarray(c), P, 5))
+    got_i = tn.coset_interpolate(u32_to_tensor(c, device="cpu"), P, 5)
+    np.testing.assert_array_equal(tensor_to_u32(got_i), want)

@@ -19,8 +19,8 @@ from stark_tpu_torch.config import ProverConfig
 from stark_tpu_torch.interop import config_fields, config_from
 from stark_tpu_torch.ntt import cuda_ntt
 from stark_tpu_torch.ntt import ntt as tn
-from stark_tpu_torch.stark import (StarkProof, StarkVerificationError, prove,
-                                   verify)
+from stark_tpu_torch.stark import (FibMulAIR, StarkProof,
+                                   StarkVerificationError, prove, verify)
 from stark_tpu_torch.stark import prover as tprover
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -131,6 +131,16 @@ def test_unported_paths_raise():
                            log2_trace=4), device="cpu")
     with pytest.raises(NotImplementedError, match="item 14"):
         StarkProof.deserialize(b"STP1" + bytes(8))
+    # a declarative AirSpec family: its prover and verifier wait for item
+    # 11; the Goldilocks FibMul (fibmul_gl_2e5) for item 12
+    tribmul = StarkProof(proof=[], a0=1, a_last=2, air_name="tribmul",
+                         config=ProverConfig(log2_trace=5, blowup=4))
+    with pytest.raises(NotImplementedError, match="item 11"):
+        verify(tribmul)
+    with pytest.raises(NotImplementedError, match="item 12"):
+        prove(ProverConfig(modulus=2**64 - 2**32 + 1, generator=7,
+                           log2_trace=5, blowup=4, num_queries=3),
+              air=FibMulAIR(), device="cpu")
 
 
 def test_prove_runs_on_the_card_by_default():
