@@ -35,6 +35,9 @@ GOLDEN = {"mimc3_2e5": (MimcAIR(x0=271828, k=777),
                         JMimcAIR(x0=271828, k=777)),
           "fibmul_2e5": (FibMulAIR(a0=1, b0=2718281),
                          JFibMulAIR(a0=1, b0=2718281))}
+# the golden vectors of these statements that the port's verifier checks:
+# the u32 ones, and FibMul over the Goldilocks field
+VERIFIED = sorted(GOLDEN) + ["fibmul_gl_2e5"]
 # 2^11 rows, blowup 8 (LDE 2^14): one AIR of each family, other witnesses
 CFG_2E11 = dict(log2_trace=11, blowup=8, num_queries=8)
 AIRS_2E11 = {"mimc3": (MimcAIR(x0=12345, k=99), JMimcAIR(x0=12345, k=99)),
@@ -68,7 +71,7 @@ def _tampered(pr: StarkProof, k: int) -> StarkProof:
     return bad
 
 
-@pytest.mark.parametrize("name", sorted(GOLDEN))
+@pytest.mark.parametrize("name", VERIFIED)
 def test_publics_follow_the_jax_rule(vectors, name):
     """a0 / a_last carry the first two publics; the names are input /
     output for every AIR but Fibonacci-square, the rest extra_publics."""
@@ -88,7 +91,7 @@ def test_golden_vectors_byte_identical(vectors, name):
         _blob(vectors, name)).serialize()
 
 
-@pytest.mark.parametrize("name", sorted(GOLDEN))
+@pytest.mark.parametrize("name", VERIFIED)
 def test_port_verifier_on_golden_proofs(vectors, name):
     pr = StarkProof.deserialize(_blob(vectors, name))
     assert verify(pr)
