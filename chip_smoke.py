@@ -27,6 +27,18 @@ versions: the chain form on a 5,000-block stream with mixed flags and on
 the proves' query streams, the query form on the 2^20 and 2^24 plans
 and on plans of 2- and 6-column row openings, with seeded trees.
 
+Over the Goldilocks field (p = 2^64 - 2^32 + 1, values as (hi, lo) limb
+planes) it holds K3's 64-bit mode against its plain version (one column
+at 2^22 and 2^26 leaves, the row form at C = 1..6 and 2 x 2^22) and K5's
+query form on the FibMul-GL plan (two value slots a 64-bit value), proves
+the fibmul_gl_2e5 golden vector, the Fibonacci-square and FibMul
+statements at 2^20 rows as above (pinned digests; no NTT kernel, since
+the Goldilocks NTT is torch ops; K3's 64-bit mode once per tree),
+FibMul-GL at 2^14 and 2^18 rows for a table of walls and peak memory,
+and both statements at 2^8 and 2^12 rows, whose transcripts must equal
+the digests the JAX package made on a CPU (``GL_ANCHORS``,
+``scripts/jax_anchor_digests.py``).
+
 The ``kernels`` line gives each kernel's time and its plain version's
 (CUDA events, median of 5 after a warm-up) beside its bound: the larger
 of the bytes it must move over 3.35 TB/s and its 32-bit integer
@@ -37,10 +49,12 @@ dependent-issue latency that a clock64 probe measures on the card in
 this run (printed beside the assumed 4 cycles).
 
 ``--profile`` then adds where a warm prove spends its time, for the
-Fibonacci-square proves at 2^20 and 2^24 rows, MiMC³ at 2^20 and FibMul
-at 2^24: a phase split synced after each phase, five warm walls, and one
-prove under ``torch.profiler`` (device busy time, the kernels' shares;
-the full tables go to ``chiprun_out/profile_prove_*.txt``).
+Fibonacci-square proves at 2^20 and 2^24 rows, MiMC³ at 2^20, FibMul at
+2^24 and FibMul-GL at 2^20: a phase split synced after each phase (and
+the cold build of the AIR's context, which a warm prove takes from its
+cache), five warm walls, and one prove under ``torch.profiler`` (device
+busy time, the kernels' shares; the full tables go to
+``chiprun_out/profile_prove_*.txt``).
 
 Needs one CUDA device; exits non-zero without one.  Imports nothing of
 JAX.  The last line of standard output is the result object.
@@ -80,15 +94,37 @@ TREE_TIME_LOG = 26
 # default Fibonacci-square statement
 _CFG20 = dict(log2_trace=20, blowup=4, num_queries=16)
 _CFG24 = dict(log2_trace=24, blowup=4, num_queries=16)
+GOLDILOCKS = 2**64 - 2**32 + 1
+_GL = dict(modulus=GOLDILOCKS, generator=7)
+_FIBMUL = dict(a0=1, b0=2718281)
 PROVES = {"2^20": (_CFG20, None, {}), "2^24": (_CFG24, None, {}),
           "MiMC 2^20": (_CFG20, "mimc3", dict(x0=271828, k=777)),
-          "FibMul 2^20": (_CFG20, "fibmul", dict(a0=1, b0=2718281)),
-          "FibMul 2^24": (_CFG24, "fibmul", dict(a0=1, b0=2718281))}
-PROFILED = ("2^20", "2^24", "MiMC 2^20", "FibMul 2^24")
+          "FibMul 2^20": (_CFG20, "fibmul", _FIBMUL),
+          "FibMul 2^24": (_CFG24, "fibmul", _FIBMUL),
+          "GL 2^20": (dict(_CFG20, **_GL), None, {}),
+          "FibMul-GL 2^20": (dict(_CFG20, **_GL), "fibmul", _FIBMUL)}
+PROFILED = ("2^20", "2^24", "MiMC 2^20", "FibMul 2^24", "FibMul-GL 2^20")
+# the Goldilocks memory table: FibMul-GL cold and warm walls and peak
+# device memory at these trace sizes (2^20 is the prove above)
+GL_MEMORY_LOGS = (14, 18)
+# SHA-256 transcript digests of Goldilocks proves (blowup 4, 16 queries)
+# made by the JAX package on a CPU (scripts/jax_anchor_digests.py): the
+# port's proves of the same statements on the card must equal them
+GL_ANCHORS = {
+    ("fib-sq-GL", 8):
+        "6a2c0ba1c58151f36dfb9f5302c2bf4056ae1725147cfa1035ced70d9c4eb8e5",
+    ("FibMul-GL", 8):
+        "a52ed63e759e1100d6a1799868f1b80751e566d2614a305206ed7dd523c0b339",
+    ("fib-sq-GL", 12):
+        "a323f01017905e71b3c6abd20fcbe6f8cb09effca2f207ee2437491a9704bb62",
+    ("FibMul-GL", 12):
+        "b952943b2ea26d13b0fd1dde1c10a624cb127ba30b4ed04b3e42b9f68e89e512"}
 # SHA-256 of each prove's transcript (its messages concatenated): the
 # fib-sq ones are those of the port before the multi-column machinery
 # (commit 1ea9dbe), which the proves must keep byte for byte; the others
-# pin the MiMC³ / FibMul transcripts of the port that added them
+# pin the MiMC³ / FibMul and Goldilocks transcripts of the port that added
+# them (the Goldilocks ones beside GL_ANCHORS, which tie them to the JAX
+# package at 2^8 and 2^12 rows)
 TRANSCRIPT_SHA256 = {
     "2^20": "c6eccf09e57fe3ac5b23b41b67a0415d88edec9305b7f59804eac2940e37c2b8",
     "2^24": "d513cf301e6e8c7e2d25c012b971a8f0d84944015ad71f73b9e7a3d3668f7367",
@@ -97,12 +133,17 @@ TRANSCRIPT_SHA256 = {
     "FibMul 2^20":
         "397713f4c901e5f2b914d89eb22b400113dfa0c3c3b236c57a685576957ae9a6",
     "FibMul 2^24":
-        "c7940dca9a4643a69c4ebe524db4b17f13e54653a6e681c23c3e427573457cb7"}
+        "c7940dca9a4643a69c4ebe524db4b17f13e54653a6e681c23c3e427573457cb7",
+    "GL 2^20":
+        "1457c7cb962b4dea89e0493cdf81b382b4b0a07d9fdd9663e457f48ba33aef7e",
+    "FibMul-GL 2^20":
+        "5f29c58dad47b69912921082679883e05b119e97aa50be84c03481dd2b21f1b0"}
 # the prove whose launch counts fill each row of the kernels line (rows
 # not named here: the 2^24 Fibonacci-square prove)
 ROW_PATH = {"K1": "2^20", "K1 batched": "FibMul 2^20",
             "K2 batched": "FibMul 2^24", "K3 row form": "FibMul 2^24",
-            "K5 row messages": "FibMul 2^24"}
+            "K5 row messages": "FibMul 2^24", "K3 wide": "GL 2^20",
+            "K3 wide row form": "FibMul-GL 2^20"}
 PATH = "2^24"
 # the NTT shapes timed: each path's trace INTT (inverse) and LDE (forward);
 # the LDE's time fills the route's row of the kernels line
@@ -117,10 +158,20 @@ NTT_COLS = 2
 NTT_BATCHED_REDUCED = ((8, 13), (8, 16))
 # K3's row form: every column count at 2^20 rows, FibMul's 2^26-row tree
 ROW_LEAVES_LOG, ROW_LEAVES_TIME = 20, (2, 26)
-# K5's query form on row messages: the FibMul 2^24 prove's plan (C = 2)
-# and a 6-column plan at 2^20 rows (one full hex block before the tail)
+# K5's query form on row messages: the FibMul 2^24 prove's plan (C = 2,
+# in the kernels line), a 6-column plan at 2^20 rows (one full hex block
+# before the tail) and the FibMul-GL 2^20 prove's plan (two value slots a
+# 64-bit value): (prove, columns or None for the prove's own)
 QUERY_ROW_PLANS = {"FibMul 2^24 plan (C = 2)": ("FibMul 2^24", None),
-                   "6-column 2^20 plan": ("FibMul 2^20", 6)}
+                   "6-column 2^20 plan": ("FibMul 2^20", 6),
+                   "FibMul-GL 2^20 plan (C = 2, 64-bit values)":
+                       ("FibMul-GL 2^20", None)}
+QUERY_ROW_PLAN_IN_ROW = "FibMul 2^24 plan (C = 2)"
+# K3's 64-bit mode: one column at the Goldilocks 2^20 paths' 2^22 leaves
+# (in the kernels line) and at 2^26; the row form at every column count
+# over 2^20 rows and FibMul-GL's two columns over 2^22 rows (in the line)
+WIDE_LEAVES_LOGS = (22, 26)
+WIDE_ROW_LOG, WIDE_ROW_TIME = 20, (2, 22)
 
 # the bound's rates: HBM3 of the H100 SXM (its datasheet's rate) and a
 # 32-bit integer peak derived as SMs x 128 x max SM clock: each SM's four
@@ -528,6 +579,59 @@ def phase_tree(res: Results, dev) -> None:
              res.card.bound((4 * c + 32) << log, SHA_OPS << log))
 
 
+def phase_tree_wide(res: Results, dev) -> None:
+    """K3's 64-bit mode (Goldilocks limb planes): one column at 2^22 and
+    2^26 leaves, the row form at C = 1..6 over 2^20 rows and C = 2 over
+    2^22 rows, each exact against its plain version (in 2^22-leaf slices)
+    and timed.  The words are any 32-bit values: the kernel hashes
+    hi || lo whatever they are."""
+    from stark_tpu_torch.hash.cuda_sha import sha_leaves, sha_row_leaves
+    from stark_tpu_torch.hash.sha256 import (sha256_row_leaves,
+                                             sha256_u64_leaves)
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 3)
+    sl = 1 << TREE_LOG
+    for log in WIDE_LEAVES_LOGS:
+        n = 1 << log
+        vals = rand_words_dev(gen, (2, n), dev)
+
+        def plain():
+            return torch.cat([sha256_u64_leaves(vals[:, k:k + sl], wide=True)
+                              for k in range(0, n, sl)])
+
+        what = f"leaves (2, 2^{log})"
+        res.check("K3 wide", f"{what} (plain in 2^{TREE_LOG} slices)",
+                  sha_leaves(vals, wide=True), plain())
+        # each limb pair read once (8 bytes), each digest written once
+        got = res.time("K3 wide", what, lambda: sha_leaves(vals, wide=True),
+                       plain, res.card.bound(40 * n, SHA_OPS * n),
+                       row=log == WIDE_LEAVES_LOGS[0], other=True,
+                       plain_reps=REPS if log == TREE_LOG else 1)
+        # the kernel's own device time, without the wrapper's host work
+        got["device_ms"] = kernel_device_ms(
+            lambda: sha_leaves(vals, wide=True), r"sha_leaves<1, true>")
+        log(f"K3 wide {what}: device ms {json.dumps(got['device_ms'])}")
+        del vals
+    for c in range(1, 7):
+        cols = rand_words_dev(gen, (c, 2, 1 << WIDE_ROW_LOG), dev)
+        res.check("K3 wide row form",
+                  f"row leaves C={c} (C, 2, 2^{WIDE_ROW_LOG})",
+                  sha_row_leaves(cols, wide=True),
+                  sha256_row_leaves(cols, wide=True))
+    c, log = WIDE_ROW_TIME
+    cols = rand_words_dev(gen, (c, 2, 1 << log), dev)
+    what = f"row leaves C={c} ({c}, 2, 2^{log})"
+    res.check("K3 wide row form", what, sha_row_leaves(cols, wide=True),
+              sha256_row_leaves(cols, wide=True))
+    res.time("K3 wide row form", what,
+             lambda: sha_row_leaves(cols, wide=True),
+             lambda: sha256_row_leaves(cols, wide=True),
+             res.card.bound((8 * c + 32) << log, SHA_OPS << log))
+    del cols
+    torch.cuda.empty_cache()
+
+
 def phase_latency(card: Card, dev) -> None:
     """The dependent-issue latency of 32-bit integer operations on this
     card (a clock64 loop over dependent SHF / LOP3 / add chains), and
@@ -683,8 +787,8 @@ def phase_chain(res: Results, dev) -> None:
             "K5 row messages", f"query form, {what}, {tb.num_queries} "
             f"queries ({blocks} blocks)", lambda: query_chain(*args, tb),
             lambda: query_chain_plain(*args, tb),
-            res.card.chain_bound(blocks), row=cols is None, other=True,
-            plain_reps=1)
+            res.card.chain_bound(blocks), row=what == QUERY_ROW_PLAN_IN_ROW,
+            other=True, plain_reps=1)
         log(f"K5 query form, {what}: "
             f"{res.card.chain_bounds_text(blocks, got['ms'])}")
         del args, got, want
@@ -708,6 +812,8 @@ def phase_golden() -> None:
                       MimcAIR(x0=271828, k=777)),
         "fibmul_2e5": (ProverConfig(log2_trace=5, blowup=4, num_queries=3),
                        FibMulAIR(a0=1, b0=2718281)),
+        "fibmul_gl_2e5": (ProverConfig(log2_trace=5, blowup=4, num_queries=3,
+                                       **_GL), FibMulAIR(**_FIBMUL)),
     }
     for name, (cfg, arg) in cases.items():
         # no device: the card by default
@@ -735,6 +841,8 @@ def counters() -> dict:
             "K2 batched": ((ntt_k2, "column_launches"),),
             "K3": ((sha_leaves, "launches"),),
             "K3 row form": ((sha_row_leaves, "launches"),),
+            "K3 wide": ((sha_leaves, "wide_launches"),),
+            "K3 wide row form": ((sha_row_leaves, "wide_launches"),),
             "K4": ((sha_nodes, "launches"),),
             "K5": ((sha_chain, "launches"), (query_chain, "launches")),
             "K5 row messages": ((query_chain, "launches"),)}
@@ -777,15 +885,12 @@ def drop_plans() -> None:
     torch.cuda.empty_cache()
 
 
-def phase_prove(res: Results, dev, name: str) -> None:
-    """Prove the `name` configuration twice (cold, warm): deterministic,
-    verified, tamper-rejected, with its kernels launched."""
-    from stark_tpu_torch.ntt import cuda_ntt
-    from stark_tpu_torch.stark import (FibonacciSquareAIR, StarkProof,
-                                       StarkVerificationError, prove, verify)
+def timed_proves(cfg, air, dev):
+    """A cold prove (plans and contexts dropped) and a warm one: (cold,
+    warm, cold seconds, warm seconds, the cold prove's peak device bytes,
+    bytes allocated before it, its launches)."""
+    from stark_tpu_torch.stark import prove
 
-    cfg, air = prove_setup(name)
-    air_used = air or FibonacciSquareAIR()
     drop_plans()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -801,20 +906,18 @@ def phase_prove(res: Results, dev, name: str) -> None:
     warm = prove(cfg, air=air, device=dev)
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
-    log(f"prove {name} ({air_used.name}, {PROVES[name][0]}): cold "
-        f"{cold_s:.3f} s, warm {warm_s:.3f} s, peak device memory "
-        f"{peak / 2**20:.1f} MiB ({base / 2**20:.1f} MiB allocated before "
-        f"it), {len(cold.proof)} messages, {cold.size_bytes()} bytes, "
-        f"publics {cold.publics}")
-    log(f"launches during the cold {name} prove: {launches}")
     if cold.proof != warm.proof:
-        raise AssertionError(f"{name} prove is not deterministic")
-    digest = hashlib.sha256(b"".join(cold.proof)).hexdigest()
-    if digest != TRANSCRIPT_SHA256[name]:
-        raise AssertionError(f"{name} transcript sha256 {digest} differs "
-                             f"from the pinned {TRANSCRIPT_SHA256[name]}")
-    log(f"{name} transcript sha256 {digest}: as pinned")
-    blob = cold.serialize()
+        raise AssertionError(f"{cfg} prove is not deterministic")
+    return cold, warm, cold_s, warm_s, peak, base, launches
+
+
+def check_verifies(name: str, cfg, proof) -> None:
+    """The host verifier accepts the proof and rejects it with one byte
+    of its middle message flipped."""
+    from stark_tpu_torch.stark import (StarkProof, StarkVerificationError,
+                                       verify)
+
+    blob = proof.serialize()
     if not verify(StarkProof.deserialize(blob), expected_config=cfg):
         raise AssertionError(f"verifier rejected the {name} proof")
     tampered = StarkProof.deserialize(blob)
@@ -828,18 +931,51 @@ def phase_prove(res: Results, dev, name: str) -> None:
         log(f"tampered {name} proof (message {k}) rejected: {str(e)[:80]}")
     else:
         raise AssertionError("verifier accepted a tampered proof")
+
+
+def phase_prove(res: Results, dev, name: str) -> dict:
+    """Prove the `name` configuration twice (cold, warm): deterministic,
+    verified, tamper-rejected, with its kernels launched.  Returns its
+    walls and peak memory."""
+    from stark_tpu_torch.fields.fp import Fp
+    from stark_tpu_torch.ntt import cuda_ntt
+    from stark_tpu_torch.stark import FibonacciSquareAIR
+
+    cfg, air = prove_setup(name)
+    air_used = air or FibonacciSquareAIR()
+    cold, _, cold_s, warm_s, peak, base, launches = timed_proves(cfg, air,
+                                                                 dev)
+    log(f"prove {name} ({air_used.name}, {PROVES[name][0]}): cold "
+        f"{cold_s:.3f} s, warm {warm_s:.3f} s, peak device memory "
+        f"{peak / 2**20:.1f} MiB ({base / 2**20:.1f} MiB allocated before "
+        f"it), {len(cold.proof)} messages, {cold.size_bytes()} bytes, "
+        f"publics {cold.publics}")
+    log(f"launches during the cold {name} prove: {launches}")
+    digest = hashlib.sha256(b"".join(cold.proof)).hexdigest()
+    if digest != TRANSCRIPT_SHA256[name]:
+        raise AssertionError(f"{name} transcript sha256 {digest} differs "
+                             f"from the pinned {TRANSCRIPT_SHA256[name]}")
+    log(f"{name} transcript sha256 {digest}: as pinned")
+    check_verifies(name, cfg, cold)
     log(f"{name} proof deterministic and accepted by the host verifier")
-    # one NTT wrapper call a transform (trace INTT, LDE) whatever the
-    # column count: K1 up to 2^MAX_LOG_N (the 2^20 paths), K2 above; K3
-    # once per tree (the trace tree and one a FRI layer), its row form for
-    # a multi-column trace; K4; K5's query form once
+    # u32 fields: one NTT wrapper call a transform (trace INTT, LDE)
+    # whatever the column count, K1 up to 2^MAX_LOG_N (the 2^20 paths),
+    # K2 above; Goldilocks: no NTT kernel (torch ops).  K3 once per tree
+    # (the trace tree and one a FRI layer) in the field's mode, its row
+    # form for a multi-column trace; K4; K5's query form once
     cols = air_used.num_columns
-    k1 = sum(n <= 1 << cuda_ntt.MAX_LOG_N
-             for n in (cfg.trace_domain_size, cfg.eval_domain_size))
+    wide = Fp.get(cfg.modulus).width == 2
+    k1 = 0 if wide else sum(n <= 1 << cuda_ntt.MAX_LOG_N
+                            for n in (cfg.trace_domain_size,
+                                      cfg.eval_domain_size))
+    k2 = 0 if wide else 2 - k1
     trees = air_used.num_folds(cfg) + 2
-    want = {"K1": k1, "K2": 2 - k1,
-            "K1 batched": k1 * (cols > 1), "K2 batched": (2 - k1) * (cols > 1),
-            "K3": trees - (cols > 1), "K3 row form": int(cols > 1),
+    k3 = (trees - (cols > 1), int(cols > 1))  # (one column, row form)
+    u32_k3, wide_k3 = ((0, 0), k3) if wide else (k3, (0, 0))
+    want = {"K1": k1, "K2": k2,
+            "K1 batched": k1 * (cols > 1), "K2 batched": k2 * (cols > 1),
+            "K3": u32_k3[0], "K3 row form": u32_k3[1],
+            "K3 wide": wide_k3[0], "K3 wide row form": wide_k3[1],
             "K5 row messages": 1}
     for k, n in want.items():
         if launches[k] != n:
@@ -853,23 +989,76 @@ def phase_prove(res: Results, dev, name: str) -> None:
         res.rows[k]["launches_by_prove"][name] = count
         if name == ROW_PATH.get(k, PATH):
             res.rows[k]["launches"] = count
+    return {"cold_s": round(cold_s, 3), "warm_s": round(warm_s, 3),
+            "peak_mib": round(peak / 2**20, 1)}
+
+
+def phase_gl_memory(dev, at_2e20: dict) -> None:
+    """FibMul-GL's cold and warm walls and the cold prove's peak device
+    memory at GL_MEMORY_LOGS rows and, from its prove above, 2^20: each
+    deterministic and verified."""
+    from stark_tpu_torch.config import ProverConfig
+    from stark_tpu_torch.stark import FibMulAIR
+
+    table = {}
+    for log2 in GL_MEMORY_LOGS:
+        cfg = ProverConfig(log2_trace=log2, blowup=4, num_queries=16, **_GL)
+        cold, _, cold_s, warm_s, peak, _, _ = timed_proves(
+            cfg, FibMulAIR(**_FIBMUL), dev)
+        check_verifies(f"FibMul-GL 2^{log2}", cfg, cold)
+        table[f"2^{log2}"] = {"cold_s": round(cold_s, 3),
+                              "warm_s": round(warm_s, 3),
+                              "peak_mib": round(peak / 2**20, 1)}
+    table["2^20"] = at_2e20
+    log(f"FibMul-GL memory table (blowup 4, 16 queries; cold prove's peak): "
+        f"{json.dumps(table)}")
+
+
+def phase_anchors(dev) -> None:
+    """The port's Goldilocks proves on the card against the transcript
+    digests the JAX package made on a CPU (GL_ANCHORS)."""
+    from stark_tpu_torch.config import ProverConfig
+    from stark_tpu_torch.stark import FibMulAIR, FibonacciSquareAIR, prove
+
+    airs = {"fib-sq-GL": FibonacciSquareAIR(a1=3141592),
+            "FibMul-GL": FibMulAIR(**_FIBMUL)}
+    for (statement, log2), want in GL_ANCHORS.items():
+        cfg = ProverConfig(log2_trace=log2, blowup=4, num_queries=16, **_GL)
+        got = hashlib.sha256(b"".join(
+            prove(cfg, air=airs[statement], device=dev).proof)).hexdigest()
+        if got != want:
+            raise AssertionError(f"{statement} 2^{log2}: transcript sha256 "
+                                 f"{got} != the JAX package's {want}")
+        log(f"anchor {statement} 2^{log2}: transcript sha256 {got}, equal "
+            "to the JAX package's")
+
+
+# the phase split's step that a warm prove skips (its context is cached)
+COLD_STEP = "AIR context build (cold: domain, inverses; not in a warm prove)"
 
 
 def phase_split(cfg, air, dev) -> dict:
     """One prove's steps as ``prove()`` runs them, with the wall of each
-    in ms (``torch.cuda.synchronize()`` after each step)."""
+    in ms (``torch.cuda.synchronize()`` after each step), then the cold
+    build of the AIR's context (COLD_STEP), which a warm prove takes from
+    its cache."""
     from stark_tpu_torch.channel.channel import Channel
     from stark_tpu_torch.channel.device_channel import DeviceFS, absorb_value
-    from stark_tpu_torch.fields.fp import upload_u32
+    from stark_tpu_torch.fields.fp import Fp, upload_u32
     from stark_tpu_torch.fri.commit import fri_commit
     from stark_tpu_torch.merkle.tree import MerkleTree
     from stark_tpu_torch.ntt import cuda_ntt
     from stark_tpu_torch.ntt.ntt import coset_evaluate
     from stark_tpu_torch.stark.air import FibonacciSquareAIR
-    from stark_tpu_torch.stark.prover import get_air_context, query_plan
+    from stark_tpu_torch.stark.prover import (final_words, get_air_context,
+                                              query_plan)
     from stark_tpu_torch.stark.trace import trace_polynomial
 
+    wide = Fp.get(cfg.modulus).width == 2
+
     def kernel(n):
+        if wide:
+            return "torch ops"
         return "K1" if n <= 1 << cuda_ntt.MAX_LOG_N else "K2"
 
     out = {}
@@ -893,29 +1082,32 @@ def phase_split(cfg, air, dev) -> dict:
     mark(f"trace INTT ({kernel(cfg.trace_domain_size)}) + correction")
     lde = coset_evaluate(coeffs, p, cfg.eval_domain_size, h)
     mark(f"scale-pad + LDE NTT ({kernel(cfg.eval_domain_size)})")
-    if lde.dim() == 2:
-        tree = MerkleTree.from_columns(lde)
-        mark("trace tree (K3 row form + K4)")
+    k3 = "K3 64-bit" if wide else "K3"
+    if air.num_columns > 1:
+        tree = MerkleTree.from_columns(lde, wide=wide)
+        mark(f"trace tree ({k3} row form + K4)")
     else:
-        tree = MerkleTree(lde)
-        mark("trace tree (K3+K4)")
+        tree = MerkleTree(lde, wide=wide)
+        mark(f"trace tree ({k3} + K4)")
     fs = DeviceFS(p, Channel(p).state, device=dev)
     fs.absorb_root(tree.root_digest)
     alphas = tuple(fs.draw() for _ in range(air.num_alphas))
     mark("FS absorb + draws (K5)")
     cp = get_air_context(air, cfg, dev).compose(
-        lde, alphas, air.publics_from_host(host))
+        lde, alphas, air.publics_from_host(cfg, host))
     mark("composition")
     fri = fri_commit(cp, p, h, fs, num_folds=len(plan.fri_lengths) - 1)
     mark("FRI commit")
     last = fri.fri_layers[-1]
-    fs.state = absorb_value(fs.state, torch.zeros_like(last[0]), last[0])
+    fs.state = absorb_value(fs.state, *final_words(last, wide))
     dev_out = plan.run_device(fs.state, lde, tree.buffer, fri.values,
                               fri.digests)
     mark("query phase (K5 query form)")
     torch.cat([x.reshape(-1).to(torch.int32)
                for x in (*fs.payloads(), last, *dev_out)]).cpu()
     mark("fetch")
+    air.context(cfg, dev)
+    mark(COLD_STEP)
     return out
 
 
@@ -944,8 +1136,9 @@ def phase_profile(dev, name: str) -> None:
     prove(cfg, air=air, device=dev)
     for _ in range(3):
         split = phase_split(cfg, air, dev)
+    warm_sum = sum(v for k, v in split.items() if k != COLD_STEP)
     log(f"{name} phase split ms (synced after each, third of 3 runs): "
-        f"{json.dumps(split)}; sum {sum(split.values()):.3f}")
+        f"{json.dumps(split)}; sum of the warm steps {warm_sum:.3f}")
     walls = []
     for _ in range(5):
         torch.cuda.synchronize()
@@ -985,7 +1178,8 @@ def phase_profile(dev, name: str) -> None:
     os.makedirs(out, exist_ok=True)
     # profile_prove_2e24.txt (Fibonacci-square), _fibmul_2e24.txt, ...
     fname = "profile_prove_" + "_".join(
-        ([air.name] if air else []) + [f"2e{cfg.log2_trace}"]) + ".txt"
+        ([air.name] if air else []) + ["gl"] * (cfg.modulus == GOLDILOCKS)
+        + [f"2e{cfg.log2_trace}"]) + ".txt"
     with open(os.path.join(out, fname), "w") as fh:
         fh.write(ka.table(sort_by="self_device_time_total", row_limit=60,
                           max_name_column_width=90))
@@ -1033,15 +1227,24 @@ def main() -> int:
              "sha256_row_leaves, stark_tpu/hash/sha256_jax.py:106"),
             ("K5 row messages", "stark_tpu_torch/csrc/sha_chain.cu",
              "stark_tpu/hash/pallas_chain.py:80 in the lax.scan of "
-             "stark_tpu/channel/device_query.py:314 with num_columns > 1")):
+             "stark_tpu/channel/device_query.py:314 with num_columns > 1"),
+            ("K3 wide", "stark_tpu_torch/csrc/sha256_tree.cu",
+             "stark_tpu/hash/pallas_sha.py:100 (wide=True, launched by "
+             "_leaf_call :145, pallas_call :167)"),
+            ("K3 wide row form", "stark_tpu_torch/csrc/sha256_tree.cu",
+             "stark_tpu/hash/pallas_sha.py:100 (64-bit mode) and the XLA "
+             "sha256_row_leaves(..., wide=True), "
+             "stark_tpu/hash/sha256_jax.py:106")):
         res.add(name, source, replaces)
     phase_latency(card, dev)
     phase_ntt(res, dev)
     phase_tree(res, dev)
+    phase_tree_wide(res, dev)
     phase_chain(res, dev)
     phase_golden()
-    for name in PROVES:
-        phase_prove(res, dev, name)
+    walls = {name: phase_prove(res, dev, name) for name in PROVES}
+    phase_gl_memory(dev, walls["FibMul-GL 2^20"])
+    phase_anchors(dev)
     if args.profile:
         for name in PROFILED:
             phase_profile(dev, name)

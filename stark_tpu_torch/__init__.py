@@ -2,7 +2,8 @@
 
 Same pipeline, same transcript bytes; the JAX package beside it stays the
 reference.  Field values live in ``torch.int32`` tensors holding uint32
-bits (``fields/fp.py``); the hot kernels are hand-written CUDA C++ for
+bits (``fields/fp.py``; a Goldilocks value is a (hi, lo) pair of limb
+planes, ``fields/fp64.py``); the hot kernels are hand-written CUDA C++ for
 Hopper (``csrc/``), each with a plain torch version beside it that runs
 on CPU tensors.  This package imports ``torch`` (plus numpy, hashlib and
 ctypes) and never ``jax`` or ``stark_tpu``.

@@ -34,7 +34,7 @@ _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
 _U64, _SZ = ctypes.c_uint64, ctypes.c_size_t
 SIGNATURES = {
     "ntt": {"stark_ntt": [_P] * 7 + [_I] * 5 + [_U] * 3 + [_P]},
-    "sha256_tree": {"stark_sha_leaves": [_P, _P, _I, _I, _P],
+    "sha256_tree": {"stark_sha_leaves": [_P, _P, _I, _I, _I, _P],
                     "stark_sha_nodes": [_P, _P, _I, _P]},
     "sha_chain": {"stark_sha_chain": [_P, _P, _P, _P, _I, _P],
                   "stark_query_chain": [_P] * 8 + [_I, _I, _I, _U, _I]

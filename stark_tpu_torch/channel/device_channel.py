@@ -25,7 +25,7 @@ import functools
 import numpy as np
 import torch
 
-from stark_tpu_torch.fields.fp import lift, store
+from stark_tpu_torch.fields.fp import Fp, lift, store
 from stark_tpu_torch.hash.cuda_chain import FIRST_HEX, FIRST_ROW, sha_chain
 
 
@@ -150,11 +150,37 @@ def mod_state(state: torch.Tensor, rng: int) -> torch.Tensor:
     return (bits * w).sum() % rng
 
 
+@functools.lru_cache(maxsize=None)
+def _word_weights(p: int, device: str) -> torch.Tensor:
+    """(2, 8) limb planes of 2^(32 (7 - w)) mod p, the weight of state
+    word w (word 0 the most significant)."""
+    return Fp.get(p).array([pow(2, 32 * (7 - w), p) for w in range(8)],
+                           device=torch.device(device))
+
+
+def state_mod(state: torch.Tensor, p: int) -> torch.Tensor:
+    """int(state_hex, 16) mod p as a canonical field element, width-generic
+    (the JAX ``state_mod``): an int64 0-dim tensor for p < 2^32, a (2,)
+    (hi, lo) pair for the Goldilocks field.  There the 8 words (each
+    below p) times their weights mod p are summed by field adds, the
+    value of JAX's Horner loop over the words."""
+    f = Fp.get(p)
+    if f.width == 1:
+        return mod_state(state, p)
+    words = lift(state)
+    acc = f.mul(torch.stack([torch.zeros_like(words), words]),
+                _word_weights(p, str(state.device)))
+    while acc.shape[-1] > 1:
+        h = acc.shape[-1] // 2
+        acc = f.add(acc[:, :h], acc[:, h:])
+    return acc[:, 0]
+
+
 def draw_field_element(state: torch.Tensor, p: int):
     """(value, new_state) of receive_random_field_element.  Quirk
     reproduced: the channel draws (state + min) % range with min = 0 and
     range = p, i.e. int(state_hex, 16) mod p (channel.rs:69-72)."""
-    return mod_state(state, p), advance(state)
+    return state_mod(state, p), advance(state)
 
 
 class DeviceFS:
@@ -167,6 +193,7 @@ class DeviceFS:
 
     def __init__(self, p: int, state_hex: str = "", *, device):
         self.p = p
+        self.width = Fp.get(p).width
         self.device = torch.device(device)
         if state_hex:
             words = np.frombuffer(bytes.fromhex(state_hex), dtype=">u4")
@@ -182,7 +209,8 @@ class DeviceFS:
         self.log.append(("root", digest))
 
     def draw(self) -> torch.Tensor:
-        """receive_random_field_element as a device int64 scalar."""
+        """receive_random_field_element as a device int64 scalar (a (2,)
+        limb pair for the Goldilocks field)."""
         if self.state is None:
             raise ValueError("draw before any absorb (empty channel state)")
         v, self.state = draw_field_element(self.state, self.p)
@@ -199,8 +227,9 @@ class DeviceFS:
 
     def replay_fetched(self, channel, fetched) -> None:
         """Replay the log into `channel` from fetched host values (one per
-        non-mark entry, in order: 8 words for a root, one for a draw),
-        asserting every device draw equals the host derivation."""
+        non-mark entry, in order: 8 words for a root, one for a draw, or
+        its (hi, lo) pair), asserting every device draw equals the host
+        derivation."""
         it = iter(fetched)
         for kind, payload in self.log:
             if kind == "mark":
@@ -210,7 +239,10 @@ class DeviceFS:
                 channel.send(words.astype(">u4").tobytes().hex().encode())
             else:
                 el = channel.receive_random_field_element()
-                dev_val = int(np.asarray(next(it)).reshape(-1)[0]) & 0xFFFFFFFF
+                words = np.asarray(next(it)).reshape(-1)[:self.width]
+                dev_val = 0
+                for w in words:
+                    dev_val = dev_val << 32 | (int(w) & 0xFFFFFFFF)
                 if el.value != dev_val:
                     raise RuntimeError(
                         "device Fiat-Shamir diverged from host transcript "

@@ -1,6 +1,6 @@
 """Device-resident query phase (counterpart of
-``stark_tpu/channel/device_query.py``; u32 field, 1..6 trace columns,
-unpruned power-of-two trees).
+``stark_tpu/channel/device_query.py``; a u32 or the Goldilocks field,
+1..6 trace columns, unpruned power-of-two trees).
 
 For each query, on the device and without a host sync:
 
@@ -17,8 +17,12 @@ opening of a C-column AIR is one row message of C values (8 big-endian
 bytes each, the leaf preimage of ``MerkleTree.from_columns``), 4C hex
 words that spill into a full block for C >= 4; FRI openings stay single
 values.  The stream's constant words and flags are built once per plan
-and packed, with one gather slot per opened value and digest, into
-:class:`QueryTables`; a slot names the stream word its hex starts at.  On
+and packed, with one gather slot per opened word and digest, into
+:class:`QueryTables`; a slot names the stream word its hex starts at.  A
+u32 value is one slot (its 8 hex chars after 8 hex zeros of the
+template); a Goldilocks value (``elem_width`` 2) is two, its hi word
+from the hi plane and its lo word from the lo plane, so the kernel is the
+same for both widths.  On
 a CUDA device the whole phase is ONE launch of K5's query form
 (``csrc/sha_chain.cu`` ``stark_query_chain``): per query the kernel
 draws idx, gathers through the slot table, writes the hex rows into its
@@ -58,14 +62,15 @@ HEX_ZEROS = 0x30303030  # "0000"
 MAX_COLUMNS = 6  # a row leaf's message is one SHA block (sha256_row_leaves)
 
 
-def value_rows(ncols: int) -> np.ndarray:
+def value_rows(ncols: int, elem_width: int = 1) -> np.ndarray:
     """The constant words of a value message's payload rows (the JAX
     package's ``_value_rows``): `ncols` 8-byte BE values are 16 hex chars
-    each, 8 zeros (the high word, 0 in a u32 field) then the value's 8,
-    written per query; then SHA padding.  4 * ncols hex words fill full
-    blocks first, and the 0, 4, 8 or 12 words left share the padded tail
-    block.  (rows, 16) int64."""
-    words = np.tile(np.array([HEX_ZEROS, HEX_ZEROS, 0, 0], np.int64), ncols)
+    each, written per query: a u32 value's 8 after 8 zeros (its high word
+    0), a Goldilocks value's 16 (both words); then SHA padding.  4 * ncols
+    hex words fill full blocks first, and the 0, 4, 8 or 12 words left
+    share the padded tail block.  (rows, 16) int64."""
+    zeros = HEX_ZEROS if elem_width == 1 else 0
+    words = np.tile(np.array([zeros, zeros, 0, 0], np.int64), ncols)
     tail = np.zeros(16 - len(words) % 16, np.int64)
     tail[0] = 0x80000000
     tail[-1] = (64 + 16 * ncols) * 8
@@ -80,11 +85,11 @@ class QueryTables:
     template: torch.Tensor  # (R, 16) int32 stream rows, constants in place
     flags: torch.Tensor  # (R, 2) int32 (first, last)
     slots: torch.Tensor  # (S, 8) int64 rows of SLOT_COLUMNS, values first
-    num_values: int
+    num_values: int  # value slots (words): 2 a Goldilocks value
     rng: int
     num_queries: int
-    # f_evals words (C x trace length), trace tree rows, FRI values
-    # length, FRI digest rows
+    # f_evals words (C x width x trace length), trace tree rows, FRI
+    # values words, FRI digest rows
     sizes: tuple
 
 
@@ -219,12 +224,16 @@ def _positions(t: dict, idx: torch.Tensor) -> torch.Tensor:
 class DeviceQueryPlan:
     """The whole query phase for one static configuration: draw range,
     query count, trace offsets, trace length (of each column), the FRI
-    length ladder (all powers of two) and the trace's column count."""
+    length ladder (all powers of two), the trace's column count and the
+    field's width in u32 words (1, or 2 for Goldilocks)."""
 
     def __init__(self, rng: int, num_queries: int, offsets: tuple,
-                 trace_len: int, fri_lengths: tuple, num_columns: int = 1):
+                 trace_len: int, fri_lengths: tuple, num_columns: int = 1,
+                 elem_width: int = 1):
         if rng <= 0 or rng >= 1 << 32:
             raise ValueError(f"draw range {rng} not in [1, 2^32)")
+        if elem_width not in (1, 2):
+            raise ValueError(f"elem_width must be 1 or 2, got {elem_width}")
         if not 1 <= num_columns <= MAX_COLUMNS:
             raise ValueError(
                 f"the device query phase takes 1..{MAX_COLUMNS} trace "
@@ -238,9 +247,10 @@ class DeviceQueryPlan:
         self.offsets = tuple(int(o) for o in offsets)
         self.trace_len = int(trace_len)
         self.num_columns = int(num_columns)
+        self.elem_width = int(elem_width)
         self.fri_lengths = tuple(int(x) for x in fri_lengths)
         self.script = build_script(len(self.offsets), self.fri_lengths)
-        self.fri_layout = layer_layout(self.fri_lengths)[0]
+        self.fri_layout = layer_layout(self.fri_lengths, elem_width)[0]
 
         # static stream template (constant words in place), flags, and the
         # gather slots in script order (trace ops come first in the
@@ -277,18 +287,24 @@ class DeviceQueryPlan:
             mask = 0 if src[0] == "fri_q" else ln - 1
             if op[0] == "value":
                 # a trace opening: one row message of every column's value
-                # (column c at c * trace_len of the (C, M) LDE); an FRI
-                # opening: one value
+                # (plane k of column c at (c * width + k) * trace_len of
+                # the (C, M) or (C, 2, M) LDE); an FRI opening: one value
+                # (plane k at its layer's offset + k * length).  A u32
+                # value's hex starts after the 8 hex zeros of its message
+                # words; a Goldilocks value's hi word at 4c, lo at 4c + 2
                 ncols = self.num_columns if src[0] == "trace_v" else 1
-                row = message(value_rows(ncols))
+                row = message(value_rows(ncols, self.elem_width))
                 val_rows.append(row)
+                wd = self.elem_width
                 for c in range(ncols):
-                    word = 16 * row + 4 * c + 2  # after the 8 hex zeros
-                    if src[0] == "trace_v":
-                        tv.add(word, c * self.trace_len, add, mask, xr)
-                    else:
-                        fv.add(word, self.fri_layout[src[1]][1], add, mask,
-                               xr)
+                    for k in range(wd):
+                        word = 16 * row + 4 * c + 2 * (k + 2 - wd)
+                        if src[0] == "trace_v":
+                            tv.add(word, (c * wd + k) * self.trace_len, add,
+                                   mask, xr)
+                        else:
+                            fv.add(word, self.fri_layout[src[1]][1] + k * ln,
+                                   add, mask, xr)
                 continue
             h = _log2(ln)
             row = message(np.zeros((h, 16), np.int64), pad_row(64 + 64 * h))
@@ -318,7 +334,7 @@ class DeviceQueryPlan:
             slots = [(src, *cols)
                      for src, sl in enumerate(self._slots)
                      for cols in zip(*sl.cols.values())]
-            _, vt, dt = layer_layout(self.fri_lengths)
+            _, vt, dt = layer_layout(self.fri_lengths, self.elem_width)
             self._packed[key] = QueryTables(
                 template=torch.from_numpy(self._template.astype(
                     np.uint32).view(np.int32)).to(device),
@@ -327,7 +343,7 @@ class DeviceQueryPlan:
                 num_values=len(self._slots[0].cols["word"])
                 + len(self._slots[1].cols["word"]),
                 rng=self.rng, num_queries=self.num_queries,
-                sizes=(self.num_columns * self.trace_len,
+                sizes=(self.num_columns * self.elem_width * self.trace_len,
                        2 * self.trace_len - 1, vt, dt))
         return self._packed[key]
 
@@ -341,12 +357,13 @@ class DeviceQueryPlan:
                    fri_digests):
         """The query phase on the device, no fetch: one launch of K5's
         query form on a CUDA device.  `state`: (8,) int32 Fiat-Shamir
-        state; `f_evals`: the (M,) or (C, M) trace LDE; `trace_digests` /
+        state; `f_evals`: the (M,) or (C, M) trace LDE ((2, M) or
+        (C, 2, M) limb planes for Goldilocks); `trace_digests` /
         `fri_digests`: tree buffers in the layout of ``merkle/tree.py`` /
         ``fri/commit.py``; `fri_values`: every FRI layer concatenated.
         Returns (final_state (8,), idxs (Q,) int64, vals (Q, Nv), digs
         (Q, Nd, 8)) in script order, a trace opening's C values
-        together."""
+        together, a Goldilocks value as its (hi, lo) words."""
         return query_chain(state, f_evals.reshape(-1), trace_digests,
                            fri_values, fri_digests, self.pack(state.device))
 
@@ -363,12 +380,16 @@ class DeviceQueryPlan:
             vi = di = 0
             for op in self.script:
                 if op[0] == "value":
-                    k = self.num_columns if op[1][0] == "trace_v" else 1
+                    k = (self.num_columns if op[1][0] == "trace_v"
+                         else 1) * self.elem_width
                     row = np.asarray(vals_h[q][vi:vi + k], dtype=np.int64)
                     vi += k
-                    # each value as 8 BE bytes: a zero high word, the value
-                    words = np.stack([np.zeros_like(row), row & 0xFFFFFFFF],
-                                     axis=1)
+                    # each value as 8 BE bytes: its (hi, lo) words, the
+                    # high word 0 in a u32 field
+                    words = row.reshape(-1, self.elem_width) & 0xFFFFFFFF
+                    if self.elem_width == 1:
+                        words = np.concatenate([np.zeros_like(words), words],
+                                               axis=1)
                     channel.send(words.astype(">u4").tobytes())
                 elif op[0] == "path":
                     src = op[1]
@@ -387,10 +408,12 @@ class DeviceQueryPlan:
 
 
 def supported(rng: int, trace_len: int, fri_lengths,
-              num_columns: int = 1) -> bool:
+              num_columns: int = 1, elem_width: int = 1) -> bool:
     """Whether this plan handles the configuration (power-of-two sizes,
-    draw range below 2^32, 1..6 trace columns)."""
-    if not 0 < rng < 1 << 32 or not 1 <= num_columns <= MAX_COLUMNS:
+    draw range below 2^32, 1..6 trace columns, a field of 1 or 2 u32
+    words)."""
+    if (not 0 < rng < 1 << 32 or not 1 <= num_columns <= MAX_COLUMNS
+            or elem_width not in (1, 2)):
         return False
     sizes = list(fri_lengths) + [trace_len]
     return all(s > 0 and not (s & (s - 1)) for s in sizes)

@@ -1,12 +1,13 @@
 // K3 (leaves) and K4 (nodes): the batched SHA-256 of a Merkle tree build.
 //
 // Replaces the TPU kernels stark_tpu/hash/pallas_sha.py _make_leaf_kernel
-// in its u32 mode (driven by _leaf_call / _leaf_jit; its 64-bit `wide`
-// mode waits for the Goldilocks field), the XLA sha256_row_leaves of the
-// multi-column trees (hash/sha256_jax.py:106), and _make_node_kernel
-// (driven by _node_call_halves and _node_call, orchestrated by
-// build_tree_bitrev); the bit-reversed plane layout, the lane transposes
-// and the XLA tail scan below 1024 nodes are not carried over.
+// in both its modes (driven by _leaf_call / _leaf_jit: the u32 mode, and
+// the 64-bit `wide` mode of the Goldilocks field, whose leaf hashes the
+// limb pair hi || lo), the XLA sha256_row_leaves of the multi-column trees
+// (hash/sha256_jax.py:106, both widths), and _make_node_kernel (driven by
+// _node_call_halves and _node_call, orchestrated by build_tree_bitrev);
+// the bit-reversed plane layout, the lane transposes and the XLA tail scan
+// below 1024 nodes are not carried over.
 //
 // Layout: a tree is one (2n-1, 8) buffer of digest rows in natural node
 // order, level after level; the children of parent j are rows 2j and 2j+1
@@ -15,12 +16,13 @@
 //
 // What bounds it on an H100: 32-bit integer work (one compression per
 // leaf, two per node, ~2k simple ops each), with device-memory traffic
-// small beside it (4C bytes in and 32 out per leaf of C columns, 64 in
-// and 32 out per node).  Design: one thread per hash with the whole
-// message schedule and working state in registers (64 rounds unrolled,
-// rotates as funnel shifts); the constant words of the leaf preimage and
-// of the node's padding block fold into immediates.  Nodes run for every
-// level down to the root, so no level takes another path.
+// small beside it (4C bytes in and 32 out per leaf of C u32 columns, 8C in
+// the 64-bit mode; 64 in and 32 out per node).  Design: one thread per
+// hash with the whole message schedule and working state in registers (64
+// rounds unrolled, rotates as funnel shifts); the constant words of the
+// leaf preimage and of the node's padding block fold into immediates.
+// Nodes run for every level down to the root, so no level takes another
+// path.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -31,15 +33,18 @@ namespace {
 
 constexpr int kThreads = 256;
 
-// Leaf i = SHA-256 of row i of the (C, n) column-major values: each
-// column's value as 8 big-endian bytes (high word 0), C = 1..6, so the
-// message (8C bytes, then 0x80 and the 64-bit length) is one block.  C = 1
-// is the reference's Sha256::hash(value.to_be_bytes()) of a one-column
-// tree; C > 1 is the row form (stark_tpu/hash/sha256_jax.py
-// sha256_row_leaves, the leaves of MerkleTree.from_columns).  C is a
-// template parameter, so the message words, the padding word and the bit
-// length 64C are immediates and C = 1 compiles to the one-column kernel.
-template <int C>
+// Leaf i = SHA-256 of row i of the column-major values: each column's
+// value as 8 big-endian bytes, C = 1..6, so the message (8C bytes, then
+// 0x80 and the 64-bit length) is one block.  The u32 mode (WIDE false)
+// reads (C, n) words, each value's high word 0; the 64-bit mode reads the
+// (C, 2, n) limb planes of the Goldilocks field, word 2c from the hi plane
+// and 2c + 1 from the lo plane (stark_tpu/hash/pallas_sha.py:107-115 for
+// C = 1, sha256_row_leaves(..., wide=True) for C > 1).  C = 1 is the
+// reference's Sha256::hash(value.to_be_bytes()) of a one-column tree; C > 1
+// is the row form (the leaves of MerkleTree.from_columns).  C and WIDE are
+// template parameters, so the message words, the padding word and the bit
+// length 64C are immediates, the u32 mode's zero high words included.
+template <int C, bool WIDE>
 __global__ void __launch_bounds__(kThreads)
 sha_leaves(const uint32_t* __restrict__ values, uint4* __restrict__ out,
            int n) {
@@ -50,7 +55,14 @@ sha_leaves(const uint32_t* __restrict__ values, uint4* __restrict__ out,
 #pragma unroll
   for (int k = 0; k < 16; ++k) w[k] = 0u;
 #pragma unroll
-  for (int c = 0; c < C; ++c) w[2 * c + 1] = values[(size_t)c * n + i];
+  for (int c = 0; c < C; ++c) {
+    if constexpr (WIDE) {
+      w[2 * c] = values[(size_t)(2 * c) * n + i];
+      w[2 * c + 1] = values[(size_t)(2 * c + 1) * n + i];
+    } else {
+      w[2 * c + 1] = values[(size_t)c * n + i];
+    }
+  }
   w[2 * C] = 0x80000000u;
   w[15] = 64u * C;
   uint32_t st[8];
@@ -87,18 +99,21 @@ sha_nodes(const uint4* __restrict__ children, uint4* __restrict__ out,
 }  // namespace
 
 // values: (cols, n) words, column-major rows of a trace (cols = 1: n
-// values); out: (n, 8) digest rows (16-byte aligned).
+// values), or with `wide` the (cols, 2, n) limb planes of 64-bit values;
+// out: (n, 8) digest rows (16-byte aligned).
 extern "C" int stark_sha_leaves(const void* values, void* out, int n,
-                                int cols, void* stream) {
+                                int cols, int wide, void* stream) {
   using Leaves = void (*)(const uint32_t*, uint4*, int);
-  static const Leaves kLeaves[6] = {sha_leaves<1>, sha_leaves<2>,
-                                    sha_leaves<3>, sha_leaves<4>,
-                                    sha_leaves<5>, sha_leaves<6>};
+  static const Leaves kLeaves[2][6] = {
+      {sha_leaves<1, false>, sha_leaves<2, false>, sha_leaves<3, false>,
+       sha_leaves<4, false>, sha_leaves<5, false>, sha_leaves<6, false>},
+      {sha_leaves<1, true>, sha_leaves<2, true>, sha_leaves<3, true>,
+       sha_leaves<4, true>, sha_leaves<5, true>, sha_leaves<6, true>}};
   if (cols < 1 || cols > 6 || n < 0) return (int)cudaErrorInvalidValue;
   if (n > 0)
-    kLeaves[cols - 1]<<<(n + kThreads - 1) / kThreads, kThreads, 0,
-                        (cudaStream_t)stream>>>((const uint32_t*)values,
-                                                (uint4*)out, n);
+    kLeaves[wide != 0][cols - 1]<<<(n + kThreads - 1) / kThreads, kThreads,
+                                   0, (cudaStream_t)stream>>>(
+        (const uint32_t*)values, (uint4*)out, n);
   return (int)cudaGetLastError();
 }
 

@@ -301,10 +301,12 @@ __global__ void __launch_bounds__(kThreads, 1)
 // slot table columns (int64): source, base, add, mask, xr, shift, flip,
 // stream word; position = base + ((((idx + add) & mask) ^ xr) >> shift)
 // ^ flip into the source's buffer, and the slot's hex is written from word
-// `word` of the query's (nrows, 16) stream: the 2 hex words of a value's
-// low word (a row message of C values has its slots at words 4c + 2 of its
-// payload, column c at base c * M of the (C, M) trace LDE), the 16 of a
-// digest
+// `word` of the query's (nrows, 16) stream: the 2 hex words of one 32-bit
+// word of a value (a u32 value is one slot, at word 4c + 2 of its row
+// message's payload after 8 hex zeros of the template, column c at base
+// c * M of the (C, M) trace LDE; a Goldilocks value is two, its hi word at
+// 4c from the hi plane and its lo word at 4c + 2 from the lo plane), the 16
+// of a digest
 enum Source { kTraceValue = 0, kFriValue = 1, kTraceDigest = 2,
               kFriDigest = 3 };
 
@@ -363,8 +365,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       uint32_t* dst = words + t[7];
       if (t[0] == kTraceValue || t[0] == kFriValue) {
         const uint32_t v = (t[0] == kTraceValue ? f_evals : fri_values)[pos];
-        // the 8-byte big-endian value: 8 hex zeros (in the template),
-        // then the 8 hex chars of v
+        // 8 hex chars of the value's word: after 8 hex zeros of the
+        // template for a u32 value, or one half of a 64-bit value
         hex_words(v, dst);
         vals[static_cast<size_t>(q) * nvalues + s] = v;
       } else {

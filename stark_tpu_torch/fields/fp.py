@@ -18,7 +18,9 @@ Products never overflow int64: Montgomery REDC follows ``_mulhilo32``'s
 ``mul`` splits one operand into 16-bit halves.  Every output is a
 canonical field value, so results are bit-identical to the JAX package.
 
-Width 1 only (2 < p < 2^32); Goldilocks waits for ROADMAP Queue 1 item 12.
+Width 1 (2 < p < 2^32) here; :meth:`Fp.get` dispatches the Goldilocks
+prime 2^64 - 2^32 + 1 to the width-2 context of ``fields/fp64.py`` and
+refuses every other modulus >= 2^32, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -67,12 +69,16 @@ def _mullo32(a, c: int):
 
 
 @functools.lru_cache(maxsize=None)
-def _get(modulus: int) -> "Fp":
+def _get(modulus: int):
     p = int(modulus)
     if p >= 1 << 32:
-        raise NotImplementedError(
-            f"modulus {p} >= 2^32: the port is width 1 only; 64-bit fields "
-            "(Goldilocks) wait for ROADMAP Queue 1 item 12")
+        from stark_tpu_torch.fields.fp64 import GOLDILOCKS, Fp64Goldilocks
+
+        if p == GOLDILOCKS:
+            return Fp64Goldilocks(p)
+        raise ValueError(
+            f"no device path for modulus {p} >= 2^32 (only the Goldilocks "
+            "prime 2^64 - 2^32 + 1 is supported above 32 bits)")
     return Fp(p)
 
 
@@ -87,12 +93,27 @@ class Fp:
         if p <= 2 or p % 2 == 0:
             raise ValueError(f"Fp requires an odd modulus > 2, got {p}")
         if p >= 1 << 32:
-            raise NotImplementedError(
-                f"modulus {p} >= 2^32: see ROADMAP Queue 1 item 12")
+            raise ValueError(f"Fp is the width-1 context (p < 2^32), got "
+                             f"{p}; Fp.get dispatches Goldilocks")
         self.p = p
         self.ninv = (-pow(p, -1, 1 << 32)) % (1 << 32)  # -p^-1 mod 2^32
         self.r = (1 << 32) % p  # mont(1)
         self.r2 = self.r * self.r % p
+
+    # -- layout (width-generic callers) -------------------------------------
+    def const(self, value: int, device=None) -> torch.Tensor:
+        """A canonical constant as a 0-dim int64 tensor."""
+        return torch.tensor(int(value) % self.p, device=device)
+
+    @staticmethod
+    def arith(x: torch.Tensor) -> torch.Tensor:
+        """Storage -> the layout the ops take (the same, width 1)."""
+        return x
+
+    @staticmethod
+    def storage(y: torch.Tensor) -> torch.Tensor:
+        """An op's int64 result -> int32 storage."""
+        return store(y)
 
     # -- canonical-domain ops (inputs int32 or int64; output int64) -------
     def add(self, a, b):
@@ -208,3 +229,25 @@ def upload_u32(arr, device) -> torch.Tensor:
     """numpy uint32 -> int32 storage tensor on `device`."""
     return torch.from_numpy(
         np.ascontiguousarray(arr, dtype=np.uint32).view(np.int32)).to(device)
+
+
+def host_words(values, width: int) -> np.ndarray:
+    """Field values (numpy uint64, the trace axis last) -> numpy uint32 in
+    the storage layout of a field of `width` limbs: the same shape for
+    width 1; for width 2 the (hi, lo) limb planes right before the trace
+    axis, (n,) -> (2, n) and (C, n) -> (C, 2, n) (the JAX layout,
+    ``stark_tpu/stark/trace.py``).  :func:`upload_u32` uploads either."""
+    v = np.asarray(values, dtype=np.uint64)
+    if width == 1:
+        return v.astype(np.uint32)
+    return np.stack([(v >> np.uint64(32)).astype(np.uint32),
+                     (v & np.uint64(MASK32)).astype(np.uint32)], axis=-2)
+
+
+def host_values(words, width: int) -> np.ndarray:
+    """The inverse of :func:`host_words`: storage words -> numpy uint64
+    field values, the trace axis last."""
+    w = np.asarray(words).astype(np.uint32).astype(np.uint64)
+    if width == 1:
+        return w
+    return (w[..., 0, :] << np.uint64(32)) | w[..., 1, :]

@@ -13,7 +13,9 @@ fetch.
 Storage: all layers' values live in one int32 buffer and all layers'
 trees in one (rows, 8) digest buffer, each at static offsets, so the
 query phase gathers every FRI opening of a query with one index
-operation per buffer.
+operation per buffer.  A Goldilocks layer of m values holds 2m words,
+its hi plane then its lo plane, and its tree hashes the limb pairs
+(K3's 64-bit mode).
 """
 
 from __future__ import annotations
@@ -24,22 +26,22 @@ import functools
 import torch
 
 from stark_tpu_torch.channel.channel import Channel
-from stark_tpu_torch.fields.fp import Fp, store
+from stark_tpu_torch.fields.fp import Fp
 from stark_tpu_torch.merkle.tree import MerkleTree
 from stark_tpu_torch.ntt.reference_ntt import root_of_unity
 
 
 def _fold_fn(p: int, m: int):
     """The fold for layer size m: (evals[m], beta, inv_half_domain[m/2])
-    -> evals[m/2] (int64 values)."""
+    -> evals[m/2] (int64 values; limb planes for Goldilocks, whose halves
+    are cut along the last axis)."""
     f = Fp.get(p)
     inv2 = pow(2, p - 2, p)
 
     def fold(evals, beta, inv_dom):
-        v, s = evals[: m // 2], evals[m // 2:]
+        v, s = evals[..., : m // 2], evals[..., m // 2:]
         odd = f.mul(f.mul(f.sub(v, s), inv_dom), beta)
-        return f.mul(f.add(f.add(v, s), odd),
-                     torch.tensor(inv2, device=evals.device))
+        return f.mul(f.add(f.add(v, s), odd), f.const(inv2, evals.device))
 
     return fold
 
@@ -53,14 +55,14 @@ def _inv_domain(p: int, m: int, offset: int, device: str) -> torch.Tensor:
     return f.coset_domain(off_inv, w_inv, m // 2, torch.device(device))
 
 
-def layer_layout(lengths) -> tuple[list, int, int]:
-    """Static layout of the FRI buffers for layers of the given lengths:
-    per layer (length, value offset, digest-row offset), plus the two
-    buffer sizes (values, digest rows)."""
+def layer_layout(lengths, width: int = 1) -> tuple[list, int, int]:
+    """Static layout of the FRI buffers for layers of the given lengths
+    and field width: per layer (length, value offset, digest-row offset),
+    plus the two buffer sizes (values in words, digest rows)."""
     out, voff, doff = [], 0, 0
     for ln in lengths:
         out.append((ln, voff, doff))
-        voff += ln
+        voff += width * ln
         doff += 2 * ln - 1
     return out, voff, doff
 
@@ -81,8 +83,14 @@ class FRIProof:
 
 def finish_deferred(p: int, final_vals_host, channel: Channel) -> int:
     """Constant check + the final-value send, given the fetched last
-    layer."""
-    final_ints = [int(v) & 0xFFFFFFFF for v in final_vals_host]
+    layer's words (a Goldilocks layer: its hi plane, then its lo)."""
+    words = [int(v) & 0xFFFFFFFF for v in final_vals_host]
+    if Fp.get(p).width == 1:
+        final_ints = words
+    else:
+        half = len(words) // 2
+        final_ints = [h << 32 | l for h, l in zip(words[:half],
+                                                  words[half:])]
     final_value = final_ints[0]
     if any(v != final_value for v in final_ints):
         raise ValueError(
@@ -100,23 +108,27 @@ def fri_commit(evals: torch.Tensor, p: int, offset: int, fs,
     n = int(evals.shape[-1])
     if n & (n - 1):
         raise ValueError("FRI domain size must be a power of two")
+    f = Fp.get(p)
+    wide = f.width == 2
     if num_folds is None:
         num_folds = max(n.bit_length() - 4, 0)  # log2(n) - 3
     if num_folds >= n.bit_length():
         raise ValueError(f"cannot fold size {n} domain {num_folds} times")
     layout, vtotal, dtotal = layer_layout(
-        [n >> k for k in range(num_folds + 1)])
+        [n >> k for k in range(num_folds + 1)], f.width)
     dev = evals.device
     values = torch.empty(vtotal, dtype=torch.int32, device=dev)
     digests = torch.empty((dtotal, 8), dtype=torch.int32, device=dev)
 
     def layer(k):
         ln, voff, _ = layout[k]
-        return values[voff:voff + ln]
+        return values[voff:voff + f.width * ln].view(
+            (2, ln) if wide else (ln,))
 
     def tree(k):
-        ln, voff, doff = layout[k]
-        return MerkleTree(layer(k), out=digests[doff:doff + 2 * ln - 1])
+        ln, _, doff = layout[k]
+        return MerkleTree(layer(k), out=digests[doff:doff + 2 * ln - 1],
+                          wide=wide)
 
     layer(0).copy_(evals)
     offset = int(offset) % p
@@ -128,7 +140,7 @@ def fri_commit(evals: torch.Tensor, p: int, offset: int, fs,
         beta = fs.draw()  # device scalar, feeds the fold directly
         folded = _fold_fn(p, size)(layer(k - 1), beta,
                                    _inv_domain(p, size, off, str(dev)))
-        layer(k).copy_(store(folded))
+        layer(k).copy_(f.storage(folded))
         trees.append(tree(k))
         fs.absorb_root(trees[k].root_digest)
         size //= 2

@@ -1,15 +1,18 @@
 """K3 / K4 wrappers: SHA-256 Merkle leaves and nodes
 (``csrc/sha256_tree.cu``; replaces ``stark_tpu/hash/pallas_sha.py``
-``_make_leaf_kernel`` in its u32 mode / ``_make_node_kernel``).
+``_make_leaf_kernel`` in its u32 and its 64-bit ``wide`` mode /
+``_make_node_kernel``).
 
-K3 has two wrappers over one kernel templated on the column count:
-:func:`sha_leaves` hashes one value a leaf (every FRI tree and a
-one-column trace), :func:`sha_row_leaves` the rows of a (C, n)
-multi-column trace (the row form, C = 1..6; the XLA
-``sha256_row_leaves`` of the JAX package).  A CPU tensor runs the plain
-torch version (``hash/sha256.py``); a CUDA tensor launches the kernel or
-raises.  Each wrapper counts its launches in its ``launches``
-attribute.
+K3 has two wrappers over one kernel templated on the column count and the
+width: :func:`sha_leaves` hashes one value a leaf (every FRI tree and a
+one-column trace), :func:`sha_row_leaves` the rows of a multi-column
+trace (the row form, C = 1..6; the XLA ``sha256_row_leaves`` of the JAX
+package).  Both take the field's width explicitly (``wide=True`` for
+Goldilocks limb planes), never from the shape: a (2, n) tensor is two u32
+columns or one Goldilocks column.  A CPU tensor runs the plain torch
+version (``hash/sha256.py``); a CUDA tensor launches the kernel or
+raises.  Each wrapper counts its u32 launches in ``launches`` and its
+64-bit ones in ``wide_launches``.
 """
 
 from __future__ import annotations
@@ -21,44 +24,57 @@ from stark_tpu_torch.hash.sha256 import (sha256_pairs, sha256_row_leaves,
                                          sha256_u64_leaves)
 
 
-def _launch_leaves(values, out, n: int, cols: int, what: str):
+def _launch_leaves(values, out, n: int, cols: int, wide: bool, what: str):
     if out is None:
         out = torch.empty((n, 8), dtype=torch.int32, device=values.device)
     _build.require(out, "out", (n, 8), align=16)
     _build.check(_build.lib("sha256_tree").stark_sha_leaves(
-        values.data_ptr(), out.data_ptr(), n, cols,
+        values.data_ptr(), out.data_ptr(), n, cols, int(wide),
         _build.stream_ptr(values.device)), what)
     return out
 
 
-def sha_leaves(values: torch.Tensor, out: torch.Tensor | None = None):
-    """(n,) int32 field values -> (n, 8) int32 leaf digests, written into
-    `out` when given (a contiguous (n, 8) view, e.g. a tree buffer's leaf
+def _count(wrapper, wide: bool) -> None:
+    if wide:
+        wrapper.wide_launches += 1
+    else:
+        wrapper.launches += 1
+
+
+def sha_leaves(values: torch.Tensor, out: torch.Tensor | None = None, *,
+               wide: bool = False):
+    """(n,) int32 u32 field values, or with `wide` the (2, n) limb planes
+    of Goldilocks values -> (n, 8) int32 leaf digests, written into `out`
+    when given (a contiguous (n, 8) view, e.g. a tree buffer's leaf
     level)."""
-    n = int(values.shape[0])
+    n = int(values.shape[-1])
     if _build.plain_device(values):
-        res = sha256_u64_leaves(values)
+        res = sha256_u64_leaves(values, wide)
         return res if out is None else out.copy_(res)
-    _build.require(values, "values", (n,))
-    out = _launch_leaves(values, out, n, 1, "K3 sha_leaves")
-    sha_leaves.launches += 1
+    _build.require(values, "values", (2, n) if wide else (n,))
+    out = _launch_leaves(values, out, n, 1, wide,
+                         f"K3 sha_leaves{' (64-bit)' * wide}")
+    _count(sha_leaves, wide)
     return out
 
 
-def sha_row_leaves(cols: torch.Tensor, out: torch.Tensor | None = None):
-    """K3's row form: (C, n) int32 columns, C = 1..6 -> (n, 8) int32
-    digests of the rows' 8C-byte messages, written into `out` when
-    given."""
-    if cols.dim() != 2 or not 1 <= cols.shape[0] <= 6:
-        raise ValueError(f"row leaves take a (C, n) tensor with C = 1..6, "
-                         f"got shape {tuple(cols.shape)}")
+def sha_row_leaves(cols: torch.Tensor, out: torch.Tensor | None = None, *,
+                   wide: bool = False):
+    """K3's row form: (C, n) int32 u32 columns, or with `wide` (C, 2, n)
+    Goldilocks limb planes, C = 1..6 -> (n, 8) int32 digests of the rows'
+    8C-byte messages, written into `out` when given."""
+    if (cols.dim() != 2 + wide or not 1 <= cols.shape[0] <= 6
+            or (wide and cols.shape[1] != 2)):
+        raise ValueError(f"row leaves take a (C, {'2, ' * wide}n) tensor "
+                         f"with C = 1..6, got shape {tuple(cols.shape)}")
     if _build.plain_device(cols):
-        res = sha256_row_leaves(cols)
+        res = sha256_row_leaves(cols, wide)
         return res if out is None else out.copy_(res)
-    c, n = (int(d) for d in cols.shape)
-    _build.require(cols, "cols", (c, n))
-    out = _launch_leaves(cols, out, n, c, "K3 sha_row_leaves")
-    sha_row_leaves.launches += 1
+    c, n = int(cols.shape[0]), int(cols.shape[-1])
+    _build.require(cols, "cols", tuple(cols.shape))
+    out = _launch_leaves(cols, out, n, c, wide,
+                         f"K3 sha_row_leaves{' (64-bit)' * wide}")
+    _count(sha_row_leaves, wide)
     return out
 
 
@@ -80,8 +96,8 @@ def sha_nodes(children: torch.Tensor, out: torch.Tensor | None = None):
     return out
 
 
-sha_leaves.launches = 0
-sha_row_leaves.launches = 0
+sha_leaves.launches = sha_leaves.wide_launches = 0
+sha_row_leaves.launches = sha_row_leaves.wide_launches = 0
 sha_nodes.launches = 0
 sha_leaves.plain = sha256_u64_leaves
 sha_row_leaves.plain = sha256_row_leaves

@@ -1,5 +1,5 @@
 """Batched SHA-256 in plain torch ops, one hash per lane (counterpart of
-``stark_tpu/hash/sha256_jax.py``; u32 fields only).
+``stark_tpu/hash/sha256_jax.py``).
 
 These are the plain versions of the tree kernels K3/K4
 (``hash/cuda_sha.py``) and run on whatever device their inputs are on.
@@ -58,33 +58,40 @@ def compress(state, w16):
     return [(s + n) & MASK32 for s, n in zip(state, (a, b, c, d, e, f, g, h))]
 
 
-def sha256_u64_leaves(values: torch.Tensor) -> torch.Tensor:
-    """SHA-256 of each value's 8-byte big-endian encoding (high word 0, the
-    u32 field): (n,) words -> (n, 8) int32 digest rows.  The reference's
-    leaf hash Sha256::hash(value.to_be_bytes())."""
-    lo = lift(values)
-    zero = torch.zeros_like(lo)
-    # 8-byte BE preimage: [0, value], then SHA padding for a 64-bit message
-    w = [zero, lo, 0x80000000] + [0] * 12 + [64]
-    out = compress([torch.full_like(lo, h) for h in H0], w)
-    return torch.stack(out, dim=-1).to(torch.int32)
+def sha256_u64_leaves(values: torch.Tensor, wide: bool = False):
+    """SHA-256 of each value's 8-byte big-endian encoding, the reference's
+    leaf hash Sha256::hash(value.to_be_bytes()): (n,) u32 words (high word
+    0), or with `wide` the (2, n) (hi, lo) limb planes of Goldilocks
+    values -> (n, 8) int32 digest rows."""
+    if wide:
+        if values.dim() != 2 or values.shape[0] != 2:
+            raise ValueError(f"wide leaves take (2, n) limb planes, got "
+                             f"shape {tuple(values.shape)}")
+        return sha256_row_leaves(values[None], wide=True)
+    return sha256_row_leaves(values[None])
 
 
-def sha256_row_leaves(cols: torch.Tensor) -> torch.Tensor:
+def sha256_row_leaves(cols: torch.Tensor, wide: bool = False):
     """SHA-256 of multi-column row messages (``sha256_row_leaves`` of the
-    JAX package, u32 columns): leaf i hashes col_0[i] || ... ||
-    col_{C-1}[i], each value as 8 big-endian bytes (high word 0).
-    (C, n) words -> (n, 8) int32 digest rows, C = 1..6 (one block: 8C +
-    9 <= 64 bytes); C = 1 equals :func:`sha256_u64_leaves`."""
+    JAX package): leaf i hashes col_0[i] || ... || col_{C-1}[i], each
+    value as 8 big-endian bytes.  (C, n) u32 words (high words 0), or with
+    `wide` (C, 2, n) Goldilocks limb planes (hi_0 || lo_0 || ...) ->
+    (n, 8) int32 digest rows, C = 1..6 (one block: 8C + 9 <= 64 bytes);
+    C = 1 equals :func:`sha256_u64_leaves`."""
     c = int(cols.shape[0])
-    if cols.dim() != 2 or not 1 <= c <= 6:
-        raise ValueError(f"row leaves take a (C, n) tensor with C = 1..6, "
-                         f"got shape {tuple(cols.shape)}")
+    if (cols.dim() != 2 + wide or not 1 <= c <= 6
+            or (wide and cols.shape[1] != 2)):
+        raise ValueError(f"row leaves take a (C, {'2, ' * wide}n) tensor "
+                         f"with C = 1..6, got shape {tuple(cols.shape)}")
     v = lift(cols)
-    zero = torch.zeros_like(v[0])
-    w = [x for k in range(c) for x in (zero, v[k])] + [0x80000000]
-    w += [0] * (15 - len(w)) + [64 * c]  # bit length of 8C bytes
-    out = compress([torch.full_like(zero, h) for h in H0], w)
+    if wide:
+        w = [v[k, j] for k in range(c) for j in (0, 1)]
+    else:
+        zero = torch.zeros_like(v[0])
+        w = [x for k in range(c) for x in (zero, v[k])]
+    w += [0x80000000] + [0] * (14 - 2 * c) + [64 * c]  # bit length of 8C
+    out = compress([torch.full_like(v.reshape(-1, v.shape[-1])[0], h)
+                    for h in H0], w)
     return torch.stack(out, dim=-1).to(torch.int32)
 
 

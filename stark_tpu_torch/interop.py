@@ -3,7 +3,8 @@ tensors, configurations and statements — the port's "weights carried
 across", used by the tests.
 
 Field values and digest words are uint32 in JAX and int32 (same bits) in
-the port, so numpy views carry them over without copying values.
+the port, so numpy views carry them over without copying values; a
+Goldilocks array is the same words as (hi, lo) limb planes.
 """
 
 from __future__ import annotations
@@ -25,6 +26,26 @@ def u32_to_tensor(arr, *, device) -> torch.Tensor:
 def tensor_to_u32(t: torch.Tensor) -> np.ndarray:
     """int32 storage tensor -> numpy uint32 (host copy)."""
     return t.detach().cpu().contiguous().numpy().view(np.uint32).copy()
+
+
+def limbs_to_tensor(arr, *, device) -> torch.Tensor:
+    """A JAX Goldilocks array, (2, n) or (C, 2, n) uint32 limb planes
+    (hi, lo), -> the port's int32 storage of the same shape on `device`."""
+    a = np.asarray(arr)
+    if a.ndim < 2 or a.shape[-2] != 2:
+        raise ValueError(f"limb planes are (2, n) or (C, 2, n), got "
+                         f"{a.shape}")
+    return u32_to_tensor(a, device=device)
+
+
+def tensor_to_limbs(t: torch.Tensor) -> np.ndarray:
+    """The port's (2, n) or (C, 2, n) int32 limb planes (storage or int64
+    compute) -> numpy uint32 of the same shape, as the JAX package holds
+    them."""
+    if t.dim() < 2 or t.shape[-2] != 2:
+        raise ValueError(f"limb planes are (2, n) or (C, 2, n), got "
+                         f"{tuple(t.shape)}")
+    return tensor_to_u32(t.to(torch.int32))
 
 
 def state_to_hex(state: torch.Tensor) -> str:

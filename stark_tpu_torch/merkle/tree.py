@@ -1,11 +1,14 @@
 """Merkle commitment over field-element codewords (counterpart of
-``stark_tpu/merkle/tree.py``; power-of-two trees of u32 values only).
+``stark_tpu/merkle/tree.py``; power-of-two trees).
 
 Node semantics are the reference's rs_merkle wrapper:
 
 * leaf hash = SHA-256(8-byte big-endian field value)   (merkle/mod.rs:14-16);
   for a multi-column codeword (:meth:`MerkleTree.from_columns`),
-  SHA-256 of the row's values, 8 big-endian bytes each
+  SHA-256 of the row's values, 8 big-endian bytes each.  A u32 field's
+  value has high word 0; a Goldilocks value is its (hi, lo) limb pair,
+  and every entry takes that width as ``wide``, never from the shape (a
+  (2, n) tensor is two u32 columns or one Goldilocks column)
 * node hash = SHA-256(left_digest || right_digest)
 * root      = lowercase hex string                     (merkle/mod.rs:24-26)
 
@@ -48,10 +51,13 @@ def digest_bytes(words) -> bytes:
     return b"".join((int(x) & 0xFFFFFFFF).to_bytes(4, "big") for x in words)
 
 
-def build_tree(values: torch.Tensor, out: torch.Tensor | None = None):
-    """All digest levels of the tree over `values` ((n,) int32, or the
-    rows of (C, n) columns; n a power of two) into `out` (a contiguous
-    (2n-1, 8) int32 buffer, allocated when None).  Returns the buffer."""
+def build_tree(values: torch.Tensor, out: torch.Tensor | None = None, *,
+               rows: bool = False, wide: bool = False):
+    """All digest levels of the tree over `values` into `out` (a contiguous
+    (2n-1, 8) int32 buffer, allocated when None); n, the last axis, a
+    power of two.  One value a leaf ((n,) u32, or (2, n) limb planes with
+    `wide`), or with `rows` the row messages of C columns ((C, n), or
+    (C, 2, n) with `wide`).  Returns the buffer."""
     n = int(values.shape[-1])
     if n < 1 or n & (n - 1):
         raise NotImplementedError(
@@ -61,41 +67,49 @@ def build_tree(values: torch.Tensor, out: torch.Tensor | None = None):
         out = torch.empty((2 * n - 1, 8), dtype=torch.int32,
                           device=values.device)
     offs = level_offsets(n)
-    leaves = sha_leaves if values.dim() == 1 else sha_row_leaves
-    leaves(values, out=out[:n])
+    leaves = sha_row_leaves if rows else sha_leaves
+    leaves(values, out=out[:n], wide=wide)
     for (off_c, size_c), (off_p, size_p) in zip(offs, offs[1:]):
         sha_nodes(out[off_c:off_c + size_c], out=out[off_p:off_p + size_p])
     return out
 
 
 class MerkleTree:
-    """Commitment over a vector of canonical field values (int32 storage).
+    """Commitment over a vector of canonical field values (int32 storage:
+    (n,), or with `wide` the (2, n) limb planes of Goldilocks values).
 
     ``MerkleTree(values)`` hashes on the values' device; ``root()``
     returns lowercase hex like the reference."""
 
-    def __init__(self, values: torch.Tensor, out: torch.Tensor | None = None):
-        if values.dim() != 1 or values.shape[0] == 0:
-            raise ValueError("MerkleTree needs a non-empty 1-D vector")
-        self._build(values, out)
+    def __init__(self, values: torch.Tensor, out: torch.Tensor | None = None,
+                 *, wide: bool = False):
+        if (values.dim() != 1 + wide or values.shape[-1] == 0
+                or (wide and values.shape[0] != 2)):
+            raise ValueError(f"MerkleTree needs a non-empty "
+                             f"{'(2, n)' if wide else '1-D'} tensor, got "
+                             f"shape {tuple(values.shape)}")
+        self._build(values, out, rows=False, wide=wide)
 
-    def _build(self, values, out) -> None:
+    def _build(self, values, out, rows: bool, wide: bool) -> None:
         self.num_leaves = int(values.shape[-1])
-        self.buffer = build_tree(values, out)
+        self.buffer = build_tree(values, out, rows=rows, wide=wide)
         self.offsets = level_offsets(self.num_leaves)
 
     @classmethod
     def from_columns(cls, cols: torch.Tensor,
-                     out: torch.Tensor | None = None) -> "MerkleTree":
-        """Commit a multi-column codeword: cols (C, n), C = 1..6; leaf i =
-        SHA-256 of row i's values, 8 big-endian bytes each (the row
-        message a query opens, so the verifier hashes it as the leaf
-        preimage).  The same (2n-1, 8) buffer as a one-column tree."""
-        if (cols.dim() != 2 or not 1 <= cols.shape[0] <= 6
-                or cols.shape[1] == 0):
-            raise ValueError("from_columns needs a (C, n) tensor, C = 1..6")
+                     out: torch.Tensor | None = None, *,
+                     wide: bool = False) -> "MerkleTree":
+        """Commit a multi-column codeword: cols (C, n), or (C, 2, n) with
+        `wide`, C = 1..6; leaf i = SHA-256 of row i's values, 8 big-endian
+        bytes each (the row message a query opens, so the verifier hashes
+        it as the leaf preimage).  The same (2n-1, 8) buffer as a
+        one-column tree."""
+        if (cols.dim() != 2 + wide or not 1 <= cols.shape[0] <= 6
+                or cols.shape[-1] == 0 or (wide and cols.shape[1] != 2)):
+            raise ValueError(f"from_columns needs a (C, {'2, ' * wide}n) "
+                             f"tensor, C = 1..6")
         tree = cls.__new__(cls)
-        tree._build(cols, out)
+        tree._build(cols, out, rows=True, wide=wide)
         return tree
 
     @property

@@ -1,36 +1,72 @@
 """NTT/INTT and coset evaluation over GF(p) on torch tensors (counterpart
 of ``stark_tpu/ntt/ntt.py`` + ``ntt/fourstep.py``).
 
-:func:`ntt` / :func:`intt` go through the kernel wrappers
-(``ntt/cuda_ntt.py``): n <= 2^MAX_LOG_N (2^22) by the K1 route, larger n
-(up to 2^30) by the K2 route (read at call time); both launch the same
-two-pass kernels.  A CUDA tensor launches them — the trace INTT included,
-which on the TPU took the XLA plan because it ran inside an outer
-``jax.jit`` — and a CPU tensor runs their plain version
-``ntt_passes_plain``.  Field arithmetic is exact, so every route gives
-the same bits as the JAX ``NTTPlan``.  Every function takes an (n,)
-vector or a (C, n) batch of columns (a multi-column trace), transformed
-along the last axis in one call of the wrapper.
+The route is chosen by the field's width, never by a failure:
+
+* a u32 field goes through the kernel wrappers (``ntt/cuda_ntt.py``):
+  n <= 2^MAX_LOG_N (2^22) by the K1 route, larger n (up to 2^30) by the
+  K2 route (read at call time); both launch the same two-pass kernels.
+  A CUDA tensor launches them — the trace INTT included, which on the
+  TPU took the XLA plan because it ran inside an outer ``jax.jit`` — and
+  a CPU tensor runs their plain version ``ntt_passes_plain``;
+* the Goldilocks field runs :func:`ntt_limbs`, a radix-2 Stockham in
+  torch ops on the limb planes, on whatever device its input is on: the
+  JAX package computes that NTT outside any Pallas kernel (the
+  width-generic XLA Stockham / four-step), so there is no TPU kernel to
+  port.
+
+Field arithmetic is exact, so every route gives the same bits as the JAX
+``NTTPlan``.  Every function takes one column ((n,) u32, (2, n)
+Goldilocks) or C columns ((C, n), (C, 2, n)), transformed along the last
+axis in one call.
 """
 
 from __future__ import annotations
 
 import torch
 
-from stark_tpu_torch.fields.fp import Fp, store
+from stark_tpu_torch.fields.fp import Fp
 from stark_tpu_torch.ntt import cuda_ntt
-from stark_tpu_torch.ntt.cuda_ntt import ntt_k1, ntt_k2
+from stark_tpu_torch.ntt.cuda_ntt import _stage_twiddles, ntt_k1, ntt_k2
+from stark_tpu_torch.ntt.reference_ntt import ntt_available
+
+
+def ntt_limbs(x: torch.Tensor, p: int, inverse: bool = False):
+    """NTT (or INTT) of Goldilocks values in torch ops: x is (2, n) or
+    (C, 2, n) int32 limb planes, natural order in and out; radix-2
+    Stockham autosort along the last axis (the JAX ``NTTPlan``'s
+    dataflow), the columns a batch dimension."""
+    f = Fp.get(p)
+    n = int(x.shape[-1])
+    if n & (n - 1) or not ntt_available(p, n):
+        raise ValueError(f"GF({p}) has no order-{n} subgroup")
+    xm = f.arith(x)  # (2, [C,] n)
+    batch = tuple(xm.shape[1:-1])
+    l, m = n, 1
+    for t in _stage_twiddles(p, n, inverse, str(x.device)):
+        lh = l // 2
+        v = xm.reshape((2,) + batch + (l, m))
+        a, b = v[..., :lh, :], v[..., lh:, :]
+        tw = t.reshape((2,) + (1,) * len(batch) + (lh, 1))
+        xm = torch.stack([f.add(a, b), f.mul(tw, f.sub(a, b))],
+                         dim=-2).reshape((2,) + batch + (n,))
+        l, m = lh, 2 * m
+    if inverse:
+        xm = f.mul(xm, f.const(pow(n, p - 2, p), x.device))
+    return f.storage(xm)
 
 
 def _transform(x: torch.Tensor, p: int, inverse: bool) -> torch.Tensor:
+    if Fp.get(p).width > 1:
+        return ntt_limbs(x, p, inverse)
     if int(x.shape[-1]) <= 1 << cuda_ntt.MAX_LOG_N:
         return ntt_k1(x, p, inverse)
     return ntt_k2(x, p, inverse)
 
 
 def ntt(x: torch.Tensor, p: int) -> torch.Tensor:
-    """Forward NTT, natural order: X[k] = sum_j x[j] w^(jk), of an (n,)
-    vector or of each row of a (C, n) batch of columns."""
+    """Forward NTT, natural order: X[k] = sum_j x[j] w^(jk), of one column
+    or of each of C columns."""
     return _transform(x, p, False)
 
 
@@ -47,13 +83,14 @@ def scale_pad(coeffs: torch.Tensor, p: int, big_n: int,
     n = int(coeffs.shape[-1])
     out = torch.zeros(coeffs.shape[:-1] + (big_n,), dtype=torch.int32,
                       device=coeffs.device)
-    out[..., :n] = store(f.mul(coeffs, f.powers(offset, n, coeffs.device)))
+    out[..., :n] = f.storage(f.mul(f.arith(coeffs),
+                                   f.powers(offset, n, coeffs.device)))
     return out
 
 
 def coset_evaluate(coeffs: torch.Tensor, p: int, big_n: int,
                    offset: int) -> torch.Tensor:
-    """Evaluate a coefficient vector (or each row of a (C, n) batch) on
+    """Evaluate a coefficient vector (or each of C columns) on
     {offset * W^i : i < big_n}."""
     return ntt(scale_pad(coeffs, p, big_n, int(offset) % p), p)
 
@@ -65,4 +102,5 @@ def coset_interpolate(evals: torch.Tensor, p: int,
     f = Fp.get(p)
     n = int(evals.shape[-1])
     offset_inv = pow(int(offset) % p, p - 2, p)
-    return store(f.mul(intt(evals, p), f.powers(offset_inv, n, evals.device)))
+    return f.storage(f.mul(f.arith(intt(evals, p)),
+                           f.powers(offset_inv, n, evals.device)))

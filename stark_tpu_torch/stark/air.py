@@ -12,7 +12,11 @@
 
 Each context holds the LDE coset domain and the boundary / zerofier
 inverse tables on the device; the composition is pointwise torch ops on
-them and on the LDE rolled by the blowup along its last axis.  The
+them and on the LDE rolled by the blowup along its last axis.  Every AIR
+runs over a u32 field or the Goldilocks field: there a column is (2, M)
+limb planes (a C-column LDE (C, 2, M)), constants are (2, 1) pairs and
+the drawn alphas (2,) pairs, so the same code broadcasts plane by
+plane.  The
 declarative AirSpecs (``stark_tpu/stark/air_builder.py`` and
 ``families.py``) wait for ROADMAP Queue 1 item 11.
 """
@@ -24,7 +28,7 @@ import torch
 
 from stark_tpu_torch import native
 from stark_tpu_torch.config import ProverConfig
-from stark_tpu_torch.fields.fp import Fp, store
+from stark_tpu_torch.fields.fp import Fp, host_values, host_words
 from stark_tpu_torch.ntt.reference_ntt import root_of_unity
 
 
@@ -45,12 +49,14 @@ class _BaseContext:
                                            self.device)
 
     def _const(self, value: int) -> torch.Tensor:
-        return torch.tensor(int(value) % self.fp.p, device=self.device)
+        """A broadcastable constant: 0-dim, or a (2, 1) pair (JAX ``_bc``)."""
+        return self.fp.const(value, self.device)
 
     def boundary_inv(self, point: int) -> torch.Tensor:
         """1 / (x - point) on the LDE domain (int32 storage)."""
         f = self.fp
-        return store(f.inv_rolled(f.sub(self.domain, self._const(point))))
+        return f.storage(f.inv_rolled(f.sub(self.domain,
+                                            self._const(point))))
 
     def zerofier_inv_excluding(self, excluded) -> torch.Tensor:
         """prod(x - e for e in excluded) / (x^N - 1) on the LDE domain."""
@@ -59,7 +65,7 @@ class _BaseContext:
         mult = f.inv_rolled(f.sub(xn, self._const(1)))
         for e in excluded:
             mult = f.mul(mult, f.sub(self.domain, self._const(e)))
-        return store(mult)
+        return f.storage(mult)
 
 
 class _FibContext(_BaseContext):
@@ -78,14 +84,30 @@ class _FibContext(_BaseContext):
         b = self.cfg.blowup
         al = [a if torch.is_tensor(a) else self._const(a) for a in alphas]
         f_x = lde
-        f_gx = torch.roll(lde, -b)
-        f_g2x = torch.roll(lde, -2 * b)
+        f_gx = torch.roll(lde, -b, -1)
+        f_g2x = torch.roll(lde, -2 * b, -1)
         p0 = f.mul(f.sub(f_x, self._const(publics["a0"])), self.inv_b0)
         p1 = f.mul(f.sub(f_x, self._const(publics["a_last"])), self.inv_b1)
         num = f.sub(f.sub(f_g2x, f.mul(f_gx, f_gx)), f.mul(f_x, f_x))
         p2 = f.mul(num, self.trans_mult)
-        return store(f.add(f.add(f.mul(al[0], p0), f.mul(al[1], p1)),
-                           f.mul(al[2], p2)))
+        return f.storage(f.add(f.add(f.mul(al[0], p0), f.mul(al[1], p1)),
+                               f.mul(al[2], p2)))
+
+
+def _host_trace(values, cfg: ProverConfig):
+    """A native trace (numpy uint64 values) in the storage words of the
+    configuration's field: (T,) or (C, T) u32, (2, T) or (C, 2, T) limb
+    planes for Goldilocks."""
+    return host_words(values, Fp.get(cfg.modulus).width)
+
+
+def _host_ints(cfg: ProverConfig, trace_host, index: int) -> list[int]:
+    """Each column's value at trace position `index`, from the storage
+    words of :func:`_host_trace`, as Python ints (only that position is
+    converted: a whole 2^24-row trace would cost a copy of every word)."""
+    i = index % trace_host.shape[-1]
+    vals = host_values(trace_host[..., i:i + 1], Fp.get(cfg.modulus).width)
+    return [int(v) for v in vals.reshape(-1)]
 
 
 class FibonacciSquareAIR:
@@ -104,13 +126,14 @@ class FibonacciSquareAIR:
         cfg.validate()
 
     def host_trace(self, cfg: ProverConfig):
-        """The trace as numpy uint32, from the native host loop (host code
-        whatever the prove's device)."""
-        return native.fib_trace(cfg.modulus, self.a0, self.a1,
-                                cfg.trace_length).astype(np.uint32)
+        """The trace as numpy uint32 storage words, from the native host
+        loop (host code whatever the prove's device)."""
+        return _host_trace(native.fib_trace(cfg.modulus, self.a0, self.a1,
+                                            cfg.trace_length), cfg)
 
-    def publics_from_host(self, trace_host) -> dict:
-        return {"a0": int(trace_host[0]), "a_last": int(trace_host[-1])}
+    def publics_from_host(self, cfg: ProverConfig, trace_host) -> dict:
+        return {"a0": _host_ints(cfg, trace_host, 0)[0],
+                "a_last": _host_ints(cfg, trace_host, -1)[0]}
 
     def witness_params(self) -> dict:
         return {"a1": self.a1, "a0": self.a0}
@@ -173,8 +196,8 @@ class _MimcContext(_NextRowContext):
         t = f.add(f_x, self._const(self.k))
         num = f.sub(f_gx, f.mul(f.mul(t, t), t))
         p2 = f.mul(num, self.trans_mult)
-        return store(f.add(f.add(f.mul(al[0], p0), f.mul(al[1], p1)),
-                           f.mul(al[2], p2)))
+        return f.storage(f.add(f.add(f.mul(al[0], p0), f.mul(al[1], p1)),
+                               f.mul(al[2], p2)))
 
 
 class MimcAIR:
@@ -196,12 +219,12 @@ class MimcAIR:
             raise ValueError("MimcAIR needs blowup >= 4 (CP degree < 2N)")
 
     def host_trace(self, cfg: ProverConfig):
-        return native.mimc_trace(cfg.modulus, self.x0, self.k,
-                                 cfg.trace_length).astype(np.uint32)
+        return _host_trace(native.mimc_trace(cfg.modulus, self.x0, self.k,
+                                             cfg.trace_length), cfg)
 
-    def publics_from_host(self, trace_host) -> dict:
-        return {"input": int(trace_host[0]), "output": int(trace_host[-1]),
-                "k": self.k}
+    def publics_from_host(self, cfg: ProverConfig, trace_host) -> dict:
+        return {"input": _host_ints(cfg, trace_host, 0)[0],
+                "output": _host_ints(cfg, trace_host, -1)[0], "k": self.k}
 
     def witness_params(self) -> dict:
         return {"x0": self.x0, "k": self.k}
@@ -228,7 +251,8 @@ class MimcAIR:
 
 class _FibMulContext(_NextRowContext):
     def compose(self, lde: torch.Tensor, alphas, publics: dict):
-        """`lde`: the (2, M) LDE of the columns a and b."""
+        """`lde`: the (2, M) LDE of the columns a and b ((2, 2, M) limb
+        planes for Goldilocks)."""
         f = self.fp
         b = self.cfg.blowup
         al = [a if torch.is_tensor(a) else self._const(a) for a in alphas]
@@ -244,7 +268,7 @@ class _FibMulContext(_NextRowContext):
         acc = f.mul(al[0], terms[0])
         for a, term in zip(al[1:], terms[1:]):
             acc = f.add(acc, f.mul(a, term))
-        return store(acc)
+        return f.storage(acc)
 
 
 class FibMulAIR:
@@ -264,14 +288,15 @@ class FibMulAIR:
         cfg.validate()
 
     def host_trace(self, cfg: ProverConfig):
-        """The (2, T) trace, rows a and b, as numpy uint32."""
-        return native.fibmul_trace(cfg.modulus, self.a0, self.b0,
-                                   cfg.trace_length).astype(np.uint32)
+        """The (2, T) trace, rows a and b, as numpy uint32 storage words
+        ((2, 2, T) for Goldilocks)."""
+        return _host_trace(native.fibmul_trace(cfg.modulus, self.a0, self.b0,
+                                               cfg.trace_length), cfg)
 
-    def publics_from_host(self, trace_host) -> dict:
-        return {"input": int(trace_host[0, 0]),
-                "output": int(trace_host[1, -1]),
-                "b0": int(trace_host[1, 0])}
+    def publics_from_host(self, cfg: ProverConfig, trace_host) -> dict:
+        (a0, b0), (_, b_last) = (_host_ints(cfg, trace_host, i)
+                                 for i in (0, -1))
+        return {"input": a0, "output": b_last, "b0": b0}
 
     def witness_params(self) -> dict:
         return {"a0": self.a0, "b0": self.b0}

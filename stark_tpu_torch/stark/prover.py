@@ -1,6 +1,9 @@
 """Top-level STARK prover (counterpart of ``stark_tpu/stark/prover.py``;
 the single-fetch pipeline only), generic over the AIR
-(``stark/air.py``: Fibonacci-square, MiMC³, the two-column FibMul).
+(``stark/air.py``: Fibonacci-square, MiMC³, the two-column FibMul) and
+over the field: a u32 prime, or the Goldilocks prime 2^64 - 2^32 + 1,
+whose values are (hi, lo) limb planes, whose NTTs are torch ops
+(``ntt/ntt.py``) and whose trees take K3's 64-bit mode.
 
     host trace -> trace polynomial (INTT, K1/K2) -> coset LDE (NTT,
     K1/K2; a C-column trace as one batched transform each) -> trace
@@ -126,25 +129,26 @@ def get_air_context(air, cfg: ProverConfig, device):
 
 @functools.lru_cache(maxsize=None)
 def _query_plan(cfg: ProverConfig, offsets: tuple, num_folds: int,
-                num_columns: int) -> _dq.DeviceQueryPlan:
+                num_columns: int, elem_width: int) -> _dq.DeviceQueryPlan:
     M = cfg.eval_domain_size
     rng = M - max(offsets)
     fri_lengths = tuple(M >> k for k in range(num_folds + 1))
-    if not _dq.supported(rng, M, fri_lengths, num_columns):
+    if not _dq.supported(rng, M, fri_lengths, num_columns, elem_width):
         raise NotImplementedError(
             "configuration outside the single-fetch path; the per-phase "
             "path waits for ROADMAP Queue 1 item 14")
     return _dq.DeviceQueryPlan(rng, cfg.num_queries, offsets, M,
-                               fri_lengths, num_columns)
+                               fri_lengths, num_columns, elem_width)
 
 
 def query_plan(cfg: ProverConfig, air=None) -> _dq.DeviceQueryPlan:
     """The device query plan of `air`'s prove of `cfg` (Fibonacci-square
     by default), built once per (configuration, trace offsets, fold
-    count, column count)."""
+    count, column count, field width)."""
     air = air or FibonacciSquareAIR()
     return _query_plan(cfg, tuple(s * cfg.blowup for s in air.shifts),
-                       air.num_folds(cfg), air.num_columns)
+                       air.num_folds(cfg), air.num_columns,
+                       Fp.get(cfg.modulus).width)
 
 
 def prove(cfg: ProverConfig, a1: int = 3141592, *, air=None,
@@ -161,12 +165,12 @@ def prove(cfg: ProverConfig, a1: int = 3141592, *, air=None,
         air = FibonacciSquareAIR(a1=a1)
     air.validate(cfg)
     p, M, h = cfg.modulus, cfg.eval_domain_size, cfg.offset
-    Fp.get(p)  # u32 fields only: raises for 64-bit moduli
     plan = query_plan(cfg, air)
 
     # -- trace + LDE: one upload of the host trace -------------------------
-    trace_host = air.host_trace(cfg)  # (T,), or (C, T) for C columns
-    publics = air.publics_from_host(trace_host)
+    # (T,), or (C, T) for C columns; (2, T) / (C, 2, T) for Goldilocks
+    trace_host = air.host_trace(cfg)
+    publics = air.publics_from_host(cfg, trace_host)
     trace = upload_u32(trace_host, device)
     f_evals = coset_evaluate(trace_polynomial(trace, p), p, M, h)
     return _prove_single_fetch(cfg, air, Channel(p), f_evals, publics, plan)
@@ -178,9 +182,10 @@ def _prove_single_fetch(cfg, air, channel, f_evals, publics,
     LAST_PROVE_PATH = "single-fetch"
     p, h = cfg.modulus, cfg.offset
     device = f_evals.device
+    wide = Fp.get(p).width == 2
 
-    trace_tree = (MerkleTree.from_columns(f_evals) if f_evals.dim() == 2
-                  else MerkleTree(f_evals))
+    trace_tree = (MerkleTree.from_columns(f_evals, wide=wide)
+                  if air.num_columns > 1 else MerkleTree(f_evals, wide=wide))
     fs = DeviceFS(p, channel.state, device=device)
     fs.mark("trace-commit")
     fs.absorb_root(trace_tree.root_digest)
@@ -193,7 +198,7 @@ def _prove_single_fetch(cfg, air, channel, f_evals, publics,
     # the canonical transcript sends the final FRI constant before the
     # query draws: advance the device state over that send too
     last = fri.fri_layers[-1]
-    fs.state = absorb_value(fs.state, torch.zeros_like(last[0]), last[0])
+    fs.state = absorb_value(fs.state, *final_words(last, wide))
 
     dev = plan.run_device(fs.state, f_evals, trace_tree.buffer, fri.values,
                           fri.digests)
@@ -217,6 +222,14 @@ def _prove_single_fetch(cfg, air, channel, f_evals, publics,
     plan.replay(channel, final_h, idxs_h, vals_h.reshape(q_n, -1),
                 digs_h.reshape(q_n, -1, 8))
     return _finish_proof(cfg, air, channel, publics)
+
+
+def final_words(last: torch.Tensor, wide: bool):
+    """(hi, lo) device words of the last FRI layer's first value, the
+    constant the transcript sends (the high word 0 in a u32 field)."""
+    if wide:
+        return last[0, 0], last[1, 0]
+    return torch.zeros_like(last[0]), last[0]
 
 
 def _finish_proof(cfg, air, channel, publics) -> StarkProof:

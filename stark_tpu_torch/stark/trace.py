@@ -1,5 +1,5 @@
 """Trace generation + trace polynomial (counterpart of
-``stark_tpu/stark/trace.py``; u32 field).
+``stark_tpu/stark/trace.py``).
 
 Each AIR's trace is a sequential recurrence, so it is built on the host
 by the native C++ loops (``stark_tpu_torch/native``), then uploaded to
@@ -18,7 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from stark_tpu_torch.fields.fp import Fp, store
+from stark_tpu_torch.fields.fp import Fp
 from stark_tpu_torch.ntt.ntt import intt
 from stark_tpu_torch.ntt.reference_ntt import root_of_unity
 
@@ -38,7 +38,8 @@ def trace_polynomial(trace: torch.Tensor, p: int) -> torch.Tensor:
     """Coefficients (N,) of STARK-101's trace interpolant over the order-N
     subgroup, top coefficient identically zero (degree <= N-2); for a
     (C, N-1) multi-column trace, (C, N): each column interpolated on its
-    own by one batched INTT."""
+    own by one batched INTT.  A Goldilocks trace is (2, N-1) or
+    (C, 2, N-1) limb planes, and so are its coefficients."""
     f = Fp.get(p)
     n = int(trace.shape[-1]) + 1
     if n & (n - 1):
@@ -46,9 +47,8 @@ def trace_polynomial(trace: torch.Tensor, p: int) -> torch.Tensor:
     padded = torch.zeros(trace.shape[:-1] + (n,), dtype=torch.int32,
                          device=trace.device)
     padded[..., : n - 1] = trace
-    coeffs0 = intt(padded, p)
+    coeffs0 = f.arith(intt(padded, p))
     g = root_of_unity(p, n)
-    g_t = torch.tensor(g, device=trace.device)
-    gp = f.mul(f.powers(g, n, trace.device), g_t)  # g^(i+1)
+    gp = f.mul(f.powers(g, n, trace.device), f.const(g, trace.device))
     # each column's top coefficient, kept as a (.., 1) axis to broadcast
-    return store(f.sub(coeffs0, f.mul(gp, coeffs0[..., n - 1:])))
+    return f.storage(f.sub(coeffs0, f.mul(gp, coeffs0[..., n - 1:])))

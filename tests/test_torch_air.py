@@ -34,10 +34,13 @@ GOLDEN_CFG = dict(log2_trace=5, blowup=4, num_queries=3)
 GOLDEN = {"mimc3_2e5": (MimcAIR(x0=271828, k=777),
                         JMimcAIR(x0=271828, k=777)),
           "fibmul_2e5": (FibMulAIR(a0=1, b0=2718281),
-                         JFibMulAIR(a0=1, b0=2718281))}
-# the golden vectors of these statements that the port's verifier checks:
-# the u32 ones, and FibMul over the Goldilocks field
-VERIFIED = sorted(GOLDEN) + ["fibmul_gl_2e5"]
+                         JFibMulAIR(a0=1, b0=2718281)),
+          "fibmul_gl_2e5": (FibMulAIR(a0=1, b0=2718281),
+                            JFibMulAIR(a0=1, b0=2718281))}
+# the golden vectors over another field than the default one
+GOLDEN_FIELD = {"fibmul_gl_2e5": dict(modulus=2**64 - 2**32 + 1,
+                                      generator=7)}
+VERIFIED = sorted(GOLDEN)
 # 2^11 rows, blowup 8 (LDE 2^14): one AIR of each family, other witnesses
 CFG_2E11 = dict(log2_trace=11, blowup=8, num_queries=8)
 AIRS_2E11 = {"mimc3": (MimcAIR(x0=12345, k=99), JMimcAIR(x0=12345, k=99)),
@@ -84,8 +87,8 @@ def test_publics_follow_the_jax_rule(vectors, name):
 
 @pytest.mark.parametrize("name", sorted(GOLDEN))
 def test_golden_vectors_byte_identical(vectors, name):
-    pr = prove(ProverConfig(**GOLDEN_CFG), air=GOLDEN[name][0],
-               device="cpu")
+    pr = prove(ProverConfig(**GOLDEN_CFG, **GOLDEN_FIELD.get(name, {})),
+               air=GOLDEN[name][0], device="cpu")
     assert tprover.LAST_PROVE_PATH == "single-fetch"
     assert pr.serialize() == StarkProof.deserialize(
         _blob(vectors, name)).serialize()

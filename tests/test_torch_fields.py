@@ -130,8 +130,15 @@ def test_lift_store_roundtrip_keeps_bits():
 
 
 def test_wide_and_invalid_moduli_raise():
-    with pytest.raises(NotImplementedError, match="item 12"):
-        Fp.get(2**64 - 2**32 + 1)
+    """Fp.get takes the Goldilocks prime to its width-2 context and
+    refuses every other modulus >= 2^32, as the JAX package does."""
+    from stark_tpu_torch.fields.fp64 import Fp64Goldilocks
+
+    assert isinstance(Fp.get(2**64 - 2**32 + 1), Fp64Goldilocks)
+    with pytest.raises(ValueError, match="Goldilocks"):
+        Fp.get(2**61 - 1)
+    with pytest.raises(ValueError):
+        Fp(2**64 - 2**32 + 1)
     with pytest.raises(ValueError):
         Fp(10)
 

@@ -119,6 +119,45 @@ def test_k3_k4_match_plain(dev, n):
     assert torch.equal(sha_nodes(kids), sha256_pairs(kids))
 
 
+@pytest.mark.parametrize("n", [1, 2, 255, 4096])
+def test_k3_wide_matches_plain(dev, n):
+    """K3's 64-bit mode, one column: (2, n) Goldilocks limb planes (any
+    words: the kernel hashes hi || lo whatever the values), counted in
+    wide_launches only."""
+    from stark_tpu_torch.hash.cuda_sha import sha_leaves
+    from stark_tpu_torch.hash.sha256 import sha256_u64_leaves
+
+    v = _u32((2, n), 2**32, 3 * n, dev)
+    before = (sha_leaves.launches, sha_leaves.wide_launches)
+    got = sha_leaves(v, wide=True)
+    torch.cuda.synchronize()
+    assert (sha_leaves.launches, sha_leaves.wide_launches) == (
+        before[0], before[1] + 1)
+    assert torch.equal(got, sha256_u64_leaves(v, wide=True))
+
+
+@pytest.mark.parametrize("cols", range(1, 7))
+@pytest.mark.parametrize("n", [1, 255, 4096])
+def test_k3_wide_row_form_matches_plain(dev, cols, n):
+    from stark_tpu_torch.hash.cuda_sha import sha_row_leaves
+    from stark_tpu_torch.hash.sha256 import sha256_row_leaves
+
+    v = _u32((cols, 2, n), 2**32, 20 * cols + n, dev)
+    before = sha_row_leaves.wide_launches
+    got = sha_row_leaves(v, wide=True)
+    torch.cuda.synchronize()
+    assert sha_row_leaves.wide_launches == before + 1
+    assert torch.equal(got, sha256_row_leaves(v, wide=True))
+
+
+def test_wide_tree_matches_plain(dev):
+    from stark_tpu_torch.merkle.tree import MerkleTree
+
+    v = _u32((2, 1 << 10), 2**32, 8, dev)
+    plain = MerkleTree(v.cpu(), wide=True).buffer.to(dev)
+    assert torch.equal(MerkleTree(v, wide=True).buffer, plain)
+
+
 def test_tree_matches_plain(dev):
     from stark_tpu_torch.merkle.tree import MerkleTree
 
@@ -204,6 +243,25 @@ def test_k5_query_form_row_messages_match_plain(dev, cols):
         assert torch.equal(g, w)
 
 
+@pytest.mark.parametrize("cols", [1, 2, 6])
+def test_k5_query_form_goldilocks_plan_matches_plain(dev, cols):
+    """The query form on a Goldilocks plan: two value slots a value (hi
+    and lo planes), the same kernel."""
+    from stark_tpu_torch.channel.device_query import (DeviceQueryPlan,
+                                                      query_chain,
+                                                      query_chain_plain)
+
+    plan = DeviceQueryPlan(28, 4, (0, 4), 32, (32, 16, 8, 4, 2, 1), cols,
+                           elem_width=2)
+    tb = plan.pack(dev)
+    n_f, n_td, n_fv, n_fd = tb.sizes
+    args = (_u32(8, 2**32, 40, dev), _u32(n_f, 2**32, 41, dev),
+            _u32((n_td, 8), 2**32, 42, dev), _u32(n_fv, 2**32, 43, dev),
+            _u32((n_fd, 8), 2**32, 44, dev))
+    for g, w in zip(query_chain(*args, tb), query_chain_plain(*args, tb)):
+        assert torch.equal(g, w)
+
+
 def test_golden_vectors_on_card(dev):
     from stark_tpu_torch.config import ProverConfig
     from stark_tpu_torch.stark import StarkProof, prove
@@ -219,7 +277,8 @@ def test_golden_vectors_on_card(dev):
         json.dumps(vec["fib_gf97_2e2"]).encode()).proof
 
 
-@pytest.mark.parametrize("name", ["mimc3_2e5", "fibmul_2e5"])
+@pytest.mark.parametrize("name", ["mimc3_2e5", "fibmul_2e5",
+                                  "fibmul_gl_2e5"])
 def test_golden_mimc_fibmul_on_card(dev, name):
     from stark_tpu_torch.config import ProverConfig
     from stark_tpu_torch.stark import FibMulAIR, MimcAIR, StarkProof, prove
@@ -230,6 +289,9 @@ def test_golden_mimc_fibmul_on_card(dev, name):
         vec = json.load(fh)
     air = (MimcAIR(x0=271828, k=777) if name == "mimc3_2e5"
            else FibMulAIR(a0=1, b0=2718281))
-    got = prove(ProverConfig(log2_trace=5, blowup=4, num_queries=3), air=air)
+    field = (dict(modulus=2**64 - 2**32 + 1, generator=7)
+             if name == "fibmul_gl_2e5" else {})
+    got = prove(ProverConfig(log2_trace=5, blowup=4, num_queries=3, **field),
+                air=air)
     assert got.serialize() == StarkProof.deserialize(
         json.dumps(vec[name]).encode()).serialize()

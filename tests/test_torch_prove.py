@@ -126,21 +126,19 @@ def test_serialize_round_trip_and_config_interop(vectors):
 def test_unported_paths_raise():
     with pytest.raises(NotImplementedError, match="item 15"):
         prove(ProverConfig(log2_trace=4, mesh_shape=(2,)), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        prove(ProverConfig(modulus=2**64 - 2**32 + 1, generator=7,
+    # above 2^32 only the Goldilocks prime has a path (as in JAX): the
+    # 2-adic prime 18 * 2^32 + 1 is refused
+    with pytest.raises(ValueError, match="Goldilocks"):
+        prove(ProverConfig(modulus=18 * 2**32 + 1, generator=7,
                            log2_trace=4), device="cpu")
     with pytest.raises(NotImplementedError, match="item 14"):
         StarkProof.deserialize(b"STP1" + bytes(8))
     # a declarative AirSpec family: its prover and verifier wait for item
-    # 11; the Goldilocks FibMul (fibmul_gl_2e5) for item 12
+    # 11
     tribmul = StarkProof(proof=[], a0=1, a_last=2, air_name="tribmul",
                          config=ProverConfig(log2_trace=5, blowup=4))
     with pytest.raises(NotImplementedError, match="item 11"):
         verify(tribmul)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        prove(ProverConfig(modulus=2**64 - 2**32 + 1, generator=7,
-                           log2_trace=5, blowup=4, num_queries=3),
-              air=FibMulAIR(), device="cpu")
 
 
 def test_prove_runs_on_the_card_by_default():
