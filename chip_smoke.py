@@ -592,22 +592,22 @@ def phase_tree_wide(res: Results, dev) -> None:
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 3)
     sl = 1 << TREE_LOG
-    for log in WIDE_LEAVES_LOGS:
-        n = 1 << log
+    for log_n in WIDE_LEAVES_LOGS:
+        n = 1 << log_n
         vals = rand_words_dev(gen, (2, n), dev)
 
         def plain():
             return torch.cat([sha256_u64_leaves(vals[:, k:k + sl], wide=True)
                               for k in range(0, n, sl)])
 
-        what = f"leaves (2, 2^{log})"
+        what = f"leaves (2, 2^{log_n})"
         res.check("K3 wide", f"{what} (plain in 2^{TREE_LOG} slices)",
                   sha_leaves(vals, wide=True), plain())
         # each limb pair read once (8 bytes), each digest written once
         got = res.time("K3 wide", what, lambda: sha_leaves(vals, wide=True),
                        plain, res.card.bound(40 * n, SHA_OPS * n),
-                       row=log == WIDE_LEAVES_LOGS[0], other=True,
-                       plain_reps=REPS if log == TREE_LOG else 1)
+                       row=log_n == WIDE_LEAVES_LOGS[0], other=True,
+                       plain_reps=REPS if log_n == TREE_LOG else 1)
         # the kernel's own device time, without the wrapper's host work
         got["device_ms"] = kernel_device_ms(
             lambda: sha_leaves(vals, wide=True), r"sha_leaves<1, true>")
@@ -619,15 +619,15 @@ def phase_tree_wide(res: Results, dev) -> None:
                   f"row leaves C={c} (C, 2, 2^{WIDE_ROW_LOG})",
                   sha_row_leaves(cols, wide=True),
                   sha256_row_leaves(cols, wide=True))
-    c, log = WIDE_ROW_TIME
-    cols = rand_words_dev(gen, (c, 2, 1 << log), dev)
-    what = f"row leaves C={c} ({c}, 2, 2^{log})"
+    c, log_n = WIDE_ROW_TIME
+    cols = rand_words_dev(gen, (c, 2, 1 << log_n), dev)
+    what = f"row leaves C={c} ({c}, 2, 2^{log_n})"
     res.check("K3 wide row form", what, sha_row_leaves(cols, wide=True),
               sha256_row_leaves(cols, wide=True))
     res.time("K3 wide row form", what,
              lambda: sha_row_leaves(cols, wide=True),
              lambda: sha256_row_leaves(cols, wide=True),
-             res.card.bound((8 * c + 32) << log, SHA_OPS << log))
+             res.card.bound((8 * c + 32) << log_n, SHA_OPS << log_n))
     del cols
     torch.cuda.empty_cache()
 
