@@ -604,14 +604,10 @@ def phase_tree_wide(res: Results, dev) -> None:
         res.check("K3 wide", f"{what} (plain in 2^{TREE_LOG} slices)",
                   sha_leaves(vals, wide=True), plain())
         # each limb pair read once (8 bytes), each digest written once
-        got = res.time("K3 wide", what, lambda: sha_leaves(vals, wide=True),
-                       plain, res.card.bound(40 * n, SHA_OPS * n),
-                       row=log_n == WIDE_LEAVES_LOGS[0], other=True,
-                       plain_reps=REPS if log_n == TREE_LOG else 1)
-        # the kernel's own device time, without the wrapper's host work
-        got["device_ms"] = kernel_device_ms(
-            lambda: sha_leaves(vals, wide=True), r"sha_leaves<1, true>")
-        log(f"K3 wide {what}: device ms {json.dumps(got['device_ms'])}")
+        res.time("K3 wide", what, lambda: sha_leaves(vals, wide=True), plain,
+                 res.card.bound(40 * n, SHA_OPS * n),
+                 row=log_n == WIDE_LEAVES_LOGS[0], other=True,
+                 plain_reps=REPS if log_n == TREE_LOG else 1)
         del vals
     for c in range(1, 7):
         cols = rand_words_dev(gen, (c, 2, 1 << WIDE_ROW_LOG), dev)
