@@ -583,7 +583,8 @@ def phase_tree_wide(res: Results, dev) -> None:
     """K3's 64-bit mode (Goldilocks limb planes): one column at 2^22 and
     2^26 leaves, the row form at C = 1..6 over 2^20 rows and C = 2 over
     2^22 rows, each exact against its plain version (in 2^22-leaf slices)
-    and timed.  The words are any 32-bit values: the kernel hashes
+    and timed (the 2^22 shapes in the kernels line, the others under
+    its "shapes").  The words are any 32-bit values: the kernel hashes
     hi || lo whatever they are."""
     from stark_tpu_torch.hash.cuda_sha import sha_leaves, sha_row_leaves
     from stark_tpu_torch.hash.sha256 import (sha256_row_leaves,
@@ -611,10 +612,15 @@ def phase_tree_wide(res: Results, dev) -> None:
         del vals
     for c in range(1, 7):
         cols = rand_words_dev(gen, (c, 2, 1 << WIDE_ROW_LOG), dev)
-        res.check("K3 wide row form",
-                  f"row leaves C={c} (C, 2, 2^{WIDE_ROW_LOG})",
-                  sha_row_leaves(cols, wide=True),
+        what = f"row leaves C={c} ({c}, 2, 2^{WIDE_ROW_LOG})"
+        res.check("K3 wide row form", what, sha_row_leaves(cols, wide=True),
                   sha256_row_leaves(cols, wide=True))
+        res.time("K3 wide row form", what,
+                 lambda: sha_row_leaves(cols, wide=True),
+                 lambda: sha256_row_leaves(cols, wide=True),
+                 res.card.bound((8 * c + 32) << WIDE_ROW_LOG,
+                                SHA_OPS << WIDE_ROW_LOG),
+                 row=False, other=True)
     c, log_n = WIDE_ROW_TIME
     cols = rand_words_dev(gen, (c, 2, 1 << log_n), dev)
     what = f"row leaves C={c} ({c}, 2, 2^{log_n})"
