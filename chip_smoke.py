@@ -39,6 +39,28 @@ and both statements at 2^8 and 2^12 rows, whose transcripts must equal
 the digests the JAX package made on a CPU (``GL_ANCHORS``,
 ``scripts/jax_anchor_digests.py``).
 
+The user's entry points: the declarative families (``families.build_air``
+with their default witnesses) ``tribmul`` (three columns: the batched
+NTT at C = 3, K3's row form at C = 3, 24-byte row openings), ``mimc5``
+and ``mimc5rc`` (degree 5 at blowup 8: LDE 2^23 on the K2 route, 22
+folds; mimc5rc's 8-cycle periodic column) over the u32 field and
+``tribmul`` over Goldilocks (K3's 64-bit row form at C = 3, six value
+slots a row opening), each at 2^20 rows as the proves above (pinned
+digests, launches checked) with its Python host-trace wall, and at 2^8
+rows in both fields against the JAX package's digests
+(``FAMILY_ANCHORS``); the kernels at those shapes against their plain
+versions (the batched NTT at (3, 2^20) and (3, 2^22), K3's row form at
+C = 3 over 2^22 rows in both modes, K5's query form on both tribmul
+plans).  Then the prover daemon, ``python -m stark_tpu_torch serve``
+started without ``--cpu`` as a child process: its ping must name the
+card; it answers ``warm``, the four family proves (one in the
+compressed container), each verified and equal to the in-process
+transcript, a client process's prove (which must leave CUDA
+uninitialised), ``stats`` (the five phase names) and ``shutdown`` (exit
+0, socket removed).  Last the CLI on the card: ``prove --air tribmul
+--log2-trace 20 --blowup 4``, ``verify`` (exit 0) and ``verify`` of a
+copy with one byte flipped (exit 1, REJECTED).
+
 The ``kernels`` line gives each kernel's time and its plain version's
 (CUDA events, median of 5 after a warm-up) beside its bound: the larger
 of the bytes it must move over 3.35 TB/s and its 32-bit integer
@@ -50,7 +72,7 @@ this run (printed beside the assumed 4 cycles).
 
 ``--profile`` then adds where a warm prove spends its time, for the
 Fibonacci-square proves at 2^20 and 2^24 rows, MiMC³ at 2^20, FibMul at
-2^24 and FibMul-GL at 2^20: a phase split synced after each phase (and
+2^24, FibMul-GL and tribmul at 2^20: a phase split synced after each phase (and
 the cold build of the AIR's context, which a warm prove takes from its
 cache), five warm walls, and one prove under ``torch.profiler`` (device
 busy time, the kernels' shares; the full tables go to
@@ -103,7 +125,20 @@ PROVES = {"2^20": (_CFG20, None, {}), "2^24": (_CFG24, None, {}),
           "FibMul 2^24": (_CFG24, "fibmul", _FIBMUL),
           "GL 2^20": (dict(_CFG20, **_GL), None, {}),
           "FibMul-GL 2^20": (dict(_CFG20, **_GL), "fibmul", _FIBMUL)}
-PROFILED = ("2^20", "2^24", "MiMC 2^20", "FibMul 2^24", "FibMul-GL 2^20")
+# the declarative families (stark_tpu_torch/stark/families.py), proved with
+# their default witnesses through families.build_air: (configuration,
+# family name, unused); mimc5's degree 5 needs blowup 8 (LDE 2^23, the K2
+# route)
+FAMILY_PROVES = ("tribmul 2^20", "mimc5 2^20", "mimc5rc 2^20",
+                 "tribmul-GL 2^20")
+PROVES.update({"tribmul 2^20": (_CFG20, "tribmul", {}),
+               "mimc5 2^20": (dict(_CFG20, blowup=8), "mimc5", {}),
+               "mimc5rc 2^20": (dict(_CFG20, blowup=8), "mimc5rc", {}),
+               "tribmul-GL 2^20": (dict(_CFG20, **_GL), "tribmul", {})})
+# the daemon's compressed prove
+SERVE_COMPRESSED = "mimc5 2^20"
+PROFILED = ("2^20", "2^24", "MiMC 2^20", "FibMul 2^24", "FibMul-GL 2^20",
+            "tribmul 2^20")
 # the Goldilocks memory table: FibMul-GL cold and warm walls and peak
 # device memory at these trace sizes (2^20 is the prove above)
 GL_MEMORY_LOGS = (14, 18)
@@ -119,12 +154,30 @@ GL_ANCHORS = {
         "a323f01017905e71b3c6abd20fcbe6f8cb09effca2f207ee2437491a9704bb62",
     ("FibMul-GL", 12):
         "b952943b2ea26d13b0fd1dde1c10a624cb127ba30b4ed04b3e42b9f68e89e512"}
+# SHA-256 transcript digests of the families' proves (default witnesses,
+# 16 queries, blowup 4; 8 for the mimc5 families) made by the JAX package
+# on a CPU (scripts/jax_anchor_digests.py --families 8): "-GL" names the
+# Goldilocks field
+FAMILY_ANCHORS = {
+    ("tribmul", 8):
+        "3a2c41b6434f1a713e21d66bdf4c6e5ea2801c16a1758e9a4642184805ed033b",
+    ("mimc5", 8):
+        "d0cc06bd4875cc2b8356267155692c7b10699f208d2e89f42f994336b6f7ea25",
+    ("mimc5rc", 8):
+        "b7db133397b074e5731b00f5d2ba50d4d42b1e5ec92079cb89628a4068e6dbaa",
+    ("tribmul-GL", 8):
+        "3367ea62a747e25d0834795ce28a597b4b70cd9c9394eab58c9d55aae3ee971b",
+    ("mimc5-GL", 8):
+        "9e23e7fc2a5717edc97123dcc7b039fe0a415ee18b2df1c161b7e3d6ccda9e5f",
+    ("mimc5rc-GL", 8):
+        "64059236980cd5bd6aa1a831312b0e0d7af9685cb90c475384d419be11f9c8ef"}
 # SHA-256 of each prove's transcript (its messages concatenated): the
 # fib-sq ones are those of the port before the multi-column machinery
 # (commit 1ea9dbe), which the proves must keep byte for byte; the others
-# pin the MiMC³ / FibMul and Goldilocks transcripts of the port that added
-# them (the Goldilocks ones beside GL_ANCHORS, which tie them to the JAX
-# package at 2^8 and 2^12 rows)
+# pin the MiMC³ / FibMul, Goldilocks and family transcripts of the port
+# that added them (the Goldilocks ones beside GL_ANCHORS and the families
+# beside FAMILY_ANCHORS, which tie them to the JAX package at 2^8 and
+# 2^12 rows)
 TRANSCRIPT_SHA256 = {
     "2^20": "c6eccf09e57fe3ac5b23b41b67a0415d88edec9305b7f59804eac2940e37c2b8",
     "2^24": "d513cf301e6e8c7e2d25c012b971a8f0d84944015ad71f73b9e7a3d3668f7367",
@@ -137,7 +190,15 @@ TRANSCRIPT_SHA256 = {
     "GL 2^20":
         "1457c7cb962b4dea89e0493cdf81b382b4b0a07d9fdd9663e457f48ba33aef7e",
     "FibMul-GL 2^20":
-        "5f29c58dad47b69912921082679883e05b119e97aa50be84c03481dd2b21f1b0"}
+        "5f29c58dad47b69912921082679883e05b119e97aa50be84c03481dd2b21f1b0",
+    "tribmul 2^20":
+        "42105bfc89172dac1855f6468df6bda44cd03fd351421b7ba1ede1a2fedd7e34",
+    "mimc5 2^20":
+        "a4c1c713796f12294bd444846992d1d3863d85ed3c6f57f536c3f92ba3816a4d",
+    "mimc5rc 2^20":
+        "1c5c0a20a28dcff0a8ad87dff9c98abacc18039927e47ed17adcf332c515048c",
+    "tribmul-GL 2^20":
+        "07e9aabf756d07fac56c4e5ddf0e6d45e29e72d070e6d0ea1abba800a61e05b5"}
 # the prove whose launch counts fill each row of the kernels line (rows
 # not named here: the 2^24 Fibonacci-square prove)
 ROW_PATH = {"K1": "2^20", "K1 batched": "FibMul 2^20",
@@ -156,6 +217,10 @@ for _kw in (_CFG20, _CFG24):
 # shapes (timed), and under a shrunk block budget (narrow column groups)
 NTT_COLS = 2
 NTT_BATCHED_REDUCED = ((8, 13), (8, 16))
+# tribmul's three columns at its 2^20 prove's shapes: (log n, inverse)
+NTT_FAMILY_COLS, NTT_FAMILY_SHAPES = 3, ((20, True), (22, False))
+# K3's row form at tribmul's trace tree: C = 3 over 2^22 rows, both modes
+ROW_FAMILY = (3, 22)
 # K3's row form: every column count at 2^20 rows, FibMul's 2^26-row tree
 ROW_LEAVES_LOG, ROW_LEAVES_TIME = 20, (2, 26)
 # K5's query form on row messages: the FibMul 2^24 prove's plan (C = 2,
@@ -165,7 +230,10 @@ ROW_LEAVES_LOG, ROW_LEAVES_TIME = 20, (2, 26)
 QUERY_ROW_PLANS = {"FibMul 2^24 plan (C = 2)": ("FibMul 2^24", None),
                    "6-column 2^20 plan": ("FibMul 2^20", 6),
                    "FibMul-GL 2^20 plan (C = 2, 64-bit values)":
-                       ("FibMul-GL 2^20", None)}
+                       ("FibMul-GL 2^20", None),
+                   "tribmul 2^20 plan (C = 3)": ("tribmul 2^20", None),
+                   "tribmul-GL 2^20 plan (C = 3, 64-bit values)":
+                       ("tribmul-GL 2^20", None)}
 QUERY_ROW_PLAN_IN_ROW = "FibMul 2^24 plan (C = 2)"
 # K3's 64-bit mode: one column at the Goldilocks 2^20 paths' 2^22 leaves
 # (in the kernels line) and at 2^26; the row form at every column count
@@ -479,6 +547,24 @@ def phase_ntt(res: Results, dev) -> None:
                     f"{json.dumps(got['passes_ms'])}")
         del x
         torch.cuda.empty_cache()
+    # tribmul's three columns (one launch of each pass), each column also
+    # against Stockham
+    for log_n, inverse in NTT_FAMILY_SHAPES:
+        x = rand_u32_dev(gen, (NTT_FAMILY_COLS, 1 << log_n), P, dev)
+        what = (f"{'intt' if inverse else 'ntt'} ({NTT_FAMILY_COLS}, "
+                f"2^{log_n})")
+        got = ntt_k1(x, P, inverse)
+        res.check("K1 batched", f"{what} vs its passes", got,
+                  ntt_passes_plain(x, P, inverse))
+        for c in range(NTT_FAMILY_COLS):
+            res.check("K1 batched", f"{what} column {c} vs Stockham", got[c],
+                      ntt_plain(x[c], P, inverse))
+        b = res.card.ntt_bound(1 << log_n, inverse)
+        res.time("K1 batched", what, lambda: ntt_k1(x, P, inverse),
+                 lambda: ntt_passes_plain(x, P, inverse),
+                 (NTT_FAMILY_COLS * b[0], b[1]), row=False, other=True)
+        del x, got
+    torch.cuda.empty_cache()
     saved = cuda_ntt.BLOCK_LOG
     try:
         for block_log, log_n in NTT_BATCHED_REDUCED:
@@ -571,6 +657,17 @@ def phase_tree(res: Results, dev) -> None:
         return torch.cat([sha256_row_leaves(cols[:, k:k + sl])
                           for k in range(0, 1 << log, sl)])
 
+    # tribmul's trace tree: C = 3 over 2^22 rows
+    fc, flog = ROW_FAMILY
+    fcols = rand_u32_dev(gen, (fc, 1 << flog), P, dev)
+    what = f"row leaves C={fc} n=2^{flog}"
+    res.check("K3 row form", what, sha_row_leaves(fcols),
+              sha256_row_leaves(fcols))
+    res.time("K3 row form", what, lambda: sha_row_leaves(fcols),
+             lambda: sha256_row_leaves(fcols),
+             res.card.bound((4 * fc + 32) << flog, SHA_OPS << flog),
+             row=False, other=True)
+    del fcols
     res.check("K3 row form", f"row leaves C={c} n=2^{log} (plain in "
               f"2^{TREE_LOG} slices)", sha_row_leaves(cols), rows_sliced())
     # the columns read once (4 bytes a value), the digests written once
@@ -621,6 +718,16 @@ def phase_tree_wide(res: Results, dev) -> None:
                  res.card.bound((8 * c + 32) << WIDE_ROW_LOG,
                                 SHA_OPS << WIDE_ROW_LOG),
                  row=False, other=True)
+    c, log_n = ROW_FAMILY  # tribmul-GL's trace tree
+    cols = rand_words_dev(gen, (c, 2, 1 << log_n), dev)
+    what = f"row leaves C={c} ({c}, 2, 2^{log_n})"
+    res.check("K3 wide row form", what, sha_row_leaves(cols, wide=True),
+              sha256_row_leaves(cols, wide=True))
+    res.time("K3 wide row form", what,
+             lambda: sha_row_leaves(cols, wide=True),
+             lambda: sha256_row_leaves(cols, wide=True),
+             res.card.bound((8 * c + 32) << log_n, SHA_OPS << log_n),
+             row=False, other=True)
     c, log_n = WIDE_ROW_TIME
     cols = rand_words_dev(gen, (c, 2, 1 << log_n), dev)
     what = f"row leaves C={c} ({c}, 2, 2^{log_n})"
@@ -861,12 +968,25 @@ def reset_counts() -> None:
             setattr(fn, a, 0)
 
 
+def family_secret(family: str) -> int:
+    """The family's default witness value that build_air takes as the
+    secret (tribmul's b0, the mimc5 families' x0)."""
+    from stark_tpu_torch.stark.families import FAMILIES
+
+    spec, key = FAMILIES[family]
+    return spec.witness_params()["witness"][key]
+
+
 def prove_setup(name: str):
-    """(config, AIR or None for the default statement) of a prove."""
+    """(config, AIR or None for the default statement) of a prove; a
+    family through families.build_air with its default witness."""
     from stark_tpu_torch.config import ProverConfig
     from stark_tpu_torch.stark import FibMulAIR, MimcAIR
+    from stark_tpu_torch.stark.families import FAMILIES, build_air
 
     kw, air, args = PROVES[name]
+    if air in FAMILIES:
+        return ProverConfig(**kw), build_air(air, family_secret(air))
     cls = {None: None, "mimc3": MimcAIR, "fibmul": FibMulAIR}[air]
     return ProverConfig(**kw), cls(**args) if cls else None
 
@@ -992,7 +1112,7 @@ def phase_prove(res: Results, dev, name: str) -> dict:
         if name == ROW_PATH.get(k, PATH):
             res.rows[k]["launches"] = count
     return {"cold_s": round(cold_s, 3), "warm_s": round(warm_s, 3),
-            "peak_mib": round(peak / 2**20, 1)}
+            "peak_mib": round(peak / 2**20, 1), "sha256": digest}
 
 
 def phase_gl_memory(dev, at_2e20: dict) -> None:
@@ -1033,6 +1153,210 @@ def phase_anchors(dev) -> None:
                                  f"{got} != the JAX package's {want}")
         log(f"anchor {statement} 2^{log2}: transcript sha256 {got}, equal "
             "to the JAX package's")
+    from stark_tpu_torch.stark.families import build_air
+
+    for (statement, log2), want in FAMILY_ANCHORS.items():
+        family = statement.removesuffix("-GL")
+        cfg = ProverConfig(log2_trace=log2, num_queries=16,
+                           blowup=8 if family.startswith("mimc5") else 4,
+                           **(_GL if statement.endswith("-GL") else {}))
+        air = build_air(family, family_secret(family))
+        got = hashlib.sha256(b"".join(
+            prove(cfg, air=air, device=dev).proof)).hexdigest()
+        if got != want:
+            raise AssertionError(f"{statement} 2^{log2}: transcript sha256 "
+                                 f"{got} != the JAX package's {want}")
+        log(f"anchor {statement} 2^{log2}: transcript sha256 {got}, equal "
+            "to the JAX package's")
+
+
+def phase_families(res: Results, dev) -> dict:
+    """The declarative families at 2^20 rows (FAMILY_PROVES), each through
+    phase_prove (cold and warm, pinned digest, verified, tamper-rejected,
+    launches checked), then the Python host trace's wall on its own.
+    Returns each prove's walls, peak and digest."""
+    out = {}
+    for name in FAMILY_PROVES:
+        out[name] = phase_prove(res, dev, name)
+        cfg, air = prove_setup(name)
+        t0 = time.perf_counter()
+        air.host_trace(cfg)
+        out[name]["host_trace_ms"] = round(
+            (time.perf_counter() - t0) * 1e3, 3)
+        log(f"{name}: Python AirSpec host trace {out[name]['host_trace_ms']}"
+            f" ms ({cfg.trace_length} rows)")
+    log(f"family proves: {json.dumps(out)}")
+    return out
+
+
+def _run(args, timeout=600, **kw) -> subprocess.CompletedProcess:
+    """A child Python process of the port, from the checkout's root."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    return subprocess.run([sys.executable, *args], cwd=root, env=env,
+                          capture_output=True, text=True, timeout=timeout,
+                          **kw)
+
+
+def phase_serve(families: dict) -> None:
+    """The prover daemon on the card: ``python -m stark_tpu_torch serve``
+    (no --cpu) as a child process, loading the kernels built above; ping,
+    warm, the four family proves (one compressed) whose proofs must
+    verify and equal the in-process digests, a client process that must
+    not initialise CUDA, stats, shutdown (exit 0, socket removed).  The
+    daemon is killed in any case."""
+    import shutil
+    import tempfile
+
+    from stark_tpu_torch import serve
+    from stark_tpu_torch.stark import verify
+
+    drop_plans()  # leave the card's memory to the daemon
+    tmp = tempfile.mkdtemp(prefix="stt")
+    sock = os.path.join(tmp, "d.sock")
+    if len(sock) > 100:  # AF_UNIX paths end at 108 bytes
+        sock = os.path.relpath(sock)
+    log_path = os.path.join(tmp, "daemon.log")
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(log_path, "w") as fh:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "stark_tpu_torch", "serve", "--socket",
+             sock], env=dict(os.environ, PYTHONPATH=root), stdout=fh,
+            stderr=subprocess.STDOUT)
+    try:
+        t0 = time.perf_counter()
+        while True:
+            try:
+                info = serve.ping(sock)
+                break
+            except (ConnectionError, OSError):
+                if proc.poll() is not None:
+                    raise AssertionError(
+                        f"daemon exited rc={proc.returncode} before serving")
+                if time.perf_counter() - t0 > 300:
+                    raise AssertionError("daemon did not serve in 300 s")
+                time.sleep(0.25)
+        log(f"daemon up in {time.perf_counter() - t0:.3f} s: {info}")
+        kind = torch.cuda.get_device_name(0)
+        if info["platform"] != "gpu" or info["device"] != kind:
+            raise AssertionError(f"daemon ping {info}: not the card {kind}")
+        cfg, _ = prove_setup(FAMILY_PROVES[0])
+        t0 = time.perf_counter()
+        resp = serve.request({"op": "warm",
+                              "config": serve._config_to_wire(cfg),
+                              "air": PROVES[FAMILY_PROVES[0]][1],
+                              "secret": family_secret("tribmul")}, sock)
+        if not resp.get("ok") or "proof_b64" in resp:
+            raise AssertionError(f"daemon warm: {resp}")
+        log(f"daemon warm ({FAMILY_PROVES[0]}): {resp['wall_s']:.3f} s in "
+            f"the daemon, {time.perf_counter() - t0:.3f} s round trip")
+        for name in FAMILY_PROVES:
+            cfg, _ = prove_setup(name)
+            family = PROVES[name][1]
+            t0 = time.perf_counter()
+            proof = serve.daemon_prove(
+                cfg, air=family, secret=family_secret(family),
+                compress=name == SERVE_COMPRESSED, socket_path=sock)
+            wall = time.perf_counter() - t0
+            verify(proof, expected_config=cfg)
+            digest = hashlib.sha256(b"".join(proof.proof)).hexdigest()
+            if digest != families[name]["sha256"]:
+                raise AssertionError(f"daemon {name}: transcript {digest} != "
+                                     "the in-process prove's")
+            packed = " (compressed container)" * (name == SERVE_COMPRESSED)
+            log(f"daemon prove {name}{packed}: {wall:.3f} s round trip, "
+                "verified, transcript equal to the in-process prove's")
+        # a thin client: its prove verifies, and it never touches the card
+        code = ("import hashlib, torch\n"
+                "from stark_tpu_torch import serve\n"
+                "from stark_tpu_torch.config import ProverConfig\n"
+                "from stark_tpu_torch.stark import verify\n"
+                f"pr = serve.daemon_prove(ProverConfig(**{_CFG20!r}), "
+                f"air='tribmul', secret={family_secret('tribmul')}, "
+                f"socket_path={os.path.abspath(sock)!r})\n"
+                "verify(pr)\n"
+                "print(hashlib.sha256(b''.join(pr.proof)).hexdigest(), "
+                "torch.cuda.is_initialized())\n")
+        res = _run(["-c", code])
+        want = f"{families[FAMILY_PROVES[0]]['sha256']} False"
+        if res.returncode != 0 or res.stdout.strip() != want:
+            raise AssertionError(f"client process: rc {res.returncode}, "
+                                 f"{res.stdout} {res.stderr[-2000:]}")
+        log("client process: daemon prove verified, transcript equal, "
+            "torch.cuda.is_initialized() False")
+        stats = serve.request({"op": "stats"}, sock)
+        names = {ph["name"] for ph in stats["metrics"]["phases"]}
+        phases = ("trace-lde", "trace-commit", "composition", "fri-commit",
+                  "queries")
+        if not set(phases) <= names:
+            raise AssertionError(f"daemon stats phases {sorted(names)}")
+        log(f"daemon stats: {stats['proves']} proves, phases "
+            f"{sorted(names)}, counters {stats['metrics']['counters']}")
+        if not serve.request({"op": "shutdown"}, sock).get("ok"):
+            raise AssertionError("daemon shutdown refused")
+        rc = proc.wait(timeout=120)
+        if rc != 0 or os.path.exists(sock):
+            raise AssertionError(f"daemon exit {rc}; socket left: "
+                                 f"{os.path.exists(sock)}")
+        log("daemon shut down: exit 0, socket removed")
+    except BaseException:
+        with open(log_path) as fh:
+            log("daemon log (tail):\n" + fh.read()[-4000:])
+        raise
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_cli(families: dict) -> None:
+    """``python -m stark_tpu_torch prove`` on the card (no --cpu) of
+    tribmul at 2^20 rows, ``verify`` of its file (exit 0) and of a copy
+    with one byte flipped (exit 1, REJECTED)."""
+    import shutil
+    import tempfile
+
+    from stark_tpu_torch.stark import StarkProof
+
+    tmp = tempfile.mkdtemp(prefix="stt")
+    try:
+        out = os.path.join(tmp, "p.json")
+        t0 = time.perf_counter()
+        res = _run(["-m", "stark_tpu_torch", "prove", "--air", "tribmul",
+                    "--log2-trace", "20", "--blowup", "4", "--secret",
+                    str(family_secret("tribmul")), "-o", out])
+        wall = time.perf_counter() - t0
+        if res.returncode != 0:
+            raise AssertionError(f"CLI prove: rc {res.returncode}\n"
+                                 f"{res.stderr[-3000:]}")
+        proof = StarkProof.deserialize(open(out, "rb").read())
+        digest = hashlib.sha256(b"".join(proof.proof)).hexdigest()
+        if digest != families["tribmul 2^20"]["sha256"]:
+            raise AssertionError(f"CLI proof transcript {digest} != the "
+                                 "in-process prove's")
+        log(f"CLI prove --air tribmul --log2-trace 20 --blowup 4: rc 0, "
+            f"{wall:.3f} s (process included), transcript equal to the "
+            f"in-process prove's; {res.stderr.strip().splitlines()[-1]}")
+        res = _run(["-m", "stark_tpu_torch", "verify", out])
+        if res.returncode != 0:
+            raise AssertionError(f"CLI verify: rc {res.returncode}\n"
+                                 f"{res.stderr[-3000:]}")
+        k = len(proof.proof) // 2
+        msg = bytearray(proof.proof[k])
+        msg[0] ^= 1
+        proof.proof[k] = bytes(msg)
+        bad = os.path.join(tmp, "bad.json")
+        with open(bad, "wb") as fh:
+            fh.write(proof.serialize())
+        res = _run(["-m", "stark_tpu_torch", "verify", bad])
+        if res.returncode != 1 or "REJECTED" not in res.stderr:
+            raise AssertionError(f"CLI verify of a tampered proof: rc "
+                                 f"{res.returncode}\n{res.stderr[-3000:]}")
+        log("CLI verify: rc 0; tampered copy (message "
+            f"{k}): rc 1, REJECTED")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 # the phase split's step that a warm prove skips (its context is cached)
@@ -1077,7 +1401,8 @@ def phase_split(cfg, air, dev) -> dict:
     p, h = cfg.modulus, cfg.offset
     plan = query_plan(cfg, air)
     host = air.host_trace(cfg)
-    mark("host trace (native)")
+    mark("host trace (" + ("Python AirSpec loop" if hasattr(air, "step")
+                           else "native") + ")")
     trace = upload_u32(host, dev)
     mark("upload")
     coeffs = trace_polynomial(trace, p)
@@ -1244,9 +1569,14 @@ def main() -> int:
     phase_tree_wide(res, dev)
     phase_chain(res, dev)
     phase_golden()
-    walls = {name: phase_prove(res, dev, name) for name in PROVES}
-    phase_gl_memory(dev, walls["FibMul-GL 2^20"])
+    walls = {name: phase_prove(res, dev, name) for name in PROVES
+             if name not in FAMILY_PROVES}
+    families = phase_families(res, dev)
+    phase_gl_memory(dev, {k: v for k, v in walls["FibMul-GL 2^20"].items()
+                          if k != "sha256"})
     phase_anchors(dev)
+    phase_serve(families)
+    phase_cli(families)
     if args.profile:
         for name in PROFILED:
             phase_profile(dev, name)

@@ -105,6 +105,12 @@ class Fp:
         """A canonical constant as a 0-dim int64 tensor."""
         return torch.tensor(int(value) % self.p, device=device)
 
+    def array(self, values, device=None) -> torch.Tensor:
+        """A flat sequence of Python ints -> int64 canonical values (the
+        width-1 counterpart of ``Fp64Goldilocks.array``)."""
+        return torch.tensor([int(v) % self.p for v in values],
+                            dtype=torch.int64, device=device)
+
     @staticmethod
     def arith(x: torch.Tensor) -> torch.Tensor:
         """Storage -> the layout the ops take (the same, width 1)."""

@@ -71,13 +71,28 @@ def config_fields(cfg: ProverConfig) -> dict:
 
 
 def air_from(jax_air):
-    """The port's AIR of the same statement as a JAX package AIR, rebuilt
-    from its `name` and `witness_params()` (a declarative AirSpec raises:
-    ROADMAP Queue 1 item 11)."""
+    """The port's AIR of the same statement as a JAX package AIR: a
+    hand-written one rebuilt from its `name` and `witness_params()`; a
+    declarative AirSpec rebuilt from its constructor fields (the step and
+    transition functions are field-generic, so the same objects serve
+    both packages) and bound to its witness and params.  The copy is not
+    registered."""
     from stark_tpu_torch.stark.air import (FibMulAIR, FibonacciSquareAIR,
-                                           MimcAIR, air_from_name)
+                                           MimcAIR)
+    from stark_tpu_torch.stark.air_builder import AirSpec, Boundary
 
     for cls in (FibonacciSquareAIR, MimcAIR, FibMulAIR):
         if jax_air.name == cls.name:
             return cls(**jax_air.witness_params())
-    return air_from_name(jax_air.name, {})  # raises: not ported, unknown
+    if not hasattr(jax_air, "params_spec"):
+        raise ValueError(f"unknown AIR {jax_air.name!r}")
+    spec = AirSpec(
+        name=jax_air.name, columns=jax_air.num_columns, init=jax_air.init,
+        step=jax_air.step, transitions=jax_air.transitions,
+        shifts=jax_air.shifts,
+        boundaries=[Boundary(b.column, b.row, b.public)
+                    for b in jax_air.boundaries],
+        params=jax_air.params_spec, periodic=jax_air.periodic,
+        register=False)
+    bound = jax_air.witness_params()
+    return spec(**bound["witness"], **bound["params"])

@@ -1,8 +1,11 @@
 """The STARK pipeline: trace, AIR, prover and verifier."""
 
-from stark_tpu_torch.stark.air import FibMulAIR, FibonacciSquareAIR, MimcAIR
+from stark_tpu_torch.stark.air import (FibMulAIR, FibonacciSquareAIR, MimcAIR,
+                                       air_from_name)
+from stark_tpu_torch.stark.air_builder import AirSpec, Boundary, register_spec
 from stark_tpu_torch.stark.prover import StarkProof, prove
 from stark_tpu_torch.stark.verifier import StarkVerificationError, verify
 
-__all__ = ["FibonacciSquareAIR", "MimcAIR", "FibMulAIR", "StarkProof",
-           "prove", "verify", "StarkVerificationError"]
+__all__ = ["FibonacciSquareAIR", "MimcAIR", "FibMulAIR", "air_from_name",
+           "AirSpec", "Boundary", "register_spec", "StarkProof", "prove",
+           "verify", "StarkVerificationError"]

@@ -17,8 +17,7 @@ runs over a u32 field or the Goldilocks field: there a column is (2, M)
 limb planes (a C-column LDE (C, 2, M)), constants are (2, 1) pairs and
 the drawn alphas (2,) pairs, so the same code broadcasts plane by
 plane.  The
-declarative AirSpecs (``stark_tpu/stark/air_builder.py`` and
-``families.py``) wait for ROADMAP Queue 1 item 11.
+declarative AirSpecs are ``air_builder.py`` and ``families.py``.
 """
 
 from __future__ import annotations
@@ -323,21 +322,20 @@ class FibMulAIR:
         return sum(al * t % p for al, t in zip(alphas, terms)) % p
 
 
-# the JAX package's declarative families (stark_tpu/stark/families.py)
-AIRSPEC_FAMILIES = ("tribmul", "mimc5", "mimc5rc")
-
-
 def air_from_name(name: str, publics: dict):
     """The verifier-side AIR a proof names, from its publics (as
-    ``stark_tpu/stark/air.py:597-611``)."""
+    ``stark_tpu/stark/air.py:597-611``): a registered AirSpec first, then
+    the hand-written AIRs."""
+    import stark_tpu_torch.stark.families  # noqa: F401  (registers them)
+    from stark_tpu_torch.stark.air_builder import lookup_spec
+
+    spec = lookup_spec(name)
+    if spec is not None:
+        return spec
     if name == FibonacciSquareAIR.name:
         return FibonacciSquareAIR(a0=publics.get("a0", 1))
     if name == MimcAIR.name:
         return MimcAIR(x0=publics.get("input", 0), k=publics.get("k", 0))
     if name == FibMulAIR.name:
         return FibMulAIR(a0=publics.get("input", 1), b0=publics.get("b0", 1))
-    if name in AIRSPEC_FAMILIES:
-        raise NotImplementedError(
-            f"AIR {name!r} is a declarative AirSpec family, not ported yet "
-            "(ROADMAP Queue 1 item 11)")
     raise ValueError(f"unknown AIR {name!r}")

@@ -28,6 +28,7 @@ import json
 
 import torch
 
+from stark_tpu_torch.channel import compress as _compress
 from stark_tpu_torch.channel import device_query as _dq
 from stark_tpu_torch.channel.channel import Channel
 from stark_tpu_torch.channel.device_channel import DeviceFS, absorb_value
@@ -38,6 +39,7 @@ from stark_tpu_torch.merkle.tree import MerkleTree
 from stark_tpu_torch.ntt.ntt import coset_evaluate
 from stark_tpu_torch.stark.air import FibonacciSquareAIR
 from stark_tpu_torch.stark.trace import trace_polynomial
+from stark_tpu_torch.utils import metrics as _metrics
 
 # which pipeline the last prove() took (the port has one)
 LAST_PROVE_PATH: str | None = None
@@ -87,8 +89,14 @@ class StarkProof:
             "extra_publics": self.extra_publics,
         }
 
-    def serialize(self) -> bytes:
-        """JSON, in the JAX package's format."""
+    def serialize(self, compress: bool = False) -> bytes:
+        """JSON (default) or, with `compress=True`, the binary container
+        `"STP1" varint(header_len) header_json compressed_transcript`
+        (``channel/compress.py``), both in the JAX package's format."""
+        if compress:
+            header = json.dumps(self._header()).encode()
+            return (b"STP1" + _compress._varint(len(header)) + header
+                    + _compress.compress_messages(self.proof))
         obj = self._header()
         obj["proof"] = [m.hex() for m in self.proof]
         return json.dumps(obj).encode()
@@ -96,13 +104,15 @@ class StarkProof:
     @classmethod
     def deserialize(cls, data: bytes) -> "StarkProof":
         if data[:4] == b"STP1":
-            raise NotImplementedError(
-                "the compressed container is not ported yet "
-                "(ROADMAP Queue 1 item 14)")
-        obj = json.loads(data.decode())
+            hlen, pos = _compress._read_varint(data, 4)
+            obj = json.loads(data[pos:pos + hlen].decode())
+            messages = _compress.decompress_messages(data[pos + hlen:])
+        else:
+            obj = json.loads(data.decode())
+            messages = [bytes.fromhex(m) for m in obj["proof"]]
         c = obj["config"]
         return cls(
-            proof=[bytes.fromhex(m) for m in obj["proof"]],
+            proof=messages,
             a0=obj["a0"],
             a_last=obj["a_last"],
             config=ProverConfig(
@@ -119,8 +129,9 @@ _CTX_CACHE: dict = {}
 
 def get_air_context(air, cfg: ProverConfig, device):
     """Per-(AIR, config, device) context cache (the inverse tables; MiMC's
-    round key is part of its context)."""
-    key = (air.name, getattr(air, "k", None), cfg, str(device))
+    round key and an AirSpec's structure are part of its context)."""
+    key = (air.name, getattr(air, "k", None),
+           getattr(air, "context_key", None), cfg, str(device))
     ctx = _CTX_CACHE.get(key)
     if ctx is None:
         ctx = _CTX_CACHE[key] = air.context(cfg, device)
@@ -152,10 +163,16 @@ def query_plan(cfg: ProverConfig, air=None) -> _dq.DeviceQueryPlan:
 
 
 def prove(cfg: ProverConfig, a1: int = 3141592, *, air=None,
-          device="cuda") -> StarkProof:
+          device="cuda", metrics=None) -> StarkProof:
     """Prove a statement of `air` on `device` (default: Fibonacci-square
     with secret a_1): the card by default, where the kernels run; a CPU
-    device runs their plain versions."""
+    device runs their plain versions.
+
+    Every prove records its phase walls (``trace-lde``, ``trace-commit``,
+    ``composition``, ``fri-commit``, ``queries``) and the ``proves`` and
+    ``proof_bytes`` counters: in ``utils.metrics.GLOBAL`` without
+    synchronising the device, or in `metrics`, a MetricsCollector, with
+    each phase ending in ``torch.cuda.synchronize()`` on a CUDA device."""
     if cfg.mesh_shape is not None:
         raise NotImplementedError(
             "sharded proving on several GPUs waits for ROADMAP Queue 1 "
@@ -166,62 +183,80 @@ def prove(cfg: ProverConfig, a1: int = 3141592, *, air=None,
     air.validate(cfg)
     p, M, h = cfg.modulus, cfg.eval_domain_size, cfg.offset
     plan = query_plan(cfg, air)
+    mx = metrics if metrics is not None else _metrics.GLOBAL
+
+    def sync():
+        if metrics is not None and device.type == "cuda":
+            torch.cuda.synchronize(device)
 
     # -- trace + LDE: one upload of the host trace -------------------------
     # (T,), or (C, T) for C columns; (2, T) / (C, 2, T) for Goldilocks
-    trace_host = air.host_trace(cfg)
-    publics = air.publics_from_host(cfg, trace_host)
-    trace = upload_u32(trace_host, device)
-    f_evals = coset_evaluate(trace_polynomial(trace, p), p, M, h)
-    return _prove_single_fetch(cfg, air, Channel(p), f_evals, publics, plan)
+    with mx.phase("trace-lde", n=M):
+        trace_host = air.host_trace(cfg)
+        publics = air.publics_from_host(cfg, trace_host)
+        trace = upload_u32(trace_host, device)
+        f_evals = coset_evaluate(trace_polynomial(trace, p), p, M, h)
+        sync()
+    return _prove_single_fetch(cfg, air, Channel(p), f_evals, publics, plan,
+                               mx, sync)
 
 
-def _prove_single_fetch(cfg, air, channel, f_evals, publics,
-                        plan) -> StarkProof:
+def _prove_single_fetch(cfg, air, channel, f_evals, publics, plan, mx,
+                        sync) -> StarkProof:
     global LAST_PROVE_PATH
     LAST_PROVE_PATH = "single-fetch"
     p, h = cfg.modulus, cfg.offset
     device = f_evals.device
     wide = Fp.get(p).width == 2
+    num_folds = len(plan.fri_lengths) - 1
 
-    trace_tree = (MerkleTree.from_columns(f_evals, wide=wide)
-                  if air.num_columns > 1 else MerkleTree(f_evals, wide=wide))
-    fs = DeviceFS(p, channel.state, device=device)
-    fs.mark("trace-commit")
-    fs.absorb_root(trace_tree.root_digest)
-    alphas = tuple(fs.draw() for _ in range(air.num_alphas))
+    with mx.phase("trace-commit", leaves=cfg.eval_domain_size):
+        trace_tree = (MerkleTree.from_columns(f_evals, wide=wide)
+                      if air.num_columns > 1
+                      else MerkleTree(f_evals, wide=wide))
+        fs = DeviceFS(p, channel.state, device=device)
+        fs.mark("trace-commit")
+        fs.absorb_root(trace_tree.root_digest)
+        alphas = tuple(fs.draw() for _ in range(air.num_alphas))
+        sync()
 
     fs.mark("composition")
-    cp = get_air_context(air, cfg, device).compose(f_evals, alphas, publics)
-    fri = fri_commit(cp, p, h, fs, num_folds=len(plan.fri_lengths) - 1)
+    with mx.phase("composition"):
+        cp = get_air_context(air, cfg, device).compose(f_evals, alphas,
+                                                       publics)
+        sync()
+    with mx.phase("fri-commit", folds=num_folds):
+        fri = fri_commit(cp, p, h, fs, num_folds=num_folds)
+        sync()
 
-    # the canonical transcript sends the final FRI constant before the
-    # query draws: advance the device state over that send too
-    last = fri.fri_layers[-1]
-    fs.state = absorb_value(fs.state, *final_words(last, wide))
+    with mx.phase("queries", num_queries=cfg.num_queries):
+        # the canonical transcript sends the final FRI constant before the
+        # query draws: advance the device state over that send too
+        last = fri.fri_layers[-1]
+        fs.state = absorb_value(fs.state, *final_words(last, wide))
 
-    dev = plan.run_device(fs.state, f_evals, trace_tree.buffer, fri.values,
-                          fri.digests)
+        dev = plan.run_device(fs.state, f_evals, trace_tree.buffer,
+                              fri.values, fri.digests)
 
-    # THE one device->host copy: every payload, packed into one buffer
-    pieces = [t.reshape(-1).to(torch.int32)
-              for t in (*fs.payloads(), last, *dev)]
-    host = torch.cat(pieces).cpu().numpy()
-    parts, pos = [], 0
-    for t in pieces:
-        parts.append(host[pos:pos + t.numel()])
-        pos += t.numel()
-    n_pay = len(fs.payloads())
-    payload_h, (last_h, final_h, idxs_h, vals_h, digs_h) = (
-        parts[:n_pay], parts[n_pay:])
-    q_n = cfg.num_queries
+        # THE one device->host copy: every payload, packed into one buffer
+        pieces = [t.reshape(-1).to(torch.int32)
+                  for t in (*fs.payloads(), last, *dev)]
+        host = torch.cat(pieces).cpu().numpy()
+        parts, pos = [], 0
+        for t in pieces:
+            parts.append(host[pos:pos + t.numel()])
+            pos += t.numel()
+        n_pay = len(fs.payloads())
+        payload_h, (last_h, final_h, idxs_h, vals_h, digs_h) = (
+            parts[:n_pay], parts[n_pay:])
+        q_n = cfg.num_queries
 
-    fs.replay_fetched(channel, payload_h)
-    fri.final_value = finish_deferred(p, last_h, channel)
-    channel.mark_phase("queries")
-    plan.replay(channel, final_h, idxs_h, vals_h.reshape(q_n, -1),
-                digs_h.reshape(q_n, -1, 8))
-    return _finish_proof(cfg, air, channel, publics)
+        fs.replay_fetched(channel, payload_h)
+        fri.final_value = finish_deferred(p, last_h, channel)
+        channel.mark_phase("queries")
+        plan.replay(channel, final_h, idxs_h, vals_h.reshape(q_n, -1),
+                    digs_h.reshape(q_n, -1, 8))
+    return _finish_proof(cfg, air, channel, publics, mx)
 
 
 def final_words(last: torch.Tensor, wide: bool):
@@ -232,9 +267,11 @@ def final_words(last: torch.Tensor, wide: bool):
     return torch.zeros_like(last[0]), last[0]
 
 
-def _finish_proof(cfg, air, channel, publics) -> StarkProof:
+def _finish_proof(cfg, air, channel, publics, mx) -> StarkProof:
     """The proof of `publics` (the JAX rule: the first two publics are
     a0 / a_last, the rest go to extra_publics)."""
+    mx.count("proves")
+    mx.count("proof_bytes", sum(len(m) for m in channel.proof))
     pub_vals = list(publics.values())
     extra = {k: v for k, v in publics.items()
              if k not in ("a0", "a_last", "input", "output")}

@@ -204,11 +204,15 @@ def test_air_from_name_reads_the_publics():
 
 
 def test_airspec_families_wait_for_item_11():
+    """The declarative families are ported (ROADMAP item 11): the port
+    ships the JAX package's families, and a JAX family spec maps to the
+    port's spec of the same statement."""
     from stark_tpu.stark.families import FAMILIES
 
-    from stark_tpu_torch.stark.air import AIRSPEC_FAMILIES
+    from stark_tpu_torch.stark.families import FAMILIES as PORT_FAMILIES
 
-    assert set(AIRSPEC_FAMILIES) == set(FAMILIES)
+    assert set(PORT_FAMILIES) == set(FAMILIES)
     spec = FAMILIES["tribmul"][0]
-    with pytest.raises(NotImplementedError, match="item 11"):
-        air_from(spec)
+    air = air_from(spec)
+    assert (air.name, air.num_columns) == ("tribmul", 3)
+    assert air.witness_params() == spec.witness_params()

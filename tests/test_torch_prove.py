@@ -15,6 +15,7 @@ from stark_tpu.config import ProverConfig as JProverConfig
 from stark_tpu.stark import StarkProof as JStarkProof
 from stark_tpu.stark import prove as jprove
 from stark_tpu.stark import verify as jverify
+from stark_tpu_torch.channel.compress import CompressionError
 from stark_tpu_torch.config import ProverConfig
 from stark_tpu_torch.interop import config_fields, config_from
 from stark_tpu_torch.ntt import cuda_ntt
@@ -131,13 +132,16 @@ def test_unported_paths_raise():
     with pytest.raises(ValueError, match="Goldilocks"):
         prove(ProverConfig(modulus=18 * 2**32 + 1, generator=7,
                            log2_trace=4), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        StarkProof.deserialize(b"STP1" + bytes(8))
-    # a declarative AirSpec family: its prover and verifier wait for item
-    # 11
+    # the compressed container and the AirSpec families are ported: a
+    # malformed container and an empty family proof are rejected, not
+    # refused as unported
+    header = b'{"config": {}}'
+    with pytest.raises(CompressionError, match="bad magic"):
+        StarkProof.deserialize(b"STP1" + bytes([len(header)]) + header
+                               + b"TC0")
     tribmul = StarkProof(proof=[], a0=1, a_last=2, air_name="tribmul",
                          config=ProverConfig(log2_trace=5, blowup=4))
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(StarkVerificationError):
         verify(tribmul)
 
 
