@@ -18,14 +18,30 @@ agree and hash (SHA-256 of the messages) to the pinned transcript
 digest, the port's host verifier must accept the proof and reject it
 with one byte flipped, and the kernels of each path must have launched
 (K1 on the 2^20 paths; K2 on the 2^24 paths; one NTT wrapper call per
-transform whatever C, two a prove; K3 once per tree, its row form for
-FibMul's trace tree; K4; K5's query form exactly once per prove).  K5
-has two entry points, the chain form (the channel's absorbs and draws)
-and the query form (all queries of a prove in one launch); both count
-as K5 and both are held against their plain
+transform whatever C, two a prove; K3 once per tree, or once a chunk of
+a chunked tree, its row form for FibMul's trace tree; K4 exactly as the
+trees' stored and pruned levels say; K5's query form exactly once per
+prove).  K5 has two entry points, the chain form (the channel's absorbs
+and draws) and the query form (all queries of a prove in one launch);
+both count as K5 and both are held against their plain
 versions: the chain form on a 5,000-block stream with mixed flags and on
 the proves' query streams, the query form on the 2^20 and 2^24 plans
 and on plans of 2- and 6-column row openings, with seeded trees.
+
+The large-trace path: every tree of the single-fetch prove stores only
+its levels of at most 2^22 nodes (``merkle/tree.py``), a tree of 2^27
+leaves or more builds in chunks of 2^24 leaves, and K5's query form
+recomputes the unstored siblings inside its launch.  The chunked build
+is held against the one-pass pruned build at 2^27 leaves (one u32
+column, the C = 2 row form, the 64-bit mode); the query form with the
+recompute against its plain version on the pruned plans of fib-sq 2^24
+and 2^26, FibMul 2^24 and FibMul-GL 2^22.  Fib-sq is proved at 2^25 and
+2^26 rows (LDE 2^27, 2^28) and FibMul-GL at 2^22 and 2^24 rows as
+above, with pinned digests; fib-sq 2^24 (with warm walls in turns),
+2^25, 2^26 and FibMul-GL 2^22 are proved once more with pruning off
+(``STARK_TPU_TORCH_NO_PRUNE``), which must give the same transcript.
+Every prove's cold run is synced a phase at a time and logs its five
+phases' walls and peak device memory.
 
 Over the Goldilocks field (p = 2^64 - 2^32 + 1, values as (hi, lo) limb
 planes) it holds K3's 64-bit mode against its plain version (one column
@@ -120,6 +136,11 @@ GOLDILOCKS = 2**64 - 2**32 + 1
 _GL = dict(modulus=GOLDILOCKS, generator=7)
 _FIBMUL = dict(a0=1, b0=2718281)
 PROVES = {"2^20": (_CFG20, None, {}), "2^24": (_CFG24, None, {}),
+          "2^25": (dict(_CFG24, log2_trace=25), None, {}),
+          "2^26": (dict(_CFG24, log2_trace=26), None, {}),
+          "FibMul-GL 2^22": (dict(_CFG20, log2_trace=22, **_GL), "fibmul",
+                             _FIBMUL),
+          "FibMul-GL 2^24": (dict(_CFG24, **_GL), "fibmul", _FIBMUL),
           "MiMC 2^20": (_CFG20, "mimc3", dict(x0=271828, k=777)),
           "FibMul 2^20": (_CFG20, "fibmul", _FIBMUL),
           "FibMul 2^24": (_CFG24, "fibmul", _FIBMUL),
@@ -135,9 +156,27 @@ PROVES.update({"tribmul 2^20": (_CFG20, "tribmul", {}),
                "mimc5 2^20": (dict(_CFG20, blowup=8), "mimc5", {}),
                "mimc5rc 2^20": (dict(_CFG20, blowup=8), "mimc5rc", {}),
                "tribmul-GL 2^20": (dict(_CFG20, **_GL), "tribmul", {})})
+# the large-trace path (pruned trees, chunked from 2^27 leaves): the
+# proves that a second prove with pruning off must equal, transcript for
+# transcript (True: with warm walls too), and those whose walls and
+# phases' peak memory the large-trace table line collects
+UNPRUNED_TOO = {"2^24": True, "2^25": False, "2^26": False,
+                "FibMul-GL 2^22": False}
+LARGE = ("2^24", "2^25", "2^26", "FibMul-GL 2^22", "FibMul-GL 2^24")
+# warm walls of the 2^24 prove, pruned and unpruned in turns (this many
+# each), for the spread the keep-log is judged by
+WARM_TURNS = 3
+# the chunked build against the one-pass pruned build at 2^27 leaves
+CHUNKED_LOG = 27
+# K5's query form on pruned plans (the in-launch recompute of the unstored
+# siblings): (prove whose plan it is, in the kernels line)
+PRUNED_PLANS = {"2^26 plan (trace prune 6)": ("2^26", True),
+                "FibMul-GL 2^22 plan (64-bit, prune 2)":
+                    ("FibMul-GL 2^22", False)}
 # the daemon's compressed prove
 SERVE_COMPRESSED = "mimc5 2^20"
-PROFILED = ("2^20", "2^24", "MiMC 2^20", "FibMul 2^24", "FibMul-GL 2^20",
+PROFILED = ("2^20", "2^24", "2^26", "MiMC 2^20", "FibMul 2^24",
+            "FibMul-GL 2^20",
             "tribmul 2^20")
 # the Goldilocks memory table: FibMul-GL cold and warm walls and peak
 # device memory at these trace sizes (2^20 is the prove above)
@@ -177,7 +216,9 @@ FAMILY_ANCHORS = {
 # pin the MiMC³ / FibMul, Goldilocks and family transcripts of the port
 # that added them (the Goldilocks ones beside GL_ANCHORS and the families
 # beside FAMILY_ANCHORS, which tie them to the JAX package at 2^8 and
-# 2^12 rows)
+# 2^12 rows); fib-sq 2^25 / 2^26 and FibMul-GL 2^22 / 2^24 are the first
+# pruned proves' (the CPU tests tie pruned proves to the JAX package's, and
+# the unpruned proves here to the pruned ones)
 TRANSCRIPT_SHA256 = {
     "2^20": "c6eccf09e57fe3ac5b23b41b67a0415d88edec9305b7f59804eac2940e37c2b8",
     "2^24": "d513cf301e6e8c7e2d25c012b971a8f0d84944015ad71f73b9e7a3d3668f7367",
@@ -198,13 +239,20 @@ TRANSCRIPT_SHA256 = {
     "mimc5rc 2^20":
         "1c5c0a20a28dcff0a8ad87dff9c98abacc18039927e47ed17adcf332c515048c",
     "tribmul-GL 2^20":
-        "07e9aabf756d07fac56c4e5ddf0e6d45e29e72d070e6d0ea1abba800a61e05b5"}
+        "07e9aabf756d07fac56c4e5ddf0e6d45e29e72d070e6d0ea1abba800a61e05b5",
+    "2^25": "39a6119e162c3451ac85e7623d3f1c6f7b8f58bf2b05043f8271ede4fb6d77cf",
+    "2^26": "8fe63793c22a5b7ff45f93ac5025da8d79e173dd1e5de1c43fdf9634b1dc60a4",
+    "FibMul-GL 2^22":
+        "3b274489078fa81684fb113fc36cf89d22e62fa43fb12e73ab65eee24d73061d",
+    "FibMul-GL 2^24":
+        "c0dc576838008a76ab0e94eaab013138fb62997249db7de0e2d4b761ad810905"}
 # the prove whose launch counts fill each row of the kernels line (rows
 # not named here: the 2^24 Fibonacci-square prove)
 ROW_PATH = {"K1": "2^20", "K1 batched": "FibMul 2^20",
             "K2 batched": "FibMul 2^24", "K3 row form": "FibMul 2^24",
             "K5 row messages": "FibMul 2^24", "K3 wide": "GL 2^20",
-            "K3 wide row form": "FibMul-GL 2^20"}
+            "K3 wide row form": "FibMul-GL 2^20",
+            "K5 pruned recompute": "2^26"}
 PATH = "2^24"
 # the NTT shapes timed: each path's trace INTT (inverse) and LDE (forward);
 # the LDE's time fills the route's row of the kernels line
@@ -240,6 +288,10 @@ QUERY_ROW_PLAN_IN_ROW = "FibMul 2^24 plan (C = 2)"
 # over 2^20 rows and FibMul-GL's two columns over 2^22 rows (in the line)
 WIDE_LEAVES_LOGS = (22, 26)
 WIDE_ROW_LOG, WIDE_ROW_TIME = 20, (2, 22)
+# the launches of 0.1-0.7 ms among them (one column at 2^22, the row form
+# at 2^20) read 1.96x and 4.06x of their bound in two calls: their median
+# of this many runs
+SMALL_REPS = 25
 
 # the bound's rates: HBM3 of the H100 SXM (its datasheet's rate) and a
 # 32-bit integer peak derived as SMs x 128 x max SM clock: each SM's four
@@ -397,6 +449,16 @@ class Card:
         cycles = blocks * 64 * (round_cycles or self.round_cycles)
         return cycles / self.clock_hz * 1e3, "operations"
 
+    def query_bound(self, tb):
+        """The query form's latency bound: the chain's blocks, and per
+        query the recompute's critical path when the plan prunes (a leaf
+        compression, then two a level up to the deepest kept level, all
+        blocks' nodes of a level in parallel), each a compression of 64
+        rounds at the measured round latency.  (blocks, compressions)."""
+        blocks = tb.num_queries * int(tb.template.shape[0])
+        extra = tb.num_queries * (2 * tb.max_prune - 1) * (tb.max_prune > 0)
+        return blocks, blocks + extra
+
     def chain_bounds_text(self, blocks: int, ms: float) -> str:
         """The kernel time against the measured and the assumed bounds."""
         out = []
@@ -435,15 +497,16 @@ class Results:
 
     def time(self, kernel: str, shape: str, kernel_fn, plain_fn, bound,
              row: bool = True, plain_reps: int = REPS,
-             other: bool = False) -> dict:
-        """Time kernel_fn and plain_fn (same inputs) and log them beside
-        `bound` (ms, by); `row` puts them in the kernels line, `other`
-        under the row's "shapes".  With `plain_reps` below REPS the plain
-        version, already run by its check, is timed that many times
-        without a warm-up."""
-        ms = cuda_ms(kernel_fn)
+             other: bool = False, reps: int = REPS) -> dict:
+        """Time kernel_fn (median of `reps`) and plain_fn (same inputs)
+        and log them beside `bound` (ms, by); `row` puts them in the
+        kernels line, `other` under the row's "shapes".  With `plain_reps`
+        below REPS the plain version, already run by its check, is timed
+        that many times without a warm-up."""
+        ms = cuda_ms(kernel_fn, reps)
         pms = cuda_ms(plain_fn, plain_reps, warm=plain_reps == REPS)
-        log(f"{kernel} {shape}: kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+        log(f"{kernel} {shape}: kernel {ms:.4f} ms (median of {reps}), "
+            f"plain {pms:.4f} ms, "
             f"bound {bound[0]:.4f} ms ({bound[1]}); kernel / bound "
             f"{ms / bound[0]:.2f}")
         got = dict(ms=ms, plain_ms=pms, bound_ms=bound[0], bound_by=bound[1],
@@ -705,7 +768,8 @@ def phase_tree_wide(res: Results, dev) -> None:
         res.time("K3 wide", what, lambda: sha_leaves(vals, wide=True), plain,
                  res.card.bound(40 * n, SHA_OPS * n),
                  row=log_n == WIDE_LEAVES_LOGS[0], other=True,
-                 plain_reps=REPS if log_n == TREE_LOG else 1)
+                 plain_reps=REPS if log_n == TREE_LOG else 1,
+                 reps=SMALL_REPS if log_n == TREE_LOG else REPS)
         del vals
     for c in range(1, 7):
         cols = rand_words_dev(gen, (c, 2, 1 << WIDE_ROW_LOG), dev)
@@ -717,7 +781,7 @@ def phase_tree_wide(res: Results, dev) -> None:
                  lambda: sha256_row_leaves(cols, wide=True),
                  res.card.bound((8 * c + 32) << WIDE_ROW_LOG,
                                 SHA_OPS << WIDE_ROW_LOG),
-                 row=False, other=True)
+                 row=False, other=True, reps=SMALL_REPS)
     c, log_n = ROW_FAMILY  # tribmul-GL's trace tree
     cols = rand_words_dev(gen, (c, 2, 1 << log_n), dev)
     what = f"row leaves C={c} ({c}, 2, 2^{log_n})"
@@ -739,6 +803,56 @@ def phase_tree_wide(res: Results, dev) -> None:
              res.card.bound((8 * c + 32) << log_n, SHA_OPS << log_n))
     del cols
     torch.cuda.empty_cache()
+
+
+def phase_tree_chunked(res: Results, dev) -> None:
+    """The chunked pruned build (K3 once a chunk of 2^CHUNK_LOG leaves,
+    then `prune` K4 launches, the last into the stored level) against the
+    one-pass pruned build, both on the card, at 2^27 leaves in three
+    modes: one u32 column, the C = 2 row form and the 64-bit mode; stored
+    levels equal, each build timed."""
+    from stark_tpu_torch.merkle import tree as mt
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 4)
+    n = 1 << CHUNKED_LOG
+    prune = mt.prune_depth_for(n)
+    chunks = n >> mt.chunk_log(n, prune)
+    for row, shape, wide in (("K3", (n,), False),
+                             ("K3 row form", (2, n), False),
+                             ("K3 wide", (2, n), True)):
+        vals = rand_words_dev(gen, shape, dev)
+        build = (mt.MerkleTree.from_columns if row == "K3 row form"
+                 else mt.MerkleTree)
+
+        def tree():
+            return build(vals, wide=wide, prune=prune).buffer
+
+        reset_counts()
+        chunked = tree()
+        launches = read_counts()
+        saved = mt.CHUNK_MIN_LOG
+        mt.CHUNK_MIN_LOG = CHUNKED_LOG + 1  # one pass over all the leaves
+        try:
+            one_pass = tree()
+            one_ms = cuda_ms(tree, warm=False)
+        finally:
+            mt.CHUNK_MIN_LOG = saved
+        what = (f"chunked build {shape} (prune {prune}, {chunks} chunks)"
+                f"{' 64-bit' * wide}")
+        res.check(row, f"{what} vs one-pass pruned build", chunked, one_pass)
+        ms = cuda_ms(tree, warm=False)
+        log(f"{row} {what}: {ms:.4f} ms; one-pass pruned build "
+            f"{one_ms:.4f} ms; launches {launches[row]} K3, "
+            f"{launches['K4']} K4")
+        want = (chunks, chunks * prune + CHUNKED_LOG - prune)
+        if (launches[row], launches["K4"]) != want:
+            raise AssertionError(f"chunked build launched {launches}, "
+                                 f"expected (K3, K4) {want}")
+        res.rows[row].setdefault("chunked_build", {})[str(shape)] = dict(
+            ms=ms, one_pass_ms=one_ms, k3=launches[row], k4=launches["K4"])
+        del vals, chunked, one_pass
+        torch.cuda.empty_cache()
 
 
 def phase_latency(card: Card, dev) -> None:
@@ -859,16 +973,36 @@ def phase_chain(res: Results, dev) -> None:
                              want):
             res.check("K5", f"query form, {name} plan, "
                       f"{tb.num_queries} queries: {out}", a, b)
-        blocks = tb.num_queries * int(tb.template.shape[0])
+        blocks, comps = res.card.query_bound(tb)
         got = res.time(
             "K5", f"query form, {name} plan, {tb.num_queries} queries "
-            f"({blocks} blocks)", lambda: query_chain(*args, tb),
+            f"({blocks} blocks, {tb.tasks.shape[0]} recompute tasks to "
+            f"prune {tb.max_prune})", lambda: query_chain(*args, tb),
             lambda: query_chain_plain(*args, tb),
-            res.card.chain_bound(blocks), row=False, plain_reps=1)
+            res.card.chain_bound(comps), row=False, plain_reps=1)
         log(f"K5 query form, {name}: "
-            f"{res.card.chain_bounds_text(blocks, got['ms'])}")
+            f"{res.card.chain_bounds_text(comps, got['ms'])}")
         res.rows["K5"].setdefault("query_form", {})[name] = got
-        del args, got, want
+        del args, want
+        if tb.max_prune:
+            res.rows["K5 pruned recompute"].setdefault(
+                "shapes", {})[f"{name} plan"] = got
+            # the recompute's cost: the same plan over unpruned trees
+            # (the same stream, no recompute), in this call
+            full = DeviceQueryPlan(plan.rng, plan.num_queries, plan.offsets,
+                                   plan.trace_len, plan.fri_lengths).pack(dev)
+            n_f, n_td, n_fv, n_fd = full.sizes
+            args = (rand_u32(rs, 8, 1 << 32, dev),
+                    rand_words_dev(gen, (n_f,), dev),
+                    rand_words_dev(gen, (n_td, 8), dev),
+                    rand_words_dev(gen, (n_fv,), dev),
+                    rand_words_dev(gen, (n_fd, 8), dev))
+            full_ms = cuda_ms(lambda: query_chain(*args, full))
+            log(f"K5 query form, {name} plan over unpruned trees: "
+                f"{full_ms:.4f} ms; the recompute's cost "
+                f"{got['ms'] - full_ms:.4f} ms a launch")
+            got["unpruned_ms"] = full_ms
+            del args
         torch.cuda.empty_cache()
 
     # the query form on plans of row openings: C values a trace message
@@ -900,6 +1034,38 @@ def phase_chain(res: Results, dev) -> None:
             other=True, plain_reps=1)
         log(f"K5 query form, {what}: "
             f"{res.card.chain_bounds_text(blocks, got['ms'])}")
+        del args, got, want
+        torch.cuda.empty_cache()
+
+    # the query form on pruned plans: the unstored levels' siblings
+    # recomputed in the launch, after each draw
+    for what, (prove_name, in_row) in PRUNED_PLANS.items():
+        cfg, air = prove_setup(prove_name)
+        tb = query_plan(cfg, air).pack(dev)
+        n_f, n_td, n_fv, n_fd = tb.sizes
+        args = (rand_u32(rs, 8, 1 << 32, dev),
+                rand_words_dev(gen, (n_f,), dev),
+                rand_words_dev(gen, (n_td, 8), dev),
+                rand_words_dev(gen, (n_fv,), dev),
+                rand_words_dev(gen, (n_fd, 8), dev))
+        got = query_chain(*args, tb)
+        want = query_chain_plain(*args, tb)
+        for out, a, b in zip(("final chain", "idxs", "vals", "digs"), got,
+                             want):
+            res.check("K5 pruned recompute", f"query form, {what}, "
+                      f"{tb.num_queries} queries: {out}", a, b)
+        blocks, comps = res.card.query_bound(tb)
+        got = res.time(
+            "K5 pruned recompute", f"query form, {what}, {tb.num_queries} "
+            f"queries ({blocks} blocks, {tb.tasks.shape[0]} recompute "
+            f"tasks, {tb.subtree_rows} nodes a query)",
+            lambda: query_chain(*args, tb),
+            lambda: query_chain_plain(*args, tb),
+            res.card.chain_bound(comps), row=in_row, other=True,
+            plain_reps=1)
+        log(f"K5 query form, {what}: "
+            f"{res.card.chain_bounds_text(comps, got['ms'])} (the chain's "
+            f"{blocks} blocks and {comps - blocks} recompute compressions)")
         del args, got, want
         torch.cuda.empty_cache()
 
@@ -954,7 +1120,8 @@ def counters() -> dict:
             "K3 wide row form": ((sha_row_leaves, "wide_launches"),),
             "K4": ((sha_nodes, "launches"),),
             "K5": ((sha_chain, "launches"), (query_chain, "launches")),
-            "K5 row messages": ((query_chain, "launches"),)}
+            "K5 row messages": ((query_chain, "launches"),),
+            "K5 pruned recompute": ((query_chain, "launches"),)}
 
 
 def read_counts() -> dict:
@@ -1007,30 +1174,60 @@ def drop_plans() -> None:
     torch.cuda.empty_cache()
 
 
-def timed_proves(cfg, air, dev):
-    """A cold prove (plans and contexts dropped) and a warm one: (cold,
-    warm, cold seconds, warm seconds, the cold prove's peak device bytes,
-    bytes allocated before it, its launches)."""
+def phase_peaks():
+    """A metrics collector for prove(metrics=...) that also records each
+    of the five phases' peak device memory in MiB (the peak statistics
+    reset as the phase starts; prove() synchronises as it ends)."""
+    import contextlib
+
+    from stark_tpu_torch.utils.metrics import MetricsCollector
+
+    class PhasePeaks(MetricsCollector):
+        peaks: dict
+
+        @contextlib.contextmanager
+        def phase(self, name, **extra):
+            torch.cuda.reset_peak_memory_stats()
+            with MetricsCollector.phase(self, name, **extra):
+                yield
+            self.peaks[name] = round(
+                torch.cuda.max_memory_allocated() / 2**20, 1)
+
+    mx = PhasePeaks()
+    mx.peaks = {}
+    return mx
+
+
+def timed_proves(cfg, air, dev, warm: bool = True):
+    """A cold prove (plans and contexts dropped), its five phases synced
+    with their peak device memory, and (with `warm`) a warm one: (cold,
+    warm or None, cold seconds, warm seconds or None, the cold prove's
+    peak device bytes, bytes allocated before it, its launches, its
+    phases' {"peak_mib": ..., "wall_ms": ...})."""
     from stark_tpu_torch.stark import prove
 
     drop_plans()
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     reset_counts()
+    mx = phase_peaks()
     t0 = time.perf_counter()
-    cold = prove(cfg, air=air, device=dev)
+    cold = prove(cfg, air=air, device=dev, metrics=mx)
     torch.cuda.synchronize()
     cold_s = time.perf_counter() - t0
     launches = read_counts()
-    peak = torch.cuda.max_memory_allocated()
+    peak = max(mx.peaks.values()) * 2**20
+    phases = {"peak_mib": mx.peaks, "wall_ms": {
+        ph.name: round(ph.wall_s * 1e3, 3) for ph in mx.phases}}
+    if not warm:
+        return cold, None, cold_s, None, peak, base, launches, phases
     t0 = time.perf_counter()
-    warm = prove(cfg, air=air, device=dev)
+    again = prove(cfg, air=air, device=dev)
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
-    if cold.proof != warm.proof:
+    if cold.proof != again.proof:
         raise AssertionError(f"{cfg} prove is not deterministic")
-    return cold, warm, cold_s, warm_s, peak, base, launches
+    return cold, again, cold_s, warm_s, peak, base, launches, phases
 
 
 def check_verifies(name: str, cfg, proof) -> None:
@@ -1055,23 +1252,66 @@ def check_verifies(name: str, cfg, proof) -> None:
         raise AssertionError("verifier accepted a tampered proof")
 
 
+def expected_launches(cfg, air) -> dict:
+    """Each kernel row's launches in one prove of `cfg`, from its query
+    plan's tree prune depths.  u32 fields: one NTT wrapper call a
+    transform (trace INTT, LDE) whatever the column count, K1 up to
+    2^MAX_LOG_N (the 2^20 paths), K2 above; Goldilocks: no NTT kernel
+    (torch ops).  K3 once a tree, or once a chunk of a chunked tree, in
+    the field's mode, its row form for a multi-column trace tree; K4 once
+    a stored level above the leaves, plus `prune` launches a chunk (or a
+    one-pass tree) of a pruned tree; K5's query form once."""
+    from stark_tpu_torch.fields.fp import Fp
+    from stark_tpu_torch.merkle import tree as mt
+    from stark_tpu_torch.ntt import cuda_ntt
+    from stark_tpu_torch.stark.prover import query_plan
+
+    def tree(n, prune):
+        passes = n >> mt.chunk_log(n, prune) if prune else 1
+        return passes, passes * prune + (n >> prune).bit_length() - 1
+
+    plan = query_plan(cfg, air)
+    cols = plan.num_columns
+    wide = Fp.get(cfg.modulus).width == 2
+    k1 = 0 if wide else sum(n <= 1 << cuda_ntt.MAX_LOG_N
+                            for n in (cfg.trace_domain_size,
+                                      cfg.eval_domain_size))
+    k2 = 0 if wide else 2 - k1
+    trace = tree(plan.trace_len, plan.trace_prune)
+    fri = [tree(ln, pr) for ln, pr in zip(plan.fri_lengths, plan.fri_prune)]
+    k3 = (sum(f[0] for f in fri) + trace[0] * (cols == 1),
+          trace[0] * (cols > 1))  # (one column, row form)
+    u32_k3, wide_k3 = ((0, 0), k3) if wide else (k3, (0, 0))
+    return {"K1": k1, "K2": k2,
+            "K1 batched": k1 * (cols > 1), "K2 batched": k2 * (cols > 1),
+            "K3": u32_k3[0], "K3 row form": u32_k3[1],
+            "K3 wide": wide_k3[0], "K3 wide row form": wide_k3[1],
+            "K4": trace[1] + sum(f[1] for f in fri),
+            # both rows count the query form's launches; the pruned
+            # row's own launches are the 2^26 prove's (ROW_PATH)
+            "K5 row messages": 1, "K5 pruned recompute": 1}
+
+
 def phase_prove(res: Results, dev, name: str) -> dict:
     """Prove the `name` configuration twice (cold, warm): deterministic,
-    verified, tamper-rejected, with its kernels launched.  Returns its
-    walls and peak memory."""
-    from stark_tpu_torch.fields.fp import Fp
-    from stark_tpu_torch.ntt import cuda_ntt
+    verified, tamper-rejected, with its kernels launched as its plan's
+    trees say; for UNPRUNED_TOO once more (with its warm wall if asked)
+    with pruning off, which must give the same transcript.  Returns its
+    walls, peak memory and its phases' peaks."""
     from stark_tpu_torch.stark import FibonacciSquareAIR
 
     cfg, air = prove_setup(name)
     air_used = air or FibonacciSquareAIR()
-    cold, _, cold_s, warm_s, peak, base, launches = timed_proves(cfg, air,
-                                                                 dev)
+    cold, _, cold_s, warm_s, peak, base, launches, peaks = timed_proves(
+        cfg, air, dev)
     log(f"prove {name} ({air_used.name}, {PROVES[name][0]}): cold "
         f"{cold_s:.3f} s, warm {warm_s:.3f} s, peak device memory "
         f"{peak / 2**20:.1f} MiB ({base / 2**20:.1f} MiB allocated before "
         f"it), {len(cold.proof)} messages, {cold.size_bytes()} bytes, "
         f"publics {cold.publics}")
+    log(f"{name} cold prove's phases' peak device memory (MiB): "
+        f"{json.dumps(peaks['peak_mib'])}; walls (ms, each phase synced): "
+        f"{json.dumps(peaks['wall_ms'])}")
     log(f"launches during the cold {name} prove: {launches}")
     digest = hashlib.sha256(b"".join(cold.proof)).hexdigest()
     if digest != TRANSCRIPT_SHA256[name]:
@@ -1080,39 +1320,86 @@ def phase_prove(res: Results, dev, name: str) -> dict:
     log(f"{name} transcript sha256 {digest}: as pinned")
     check_verifies(name, cfg, cold)
     log(f"{name} proof deterministic and accepted by the host verifier")
-    # u32 fields: one NTT wrapper call a transform (trace INTT, LDE)
-    # whatever the column count, K1 up to 2^MAX_LOG_N (the 2^20 paths),
-    # K2 above; Goldilocks: no NTT kernel (torch ops).  K3 once per tree
-    # (the trace tree and one a FRI layer) in the field's mode, its row
-    # form for a multi-column trace; K4; K5's query form once
-    cols = air_used.num_columns
-    wide = Fp.get(cfg.modulus).width == 2
-    k1 = 0 if wide else sum(n <= 1 << cuda_ntt.MAX_LOG_N
-                            for n in (cfg.trace_domain_size,
-                                      cfg.eval_domain_size))
-    k2 = 0 if wide else 2 - k1
-    trees = air_used.num_folds(cfg) + 2
-    k3 = (trees - (cols > 1), int(cols > 1))  # (one column, row form)
-    u32_k3, wide_k3 = ((0, 0), k3) if wide else (k3, (0, 0))
-    want = {"K1": k1, "K2": k2,
-            "K1 batched": k1 * (cols > 1), "K2 batched": k2 * (cols > 1),
-            "K3": u32_k3[0], "K3 row form": u32_k3[1],
-            "K3 wide": wide_k3[0], "K3 wide row form": wide_k3[1],
-            "K5 row messages": 1}
+    want = expected_launches(cfg, air)
     for k, n in want.items():
         if launches[k] != n:
             raise AssertionError(f"{k} launched {launches[k]} times in the "
                                  f"{name} prove, expected {n}")
-    for k in ("K4", "K5"):
-        if launches[k] == 0:
-            raise AssertionError(f"kernel {k} never launched in the {name} "
-                                 "prove")
+    if launches["K5"] == 0:
+        raise AssertionError(f"kernel K5 never launched in the {name} prove")
     for k, count in launches.items():
         res.rows[k]["launches_by_prove"][name] = count
         if name == ROW_PATH.get(k, PATH):
             res.rows[k]["launches"] = count
-    return {"cold_s": round(cold_s, 3), "warm_s": round(warm_s, 3),
-            "peak_mib": round(peak / 2**20, 1), "sha256": digest}
+    out = {"cold_s": round(cold_s, 3), "warm_s": round(warm_s, 3),
+           "peak_mib": round(peak / 2**20, 1),
+           "phase_peak_mib": peaks["peak_mib"],
+           "cold_phase_ms": peaks["wall_ms"], "sha256": digest}
+    del cold
+    if name in UNPRUNED_TOO:
+        out["unpruned"] = unpruned_prove(name, cfg, air, dev, digest,
+                                         UNPRUNED_TOO[name])
+    return out
+
+
+def unpruned_prove(name, cfg, air, dev, digest: str, warm: bool) -> dict:
+    """The `name` prove with pruning off (STARK_TPU_TORCH_NO_PRUNE): its
+    transcript must equal the pruned prove's.  Returns its walls and
+    peaks."""
+    os.environ["STARK_TPU_TORCH_NO_PRUNE"] = "1"
+    try:
+        cold, _, cold_s, warm_s, peak, _, launches, peaks = timed_proves(
+            cfg, air, dev, warm=warm)
+        want = expected_launches(cfg, air)
+    finally:
+        del os.environ["STARK_TPU_TORCH_NO_PRUNE"]
+    got = hashlib.sha256(b"".join(cold.proof)).hexdigest()
+    if got != digest:
+        raise AssertionError(f"{name} unpruned transcript sha256 {got} != "
+                             f"the pruned prove's {digest}")
+    if (launches["K3"] + launches["K3 row form"] + launches["K3 wide"]
+            + launches["K3 wide row form"], launches["K4"]) != (
+            want["K3"] + want["K3 row form"] + want["K3 wide"]
+            + want["K3 wide row form"], want["K4"]):
+        raise AssertionError(f"unpruned {name} prove launched {launches}, "
+                             f"expected {want}")
+    warm_txt = f", warm {warm_s:.3f} s" if warm else ""
+    log(f"prove {name} unpruned: cold {cold_s:.3f} s{warm_txt}, peak "
+        f"device memory {peak / 2**20:.1f} MiB, phases' peaks (MiB) "
+        f"{json.dumps(peaks['peak_mib'])}, walls (ms) "
+        f"{json.dumps(peaks['wall_ms'])}; transcript equal to the pruned "
+        "prove's")
+    out = {"cold_s": round(cold_s, 3), "peak_mib": round(peak / 2**20, 1),
+           "phase_peak_mib": peaks["peak_mib"],
+           "cold_phase_ms": peaks["wall_ms"]}
+    if warm:
+        out["warm_s"] = round(warm_s, 3)
+        out["warm_turns_s"] = warm_turns(cfg, air, dev)
+        log(f"{name} warm walls in turns (s): "
+            f"{json.dumps(out['warm_turns_s'])}")
+    return out
+
+
+def warm_turns(cfg, air, dev) -> dict:
+    """WARM_TURNS warm walls each of the pruned and the unpruned prove,
+    in turns (pruned, unpruned, unpruned, pruned, ...)."""
+    from stark_tpu_torch.stark import prove
+
+    walls = {"pruned": [], "unpruned": []}
+    order = ["pruned", "unpruned", "unpruned", "pruned"]
+    for turn in range(2 * WARM_TURNS):
+        which = order[turn % 4]
+        if which == "unpruned":
+            os.environ["STARK_TPU_TORCH_NO_PRUNE"] = "1"
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            prove(cfg, air=air, device=dev)
+            torch.cuda.synchronize()
+            walls[which].append(round(time.perf_counter() - t0, 3))
+        finally:
+            os.environ.pop("STARK_TPU_TORCH_NO_PRUNE", None)
+    return walls
 
 
 def phase_gl_memory(dev, at_2e20: dict) -> None:
@@ -1125,7 +1412,7 @@ def phase_gl_memory(dev, at_2e20: dict) -> None:
     table = {}
     for log2 in GL_MEMORY_LOGS:
         cfg = ProverConfig(log2_trace=log2, blowup=4, num_queries=16, **_GL)
-        cold, _, cold_s, warm_s, peak, _, _ = timed_proves(
+        cold, _, cold_s, warm_s, peak, _, _, _ = timed_proves(
             cfg, FibMulAIR(**_FIBMUL), dev)
         check_verifies(f"FibMul-GL 2^{log2}", cfg, cold)
         table[f"2^{log2}"] = {"cold_s": round(cold_s, 3),
@@ -1411,11 +1698,12 @@ def phase_split(cfg, air, dev) -> dict:
     mark(f"scale-pad + LDE NTT ({kernel(cfg.eval_domain_size)})")
     k3 = "K3 64-bit" if wide else "K3"
     if air.num_columns > 1:
-        tree = MerkleTree.from_columns(lde, wide=wide)
-        mark(f"trace tree ({k3} row form + K4)")
+        tree = MerkleTree.from_columns(lde, wide=wide,
+                                       prune=plan.trace_prune)
+        mark(f"trace tree ({k3} row form + K4, prune {plan.trace_prune})")
     else:
-        tree = MerkleTree(lde, wide=wide)
-        mark(f"trace tree ({k3} + K4)")
+        tree = MerkleTree(lde, wide=wide, prune=plan.trace_prune)
+        mark(f"trace tree ({k3} + K4, prune {plan.trace_prune})")
     fs = DeviceFS(p, Channel(p).state, device=dev)
     fs.absorb_root(tree.root_digest)
     alphas = tuple(fs.draw() for _ in range(air.num_alphas))
@@ -1423,13 +1711,14 @@ def phase_split(cfg, air, dev) -> dict:
     cp = get_air_context(air, cfg, dev).compose(
         lde, alphas, air.publics_from_host(cfg, host))
     mark("composition")
-    fri = fri_commit(cp, p, h, fs, num_folds=len(plan.fri_lengths) - 1)
+    fri = fri_commit(cp, p, h, fs, num_folds=len(plan.fri_lengths) - 1,
+                     prunes=plan.fri_prune)
     mark("FRI commit")
     last = fri.fri_layers[-1]
     fs.state = absorb_value(fs.state, *final_words(last, wide))
     dev_out = plan.run_device(fs.state, lde, tree.buffer, fri.values,
                               fri.digests)
-    mark("query phase (K5 query form)")
+    mark("query phase (K5 query form, pruned siblings recomputed)")
     torch.cat([x.reshape(-1).to(torch.int32)
                for x in (*fs.payloads(), last, *dev_out)]).cpu()
     mark("fetch")
@@ -1561,16 +1850,25 @@ def main() -> int:
             ("K3 wide row form", "stark_tpu_torch/csrc/sha256_tree.cu",
              "stark_tpu/hash/pallas_sha.py:100 (64-bit mode) and the XLA "
              "sha256_row_leaves(..., wide=True), "
-             "stark_tpu/hash/sha256_jax.py:106")):
+             "stark_tpu/hash/sha256_jax.py:106"),
+            ("K5 pruned recompute", "stark_tpu_torch/csrc/sha_chain.cu",
+             "stark_tpu/hash/pallas_chain.py:80 in the lax.scan of "
+             "stark_tpu/channel/device_query.py:314 with the pruned trees' "
+             "_subtree_sibs (:245-280)")):
         res.add(name, source, replaces)
     phase_latency(card, dev)
     phase_ntt(res, dev)
     phase_tree(res, dev)
     phase_tree_wide(res, dev)
+    phase_tree_chunked(res, dev)
     phase_chain(res, dev)
     phase_golden()
     walls = {name: phase_prove(res, dev, name) for name in PROVES
              if name not in FAMILY_PROVES}
+    log("large-trace table (blowup 4, 16 queries; pruned unless named; "
+        "cold prove's phases' peaks): " + json.dumps(
+            {name: {k: v for k, v in walls[name].items() if k != "sha256"}
+             for name in LARGE}))
     families = phase_families(res, dev)
     phase_gl_memory(dev, {k: v for k, v in walls["FibMul-GL 2^20"].items()
                           if k != "sha256"})

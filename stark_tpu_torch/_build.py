@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -31,15 +32,15 @@ CXX_FLAGS = ["-std=c++17", "-O3", "-shared", "-fPIC"]
 # library name -> {C function: argtypes}; every CUDA function returns a
 # cudaError_t (as int) from cudaGetLastError() after its launches
 _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
-_U64, _SZ = ctypes.c_uint64, ctypes.c_size_t
+_U64, _SZ, _LL = ctypes.c_uint64, ctypes.c_size_t, ctypes.c_longlong
 SIGNATURES = {
     "ntt": {"stark_ntt": [_P] * 7 + [_I] * 5 + [_U] * 3 + [_P]},
-    "sha256_tree": {"stark_sha_leaves": [_P, _P, _I, _I, _I, _P],
+    "sha256_tree": {"stark_sha_leaves": [_P, _P, _I, _LL, _I, _I, _P],
                     "stark_sha_nodes": [_P, _P, _I, _P]},
     "sha_chain": {"stark_sha_chain": [_P, _P, _P, _P, _I, _P],
-                  "stark_query_chain": [_P] * 8 + [_I, _I, _I, _U, _I]
+                  "stark_query_chain": [_P] * 9 + [_I] * 7 + [_U, _I]
                                        + [_P] * 5,
-                  "stark_query_chain_max_rows": [],
+                  "stark_query_chain_max_rows": [_I],
                   "stark_dep_latency": [_P, _I, _I, _P]},
     "host_trace": {fn: [_U64, _U64, _U64, _SZ, _P]
                    for fn in ("stark_fib_trace", "stark_mimc_trace",
@@ -156,6 +157,28 @@ def stream_ptr(device) -> int:
 def require(t, name: str, shape: tuple, dtype=None, align: int = 4) -> None:
     """Check a kernel operand: a contiguous int32 CUDA tensor of `shape`
     whose data pointer is `align`-byte aligned."""
+    _require(t, name, shape, dtype, align)
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def require_planes(t, name: str, shape: tuple) -> int:
+    """Check a kernel operand of planes: an int32 CUDA tensor of `shape`
+    whose planes (its rows along the last axis) are each contiguous and
+    lie a fixed stride apart, in order: a contiguous tensor, or a slice of
+    one along its last axis.  Returns that stride in words."""
+    _require(t, name, shape)
+    n, planes = int(t.shape[-1]), tuple(t.shape[:-1])
+    ld = t.stride(-2) if math.prod(planes) > 1 else n
+    nested = all(t.stride(k) == ld * math.prod(planes[k + 1:])
+                 for k in range(len(planes)) if planes[k] > 1)
+    if (n > 1 and t.stride(-1) != 1) or ld < n or not nested:
+        raise ValueError(f"{name}: expected contiguous planes a fixed "
+                         f"stride apart, got strides {t.stride()}")
+    return ld
+
+
+def _require(t, name, shape, dtype=None, align=4) -> None:
     import torch
 
     dtype = dtype or torch.int32
@@ -166,8 +189,6 @@ def require(t, name: str, shape: tuple, dtype=None, align: int = 4) -> None:
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, "
                          f"got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: expected a contiguous tensor")
     if t.data_ptr() % align:
         raise ValueError(f"{name}: data pointer not {align}-byte aligned")
 

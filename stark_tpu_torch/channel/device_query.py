@@ -1,6 +1,6 @@
 """Device-resident query phase (counterpart of
 ``stark_tpu/channel/device_query.py``; a u32 or the Goldilocks field,
-1..6 trace columns, unpruned power-of-two trees).
+1..6 trace columns, power-of-two trees, pruned or not).
 
 For each query, on the device and without a host sync:
 
@@ -30,6 +30,16 @@ shared-memory copy of the template and runs the chain, as the JAX
 package's ``lax.scan`` over queries does.  :func:`query_chain_plain`
 runs the same tables as a per-query loop.
 
+A pruned tree (``merkle/tree.py``) does not store its first ``prune``
+levels.  Their siblings are recomputed per query from the leaf values:
+one recompute task per pruned authentication path (a trace opening at
+one offset, an FRI opening) hashes the aligned 2^prune-leaf block at
+``(j >> prune) << prune`` of its leaf j and reduces it level by level,
+and the path's slots for those levels read the task's nodes.  Since
+query q + 1's index depends on the digests query q absorbed, this runs
+inside the one launch, after each draw (where the JAX package's scan
+calls ``_subtree_sibs``).
+
 The host then replays the canonical transcript from the one fetch and
 checks that the device-derived chain equals the host derivation.
 """
@@ -47,6 +57,7 @@ from stark_tpu_torch.channel.device_channel import (ascii_hex_words,
 from stark_tpu_torch.fields.fp import store
 from stark_tpu_torch.fri.commit import layer_layout
 from stark_tpu_torch.hash.cuda_chain import FIRST_HEX, sha_chain_plain
+from stark_tpu_torch.hash.sha256 import sha256_pairs, sha256_row_leaves
 from stark_tpu_torch.merkle.tree import level_offsets
 
 # the slot table's columns; a slot reads position
@@ -55,9 +66,20 @@ from stark_tpu_torch.merkle.tree import level_offsets
 # words): a value's 2 hex words, a digest's 16
 SLOT_COLUMNS = ("source", "base", "add", "mask", "xr", "shift", "flip",
                 "word")
-# sources, in slot order: trace values, FRI values, trace digests, FRI
-# digests (the order of DeviceQueryPlan._slots and of the kernel's enum)
-TRACE_VALUE, FRI_VALUE, TRACE_DIGEST, FRI_DIGEST = range(4)
+# sources (the kernel's enum): trace values, FRI values, stored trace and
+# FRI digests, and the recomputed siblings of a pruned trace or FRI tree
+# (position = a node of the query's recompute tasks)
+(TRACE_VALUE, FRI_VALUE, TRACE_DIGEST, FRI_DIGEST, TRACE_SUBTREE,
+ FRI_SUBTREE) = range(6)
+# the recompute tasks' columns: the leaf j = ((idx + add) & mask) ^ xr of
+# the source's tree (TRACE_VALUE or FRI_VALUE); the task hashes leaves
+# (j >> prune) << prune + i, i < 2^prune, each the row message of `cols`
+# values whose word planes lie at base + plane * stride of the source's
+# value buffer, and keeps levels 0 .. prune - 1 of that block from node
+# row `node` of the query's recompute buffer on, level l at
+# node + 2^(prune + 1) - 2^(prune - l + 1)
+TASK_COLUMNS = ("source", "add", "mask", "xr", "prune", "base", "stride",
+                "cols", "node")
 HEX_ZEROS = 0x30303030  # "0000"
 MAX_COLUMNS = 6  # a row leaf's message is one SHA block (sha256_row_leaves)
 
@@ -88,9 +110,13 @@ class QueryTables:
     num_values: int  # value slots (words): 2 a Goldilocks value
     rng: int
     num_queries: int
-    # f_evals words (C x width x trace length), trace tree rows, FRI
-    # values words, FRI digest rows
+    # f_evals words (C x width x trace length), stored trace tree rows,
+    # FRI values words, stored FRI digest rows
     sizes: tuple
+    tasks: torch.Tensor  # (T, 9) int64 rows of TASK_COLUMNS
+    max_prune: int  # the deepest task's prune (0: no task)
+    subtree_rows: int  # digest rows of a query's recomputed nodes
+    elem_width: int  # u32 words a value (a task's leaf message)
 
 
 def _assemble(tb: QueryTables, v: torch.Tensor, d: torch.Tensor):
@@ -106,19 +132,60 @@ def _assemble(tb: QueryTables, v: torch.Tensor, d: torch.Tensor):
     return stream
 
 
+def _subtrees_plain(tb: QueryTables, idx, f_evals, fri_values):
+    """One query's recomputed nodes, (subtree_rows, 8), level by level
+    for all tasks together as the kernel computes them: every task's
+    block of leaves hashed with the plain K3 (its row form, one call a
+    column count), then each level's pairs of all the tasks that keep the
+    level above with one plain K4 call."""
+    dev = f_evals.device
+    sub = torch.empty((tb.subtree_rows, 8), dtype=torch.int32, device=dev)
+    tasks = tb.tasks.cpu().tolist()
+    blocks = []
+    for src, add, mask, xr, prune, base, stride, cols, _ in tasks:
+        values = f_evals if src == TRACE_VALUE else fri_values
+        j = ((idx + add) & mask) ^ xr
+        lanes = (j >> prune << prune) + torch.arange(1 << prune, device=dev)
+        planes = torch.arange(cols * tb.elem_width, device=dev)
+        blocks.append(values[base + planes[:, None] * stride + lanes[None]])
+    levels = [None] * len(tasks)
+    for cols in {t[7] for t in tasks}:
+        mine = [k for k, t in enumerate(tasks) if t[7] == cols]
+        words = torch.cat([blocks[k] for k in mine], dim=1)
+        if tb.elem_width == 2:
+            words = words.view(cols, 2, -1)
+        digests = sha256_row_leaves(words, tb.elem_width == 2)
+        for k, d in zip(mine, digests.split(
+                [blocks[k].shape[1] for k in mine])):
+            levels[k] = d
+    for lv in range(tb.max_prune):
+        live = [k for k, t in enumerate(tasks) if t[4] > lv]
+        for k in live:
+            prune, node = tasks[k][4], tasks[k][8]
+            off = node + (2 << prune) - (2 << (prune - lv))
+            sub[off:off + levels[k].shape[0]] = levels[k]
+        above = [k for k in live if tasks[k][4] > lv + 1]
+        if above:
+            parents = sha256_pairs(torch.cat([levels[k] for k in above]))
+            for k, d in zip(above, parents.split(
+                    [levels[k].shape[0] // 2 for k in above])):
+                levels[k] = d
+    return sub
+
+
 def query_chain_plain(chain, f_evals, trace_digests, fri_values,
                       fri_digests, tb: QueryTables):
     """Plain version of K5's query form, with the kernel's inputs: the
-    per-query loop over the packed tables, gathers on the tensors'
-    device, each query's chain through :func:`sha_chain_plain` (on the
-    host).  Returns (final chain (8,), idxs (Q,) int64, vals (Q, Nv),
-    digs (Q, Nd, 8))."""
+    per-query loop over the packed tables, gathers and the pruned trees'
+    recompute (plain K3 / K4) on the tensors' device, each query's chain
+    through :func:`sha_chain_plain` (on the host).  Returns (final chain
+    (8,), idxs (Q,) int64, vals (Q, Nv), digs (Q, Nd, 8))."""
     dev = chain.device
     nv = tb.num_values
     nd = int(tb.slots.shape[0]) - nv
     cols = dict(zip(SLOT_COLUMNS, tb.slots.unbind(1)))
     src = tb.slots[:, 0].cpu()
-    sel = [torch.nonzero(src == k).flatten().to(dev) for k in range(4)]
+    sel = [torch.nonzero(src == k).flatten().to(dev) for k in range(6)]
     idxs = torch.empty(tb.num_queries, dtype=torch.int64, device=dev)
     vals = torch.empty((tb.num_queries, nv), dtype=torch.int32, device=dev)
     digs = torch.empty((tb.num_queries, nd, 8), dtype=torch.int32,
@@ -126,11 +193,14 @@ def query_chain_plain(chain, f_evals, trace_digests, fri_values,
     for q in range(tb.num_queries):
         idx = mod_state(chain, tb.rng)
         pos = _positions(cols, idx)
+        sub = _subtrees_plain(tb, idx, f_evals, fri_values)
         v, d = vals[q], digs[q]
-        v[sel[TRACE_VALUE]] = f_evals[pos[sel[TRACE_VALUE]]]
-        v[sel[FRI_VALUE]] = fri_values[pos[sel[FRI_VALUE]]]
-        d[sel[TRACE_DIGEST] - nv] = trace_digests[pos[sel[TRACE_DIGEST]]]
-        d[sel[FRI_DIGEST] - nv] = fri_digests[pos[sel[FRI_DIGEST]]]
+        for k, buf in ((TRACE_VALUE, f_evals), (FRI_VALUE, fri_values)):
+            v[sel[k]] = buf[pos[sel[k]]]
+        for k, buf in ((TRACE_DIGEST, trace_digests),
+                       (FRI_DIGEST, fri_digests), (TRACE_SUBTREE, sub),
+                       (FRI_SUBTREE, sub)):
+            d[sel[k] - nv] = buf[pos[sel[k]]]
         chain = sha_chain_plain(_assemble(tb, v, d), tb.flags, chain)
         idxs[q] = idx
     return chain, idxs, vals, digs
@@ -138,18 +208,22 @@ def query_chain_plain(chain, f_evals, trace_digests, fri_values,
 
 def query_chain(chain, f_evals, trace_digests, fri_values, fri_digests,
                 tb: QueryTables):
-    """K5's query form: every query of the phase in one launch.  A CPU
-    tensor runs :func:`query_chain_plain`; a CUDA tensor launches the
-    kernel or raises."""
+    """K5's query form: every query of the phase in one launch, the
+    pruned trees' siblings recomputed in it.  A CPU tensor runs
+    :func:`query_chain_plain`; a CUDA tensor launches the kernel or
+    raises."""
     if _build.plain_device(chain):
         return query_chain_plain(chain, f_evals, trace_digests, fri_values,
                                  fri_digests, tb)
     lib = _build.lib("sha_chain")
     nrows, nslots = int(tb.template.shape[0]), int(tb.slots.shape[0])
-    if nrows > lib.stark_query_chain_max_rows():
+    ntasks = int(tb.tasks.shape[0])
+    max_rows = lib.stark_query_chain_max_rows(tb.subtree_rows)
+    if nrows > max_rows:
         raise ValueError(
-            f"query stream of {nrows} rows exceeds the shared memory of "
-            f"K5's query form ({lib.stark_query_chain_max_rows()} rows)")
+            f"query stream of {nrows} rows and {tb.subtree_rows} recomputed "
+            f"nodes exceeds the shared memory of K5's query form "
+            f"({max_rows} rows with those nodes)")
     n_f, n_td, n_fv, n_fd = tb.sizes
     _build.require(chain, "chain", (8,))
     _build.require(f_evals, "f_evals", (n_f,))
@@ -160,6 +234,8 @@ def query_chain(chain, f_evals, trace_digests, fri_values, fri_digests,
     _build.require(tb.flags, "flags", (nrows, 2), align=8)
     _build.require(tb.slots, "slots", (nslots, 8), dtype=torch.int64,
                    align=8)
+    _build.require(tb.tasks, "tasks", (ntasks, len(TASK_COLUMNS)),
+                   dtype=torch.int64, align=8)
     dev, q_n, nv = chain.device, tb.num_queries, tb.num_values
     out = torch.empty(8, dtype=torch.int32, device=dev)
     idxs = torch.empty(q_n, dtype=torch.int64, device=dev)
@@ -169,9 +245,10 @@ def query_chain(chain, f_evals, trace_digests, fri_values, fri_digests,
         chain.data_ptr(), f_evals.data_ptr(), trace_digests.data_ptr(),
         fri_values.data_ptr(), fri_digests.data_ptr(),
         tb.template.data_ptr(), tb.flags.data_ptr(), tb.slots.data_ptr(),
-        nrows, nslots, nv, tb.rng, q_n, out.data_ptr(), idxs.data_ptr(),
-        vals.data_ptr(), digs.data_ptr(), _build.stream_ptr(dev)),
-        "K5 query_chain")
+        tb.tasks.data_ptr(), nrows, nslots, nv, ntasks, tb.max_prune,
+        tb.subtree_rows, int(tb.elem_width == 2), tb.rng, q_n,
+        out.data_ptr(), idxs.data_ptr(), vals.data_ptr(), digs.data_ptr(),
+        _build.stream_ptr(dev)), "K5 query_chain")
     query_chain.launches += 1
     return out, idxs, vals, digs
 
@@ -203,16 +280,16 @@ def _log2(n: int) -> int:
 
 
 class _Slots:
-    """Gather slots of one source buffer: slot s reads position
+    """Gather slots: slot s reads position
     base[s] + ((((idx + add[s]) & mask[s]) ^ xr[s]) >> shift[s]) ^ flip[s]
-    and writes its hex from stream word word[s]."""
+    of its source's buffer and writes its hex from stream word word[s]."""
 
     def __init__(self):
-        self.cols = {k: [] for k in SLOT_COLUMNS[1:]}
+        self.cols = {k: [] for k in SLOT_COLUMNS}
 
-    def add(self, word, base, add, mask, xr, shift=0, flip=0):
-        for k, v in zip(SLOT_COLUMNS[1:],
-                        (base, add, mask, xr, shift, flip, word)):
+    def add(self, source, word, base, add, mask, xr, shift=0, flip=0):
+        for k, v in zip(SLOT_COLUMNS,
+                        (source, base, add, mask, xr, shift, flip, word)):
             self.cols[k].append(v)
 
 
@@ -224,12 +301,15 @@ def _positions(t: dict, idx: torch.Tensor) -> torch.Tensor:
 class DeviceQueryPlan:
     """The whole query phase for one static configuration: draw range,
     query count, trace offsets, trace length (of each column), the FRI
-    length ladder (all powers of two), the trace's column count and the
-    field's width in u32 words (1, or 2 for Goldilocks)."""
+    length ladder (all powers of two), the trace's column count, the
+    field's width in u32 words (1, or 2 for Goldilocks), and the prune
+    depths of the trace tree and of each FRI layer's tree (default: none
+    pruned)."""
 
     def __init__(self, rng: int, num_queries: int, offsets: tuple,
                  trace_len: int, fri_lengths: tuple, num_columns: int = 1,
-                 elem_width: int = 1):
+                 elem_width: int = 1, trace_prune: int = 0,
+                 fri_prune: tuple = ()):
         if rng <= 0 or rng >= 1 << 32:
             raise ValueError(f"draw range {rng} not in [1, 2^32)")
         if elem_width not in (1, 2):
@@ -242,6 +322,14 @@ class DeviceQueryPlan:
         for ln in fri_lengths + (trace_len,):
             if ln & (ln - 1):
                 raise ValueError("device query phase needs power-of-two sizes")
+        fri_prune = tuple(int(x) for x in fri_prune) or (0,) * len(
+            fri_lengths)
+        if (len(fri_prune) != len(fri_lengths)
+                or not _prunes_fit((trace_len,) + tuple(fri_lengths),
+                                   (trace_prune,) + fri_prune)):
+            raise ValueError(f"prune depths {trace_prune}, {fri_prune} do "
+                             f"not fit trees of {trace_len}, {fri_lengths} "
+                             "leaves")
         self.rng = rng
         self.num_queries = num_queries
         self.offsets = tuple(int(o) for o in offsets)
@@ -249,16 +337,21 @@ class DeviceQueryPlan:
         self.num_columns = int(num_columns)
         self.elem_width = int(elem_width)
         self.fri_lengths = tuple(int(x) for x in fri_lengths)
+        self.trace_prune = int(trace_prune)
+        self.fri_prune = fri_prune
         self.script = build_script(len(self.offsets), self.fri_lengths)
-        self.fri_layout = layer_layout(self.fri_lengths, elem_width)[0]
+        self.fri_layout = layer_layout(self.fri_lengths, elem_width,
+                                       fri_prune)[0]
 
-        # static stream template (constant words in place), flags, and the
+        # static stream template (constant words in place), flags, the
         # gather slots in script order (trace ops come first in the
-        # script, so trace slots then FRI slots is script order)
+        # script, so trace slots then FRI slots is script order; a path's
+        # slots name its recomputed siblings, then its stored ones) and
+        # the recompute tasks of the pruned paths
         rows, first, last = [], [], []
         val_rows, dig_rows = [], []
         tv, fv, td, fd = _Slots(), _Slots(), _Slots(), _Slots()
-        tlevels = level_offsets(self.trace_len)
+        tasks, nodes = [], 0
 
         def message(payload: np.ndarray, tail=None) -> int:
             """Append a message (state-hex row, payload rows, tail row);
@@ -300,23 +393,45 @@ class DeviceQueryPlan:
                     for k in range(wd):
                         word = 16 * row + 4 * c + 2 * (k + 2 - wd)
                         if src[0] == "trace_v":
-                            tv.add(word, (c * wd + k) * self.trace_len, add,
-                                   mask, xr)
+                            tv.add(TRACE_VALUE, word,
+                                   (c * wd + k) * self.trace_len, add, mask,
+                                   xr)
                         else:
-                            fv.add(word, self.fri_layout[src[1]][1] + k * ln,
-                                   add, mask, xr)
+                            fv.add(FRI_VALUE, word,
+                                   self.fri_layout[src[1]][1] + k * ln, add,
+                                   mask, xr)
                 continue
             h = _log2(ln)
             row = message(np.zeros((h, 16), np.int64), pad_row(64 + 64 * h))
             dig_rows.extend(range(row, row + h))
             if src[0] == "trace_p":
-                for l in range(h):
-                    td.add(16 * (row + l), tlevels[l][0], add, mask, xr, l,
-                           1)
+                sl, prune, doff = td, self.trace_prune, 0
+                values, stored_src, recomputed_src = (
+                    TRACE_VALUE, TRACE_DIGEST, TRACE_SUBTREE)
+                vbase, cols = 0, self.num_columns
             else:
-                doff = self.fri_layout[src[1]][2]
-                for l, (loff, _) in enumerate(level_offsets(ln)[:h]):
-                    fd.add(16 * (row + l), doff + loff, add, mask, xr, l, 1)
+                sl, prune = fd, self.fri_prune[src[1]]
+                _, vbase, doff = self.fri_layout[src[1]]
+                values, stored_src, recomputed_src = (
+                    FRI_VALUE, FRI_DIGEST, FRI_SUBTREE)
+                cols = 1
+            if prune:
+                # levels 0 .. prune - 1: the in-block siblings among the
+                # task's nodes, at j's low `prune` bits
+                tasks.append((values, add, mask, xr, prune, vbase, ln, cols,
+                              nodes))
+                low = (1 << prune) - 1
+                for l in range(prune):
+                    sl.add(recomputed_src, 16 * (row + l),
+                           nodes + (2 << prune) - (2 << (prune - l)), add,
+                           low, xr & low, l, 1)
+                nodes += (2 << prune) - 2
+            stored = level_offsets(ln >> prune)
+            for l in range(prune, h):
+                sl.add(stored_src, 16 * (row + l),
+                       doff + stored[l - prune][0], add, mask, xr, l, 1)
+        self._tasks = tasks
+        self._subtree_rows = nodes
         self._template = np.stack(rows)
         self._flags = np.stack([first, last], axis=1).astype(np.int32)
         self._val_rows = val_rows  # first payload row of each value message
@@ -327,14 +442,15 @@ class DeviceQueryPlan:
     def pack(self, device) -> QueryTables:
         """The plan's tables in the layout the query kernel reads, on
         `device` (built once per device): the stream template with every
-        constant word in place, the flags, and one slot table row per
-        opened value and digest, values first."""
+        constant word in place, the flags, one slot table row per opened
+        value and digest (values first, digests in script order), and
+        one task row per pruned authentication path."""
         key = str(device)
         if key not in self._packed:
-            slots = [(src, *cols)
-                     for src, sl in enumerate(self._slots)
-                     for cols in zip(*sl.cols.values())]
-            _, vt, dt = layer_layout(self.fri_lengths, self.elem_width)
+            slots = [row for sl in self._slots
+                     for row in zip(*sl.cols.values())]
+            _, vt, dt = layer_layout(self.fri_lengths, self.elem_width,
+                                     self.fri_prune)
             self._packed[key] = QueryTables(
                 template=torch.from_numpy(self._template.astype(
                     np.uint32).view(np.int32)).to(device),
@@ -344,7 +460,14 @@ class DeviceQueryPlan:
                 + len(self._slots[1].cols["word"]),
                 rng=self.rng, num_queries=self.num_queries,
                 sizes=(self.num_columns * self.elem_width * self.trace_len,
-                       2 * self.trace_len - 1, vt, dt))
+                       2 * (self.trace_len >> self.trace_prune) - 1, vt,
+                       dt),
+                tasks=torch.tensor(self._tasks, dtype=torch.int64,
+                                   device=device).reshape(
+                                       -1, len(TASK_COLUMNS)),
+                max_prune=max((t[4] for t in self._tasks), default=0),
+                subtree_rows=self._subtree_rows,
+                elem_width=self.elem_width)
         return self._packed[key]
 
     def stream(self, v: torch.Tensor, d: torch.Tensor):
@@ -359,7 +482,8 @@ class DeviceQueryPlan:
         query form on a CUDA device.  `state`: (8,) int32 Fiat-Shamir
         state; `f_evals`: the (M,) or (C, M) trace LDE ((2, M) or
         (C, 2, M) limb planes for Goldilocks); `trace_digests` /
-        `fri_digests`: tree buffers in the layout of ``merkle/tree.py`` /
+        `fri_digests`: the stored levels of the trees, pruned at the
+        plan's depths, in the layout of ``merkle/tree.py`` /
         ``fri/commit.py``; `fri_values`: every FRI layer concatenated.
         Returns (final_state (8,), idxs (Q,) int64, vals (Q, Nv), digs
         (Q, Nd, 8)) in script order, a trace opening's C values
@@ -407,13 +531,22 @@ class DeviceQueryPlan:
                 "host replay — transcript would not verify")
 
 
+def _prunes_fit(lengths, prunes) -> bool:
+    return all(0 <= p and 1 << p <= ln for ln, p in zip(lengths, prunes))
+
+
 def supported(rng: int, trace_len: int, fri_lengths,
-              num_columns: int = 1, elem_width: int = 1) -> bool:
+              num_columns: int = 1, elem_width: int = 1,
+              trace_prune: int = 0, fri_prune: tuple = ()) -> bool:
     """Whether this plan handles the configuration (power-of-two sizes,
     draw range below 2^32, 1..6 trace columns, a field of 1 or 2 u32
-    words)."""
+    words, prune depths no deeper than their trees)."""
     if (not 0 < rng < 1 << 32 or not 1 <= num_columns <= MAX_COLUMNS
             or elem_width not in (1, 2)):
         return False
     sizes = list(fri_lengths) + [trace_len]
-    return all(s > 0 and not (s & (s - 1)) for s in sizes)
+    fri_prune = tuple(fri_prune) or (0,) * len(fri_lengths)
+    return (all(s > 0 and not (s & (s - 1)) for s in sizes)
+            and len(fri_prune) == len(fri_lengths)
+            and _prunes_fit([trace_len, *fri_lengths],
+                            [trace_prune, *fri_prune]))

@@ -56,6 +56,16 @@ __device__ __forceinline__ void compress(uint32_t st[8], uint32_t w[16]) {
   st[4] += e; st[5] += f; st[6] += g; st[7] += h;
 }
 
+// st <- SHA-256 of a 64-byte message w (two digests, a Merkle node's
+// children): the data block, then the constant padding block.
+__device__ __forceinline__ void pair(uint32_t st[8], uint32_t w[16]) {
+  init(st);
+  compress(st, w);
+  uint32_t pad[16] = {0x80000000u, 0u, 0u, 0u, 0u, 0u, 0u, 0u,
+                      0u, 0u, 0u, 0u, 0u, 0u, 0u, 512u};
+  compress(st, pad);
+}
+
 // W[i] + K[i] for the 64 rounds of one block (w: its 16 words, used as
 // the rolling schedule), stored four words at a time to out[0..15]: the
 // schedule of a block whose words are known ahead of the chain, computed

@@ -44,10 +44,12 @@ constexpr int kThreads = 256;
 // is the row form (the leaves of MerkleTree.from_columns).  C and WIDE are
 // template parameters, so the message words, the padding word and the bit
 // length 64C are immediates, the u32 mode's zero high words included.
+// Consecutive planes lie `ld` words apart (ld >= n), so one chunk of a
+// larger tree's leaves (merkle/tree.py's chunked build) is read in place.
 template <int C, bool WIDE>
 __global__ void __launch_bounds__(kThreads)
 sha_leaves(const uint32_t* __restrict__ values, uint4* __restrict__ out,
-           int n) {
+           int n, long long ld) {
   static_assert(C >= 1 && C <= 6, "one block holds at most 6 values");
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
@@ -57,10 +59,10 @@ sha_leaves(const uint32_t* __restrict__ values, uint4* __restrict__ out,
 #pragma unroll
   for (int c = 0; c < C; ++c) {
     if constexpr (WIDE) {
-      w[2 * c] = values[(size_t)(2 * c) * n + i];
-      w[2 * c + 1] = values[(size_t)(2 * c + 1) * n + i];
+      w[2 * c] = values[(2 * c) * ld + i];
+      w[2 * c + 1] = values[(2 * c + 1) * ld + i];
     } else {
-      w[2 * c + 1] = values[(size_t)c * n + i];
+      w[2 * c + 1] = values[c * ld + i];
     }
   }
   w[2 * C] = 0x80000000u;
@@ -87,11 +89,7 @@ sha_nodes(const uint4* __restrict__ children, uint4* __restrict__ out,
     w[4 * q + 3] = v.w;
   }
   uint32_t st[8];
-  sha::init(st);
-  sha::compress(st, w);
-  uint32_t pad[16] = {0x80000000u, 0u, 0u, 0u, 0u, 0u, 0u, 0u,
-                      0u, 0u, 0u, 0u, 0u, 0u, 0u, 512u};
-  sha::compress(st, pad);
+  sha::pair(st, w);
   out[2 * j] = make_uint4(st[0], st[1], st[2], st[3]);
   out[2 * j + 1] = make_uint4(st[4], st[5], st[6], st[7]);
 }
@@ -99,21 +97,24 @@ sha_nodes(const uint4* __restrict__ children, uint4* __restrict__ out,
 }  // namespace
 
 // values: (cols, n) words, column-major rows of a trace (cols = 1: n
-// values), or with `wide` the (cols, 2, n) limb planes of 64-bit values;
-// out: (n, 8) digest rows (16-byte aligned).
+// values), or with `wide` the (cols, 2, n) limb planes of 64-bit values,
+// each plane `ld` words after the one before (ld >= n); out: (n, 8)
+// digest rows (16-byte aligned).
 extern "C" int stark_sha_leaves(const void* values, void* out, int n,
-                                int cols, int wide, void* stream) {
-  using Leaves = void (*)(const uint32_t*, uint4*, int);
+                                long long ld, int cols, int wide,
+                                void* stream) {
+  using Leaves = void (*)(const uint32_t*, uint4*, int, long long);
   static const Leaves kLeaves[2][6] = {
       {sha_leaves<1, false>, sha_leaves<2, false>, sha_leaves<3, false>,
        sha_leaves<4, false>, sha_leaves<5, false>, sha_leaves<6, false>},
       {sha_leaves<1, true>, sha_leaves<2, true>, sha_leaves<3, true>,
        sha_leaves<4, true>, sha_leaves<5, true>, sha_leaves<6, true>}};
-  if (cols < 1 || cols > 6 || n < 0) return (int)cudaErrorInvalidValue;
+  if (cols < 1 || cols > 6 || n < 0 || ld < n)
+    return (int)cudaErrorInvalidValue;
   if (n > 0)
     kLeaves[wide != 0][cols - 1]<<<(n + kThreads - 1) / kThreads, kThreads,
                                    0, (cudaStream_t)stream>>>(
-        (const uint32_t*)values, (uint4*)out, n);
+        (const uint32_t*)values, (uint4*)out, n, ld);
   return (int)cudaGetLastError();
 }
 

@@ -46,6 +46,20 @@
 //   rows a query, ~125 KB of shared memory with the ring, so the whole
 //   stream stays in shared memory; the wrapper raises for a plan that
 //   does not fit.
+// * Pruned trees (merkle/tree.py) do not store their first `prune`
+//   levels.  Query q + 1's index depends on what query q absorbed, so
+//   their siblings are recomputed here, after each draw and before the
+//   gather (where the JAX package's scan calls _subtree_sibs,
+//   stark_tpu/channel/device_query.py:245-280): for each recompute task
+//   (one pruned authentication path) the block's 128 threads hash the
+//   aligned 2^prune leaves of the path's leaf from the values, then
+//   reduce them level by level in shared memory, one barrier a level for
+//   all tasks together; the gather reads the siblings from there like
+//   any digest.  The chain is idle meanwhile (the stream it hashes needs
+//   them), so the barriers hold back no chain row.  Per query that is
+//   one leaf compression a thread (up to 128 leaves at once) and two
+//   compressions a level: ~2 prune + 1 compressions on the critical
+//   path.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -306,12 +320,112 @@ __global__ void __launch_bounds__(kThreads, 1)
 // message's payload after 8 hex zeros of the template, column c at base
 // c * M of the (C, M) trace LDE; a Goldilocks value is two, its hi word at
 // 4c from the hi plane and its lo word at 4c + 2 from the lo plane), the 16
-// of a digest
+// of a digest, from global memory or, for the sibling of a pruned level,
+// from the query's recomputed nodes in shared memory
 enum Source { kTraceValue = 0, kFriValue = 1, kTraceDigest = 2,
-              kFriDigest = 3 };
+              kFriDigest = 3, kTraceSubtree = 4, kFriSubtree = 5 };
 
-__host__ __device__ constexpr int query_smem(int nrows) {
-  return kRingBytes + kRingBarBytes + nrows * (64 + 8) + 16;
+// recompute task columns (int64), one task a pruned authentication path:
+// its leaf j = ((idx + add) & mask) ^ xr in the tree over the source's
+// values (kTraceValue: f_evals, kFriValue: fri_values); the task hashes
+// leaves ((j >> prune) << prune) + i, i < 2^prune, leaf i the row message
+// of `cols` values whose word planes start at base + plane * stride + leaf
+// (planes c, or 2c and 2c + 1 in the 64-bit mode), and keeps levels 0 ..
+// prune - 1 of that block in shared memory from digest row `node` on,
+// level l at node + 2^(prune + 1) - 2^(prune - l + 1)
+enum TaskColumn { kTaskSource = 0, kTaskAdd, kTaskMask, kTaskXr, kTaskPrune,
+                  kTaskBase, kTaskStride, kTaskCols, kTaskNode,
+                  kTaskColumns };
+
+// shared memory of the query form: the ring, the stream, its flags, the
+// published idx, then (16-byte aligned) `nodes` recomputed digest rows
+__host__ __device__ constexpr int query_smem_nodes(int nrows) {
+  return (kRingBytes + kRingBarBytes + nrows * (64 + 8) + 16 + 15) & ~15;
+}
+
+__host__ __device__ constexpr int query_smem(int nrows, int nodes) {
+  return query_smem_nodes(nrows) + nodes * 32;
+}
+
+// The 16 words of a leaf's message: `cols` values, each 8 big-endian
+// bytes (hi, lo; a u32 value's hi word 0), then the padding; v points at
+// the leaf's word of plane 0, planes `stride` words apart.  Static
+// indices throughout, so the message stays in registers.
+__device__ __forceinline__ void leaf_message(const uint32_t* v,
+                                             long long stride, int cols,
+                                             bool wide, uint32_t w[16]) {
+#pragma unroll
+  for (int k = 0; k < 16; ++k) w[k] = 0u;
+#pragma unroll
+  for (int c = 0; c < 6; ++c) {
+    if (c < cols) {
+      if (wide) {
+        w[2 * c] = v[(2 * c) * stride];
+        w[2 * c + 1] = v[(2 * c + 1) * stride];
+      } else {
+        w[2 * c + 1] = v[c * stride];
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 2; k < 15; k += 2)
+    if (k == 2 * cols) w[k] = 0x80000000u;
+  w[15] = 64u * static_cast<uint32_t>(cols);
+}
+
+// Levels 0 .. prune - 1 of every task's block for this query's idx, into
+// `nodes`: level l of all tasks in one pass of the block's threads, a
+// barrier between passes.  The caller's barrier after it publishes the
+// last level.
+__device__ void recompute_blocks(const long long* __restrict__ tasks,
+                                 int ntasks, int max_prune, long long idx,
+                                 const uint32_t* __restrict__ f_evals,
+                                 const uint32_t* __restrict__ fri_values,
+                                 bool wide, uint4* nodes) {
+  for (int l = 0; l < max_prune; ++l) {
+    if (l > 0) __syncthreads();  // level l - 1 is complete
+    int total = 0;
+    for (int t = 0; t < ntasks; ++t) {
+      const int p = static_cast<int>(tasks[t * kTaskColumns + kTaskPrune]);
+      if (p > l) total += 1 << (p - l);
+    }
+    for (int i = threadIdx.x; i < total; i += kThreads) {
+      // node k of level l of task t
+      const long long* t = tasks;
+      int k = i, p = 0;
+      for (;; t += kTaskColumns) {
+        p = static_cast<int>(t[kTaskPrune]);
+        const int count = p > l ? 1 << (p - l) : 0;
+        if (k < count) break;
+        k -= count;
+      }
+      const long long node = t[kTaskNode];
+      uint32_t w[16], st[8];
+      if (l == 0) {
+        const long long j = ((idx + t[kTaskAdd]) & t[kTaskMask]) ^ t[kTaskXr];
+        const uint32_t* v =
+            (t[kTaskSource] == kTraceValue ? f_evals : fri_values) +
+            t[kTaskBase] + ((j >> p) << p) + k;
+        leaf_message(v, t[kTaskStride], static_cast<int>(t[kTaskCols]), wide,
+                     w);
+        sha::init(st);
+        sha::compress(st, w);
+      } else {
+        const uint4* kids =
+            nodes + 2 * (node + (2 << p) - (2 << (p - l + 1)) + 2 * k);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const uint4 c = kids[q];
+          w[4 * q] = c.x; w[4 * q + 1] = c.y; w[4 * q + 2] = c.z;
+          w[4 * q + 3] = c.w;
+        }
+        sha::pair(st, w);
+      }
+      uint4* dst = nodes + 2 * (node + (2 << p) - (2 << (p - l)) + k);
+      dst[0] = make_uint4(st[0], st[1], st[2], st[3]);
+      dst[1] = make_uint4(st[4], st[5], st[6], st[7]);
+    }
+  }
 }
 
 __global__ void __launch_bounds__(kThreads, 1)
@@ -322,8 +436,10 @@ __global__ void __launch_bounds__(kThreads, 1)
                 const uint4* __restrict__ fri_digests,
                 const uint4* __restrict__ tmpl,
                 const int2* __restrict__ flags,
-                const long long* __restrict__ slots, int nrows, int nslots,
-                int nvalues, uint32_t rng, int nqueries,
+                const long long* __restrict__ slots,
+                const long long* __restrict__ tasks, int nrows, int nslots,
+                int nvalues, int ntasks, int max_prune, int wide,
+                uint32_t rng, int nqueries,
                 uint32_t* __restrict__ chain_out,
                 long long* __restrict__ idxs, uint32_t* __restrict__ vals,
                 uint32_t* __restrict__ digs) {
@@ -332,6 +448,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   uint4* stream = reinterpret_cast<uint4*>(smem + kRingBytes + kRingBarBytes);
   int2* sflags = reinterpret_cast<int2*>(stream + 4 * nrows);
   long long* s_idx = reinterpret_cast<long long*>(sflags + nrows);
+  uint4* nodes = reinterpret_cast<uint4*>(smem + query_smem_nodes(nrows));
   ring_init(r);
   for (int k = threadIdx.x; k < 4 * nrows; k += kThreads) stream[k] = tmpl[k];
   for (int k = threadIdx.x; k < nrows; k += kThreads) sflags[k] = flags[k];
@@ -357,6 +474,11 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     __syncthreads();  // idx published; the last query's staging is done
     const long long idx = *s_idx;
+    if (max_prune > 0) {
+      recompute_blocks(tasks, ntasks, max_prune, idx, f_evals, fri_values,
+                       wide != 0, nodes);
+      __syncthreads();  // every recomputed node is written
+    }
     uint32_t* words = reinterpret_cast<uint32_t*>(stream);
     for (int s = threadIdx.x; s < nslots; s += kThreads) {
       const long long* t = slots + 8 * static_cast<size_t>(s);
@@ -370,8 +492,10 @@ __global__ void __launch_bounds__(kThreads, 1)
         hex_words(v, dst);
         vals[static_cast<size_t>(q) * nvalues + s] = v;
       } else {
-        const uint4* src =
-            (t[0] == kTraceDigest ? trace_digests : fri_digests) + 2 * pos;
+        const uint4* src = (t[0] >= kTraceSubtree  ? nodes
+                            : t[0] == kTraceDigest ? trace_digests
+                                                   : fri_digests) +
+                           2 * pos;
         const uint4 lo = src[0], hi = src[1];
         const uint32_t d[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
         uint32_t* out = digs + (static_cast<size_t>(q) * ndigests +
@@ -493,16 +617,22 @@ extern "C" int stark_sha_chain(const void* stream, const void* flags,
 
 // The whole query phase: nqueries queries of nrows stream rows each.
 // template: (nrows, 16) words; flags: (nrows, 2); slots: (nslots, 8)
-// int64 (values first, then digests); trace_digests / fri_digests: tree
-// buffers of (rows, 8) words.  Out: chain_out (8,), idxs (nqueries,)
-// int64, vals (nqueries, nvalues), digs (nqueries, nslots - nvalues, 8).
+// int64 (values first, then digests); tasks: (ntasks, kTaskColumns)
+// int64, whose nodes fill `nodes` digest rows, the deepest at max_prune;
+// wide: the values are 64-bit limb planes; trace_digests / fri_digests:
+// the trees' stored levels, (rows, 8) words.  Out: chain_out (8,), idxs
+// (nqueries,) int64, vals (nqueries, nvalues), digs (nqueries, nslots -
+// nvalues, 8).
 extern "C" int stark_query_chain(
     const void* chain_in, const void* f_evals, const void* trace_digests,
     const void* fri_values, const void* fri_digests, const void* tmpl,
-    const void* flags, const void* slots, int nrows, int nslots,
-    int nvalues, unsigned rng, int nqueries, void* chain_out, void* idxs,
-    void* vals, void* digs, void* s) {
-  const int bytes = query_smem(nrows);
+    const void* flags, const void* slots, const void* tasks, int nrows,
+    int nslots, int nvalues, int ntasks, int max_prune, int nodes, int wide,
+    unsigned rng, int nqueries, void* chain_out, void* idxs, void* vals,
+    void* digs, void* s) {
+  if (nodes < 0 || max_prune < 0 || (max_prune > 0) != (ntasks > 0))
+    return (int)cudaErrorInvalidValue;
+  const int bytes = query_smem(nrows, nodes);
   if (bytes > kMaxSmem) return (int)cudaErrorInvalidValue;
   const cudaError_t err = allow_smem();
   if (err != cudaSuccess) return (int)err;
@@ -510,15 +640,16 @@ extern "C" int stark_query_chain(
       (const uint32_t*)chain_in, (const uint32_t*)f_evals,
       (const uint4*)trace_digests, (const uint32_t*)fri_values,
       (const uint4*)fri_digests, (const uint4*)tmpl, (const int2*)flags,
-      (const long long*)slots, nrows, nslots, nvalues, rng, nqueries,
-      (uint32_t*)chain_out, (long long*)idxs, (uint32_t*)vals,
-      (uint32_t*)digs);
+      (const long long*)slots, (const long long*)tasks, nrows, nslots,
+      nvalues, ntasks, max_prune, wide, rng, nqueries, (uint32_t*)chain_out,
+      (long long*)idxs, (uint32_t*)vals, (uint32_t*)digs);
   return (int)cudaGetLastError();
 }
 
-// The most stream rows a query of stark_query_chain may have.
-extern "C" int stark_query_chain_max_rows() {
-  return (kMaxSmem - query_smem(0)) / (64 + 8);
+// The most stream rows a query of stark_query_chain may have beside
+// `nodes` recomputed digest rows.
+extern "C" int stark_query_chain_max_rows(int nodes) {
+  return (kMaxSmem - nodes * 32 - query_smem_nodes(0) - 15) / (64 + 8);
 }
 
 extern "C" int stark_dep_latency(void* out, int mode, int iters, void* s) {

@@ -15,7 +15,9 @@ trees in one (rows, 8) digest buffer, each at static offsets, so the
 query phase gathers every FRI opening of a query with one index
 operation per buffer.  A Goldilocks layer of m values holds 2m words,
 its hi plane then its lo plane, and its tree hashes the limb pairs
-(K3's 64-bit mode).
+(K3's 64-bit mode).  Each layer's tree stores only its levels of at most
+2^PRUNE_KEEP_LOG nodes (``merkle/tree.py`` ``prune_depth_for``), so the
+digest buffer holds the stored levels only.
 """
 
 from __future__ import annotations
@@ -27,7 +29,8 @@ import torch
 
 from stark_tpu_torch.channel.channel import Channel
 from stark_tpu_torch.fields.fp import Fp
-from stark_tpu_torch.merkle.tree import MerkleTree
+from stark_tpu_torch.merkle.tree import (MerkleTree, prune_depth_for,
+                                         tree_scratch)
 from stark_tpu_torch.ntt.reference_ntt import root_of_unity
 
 
@@ -55,15 +58,17 @@ def _inv_domain(p: int, m: int, offset: int, device: str) -> torch.Tensor:
     return f.coset_domain(off_inv, w_inv, m // 2, torch.device(device))
 
 
-def layer_layout(lengths, width: int = 1) -> tuple[list, int, int]:
-    """Static layout of the FRI buffers for layers of the given lengths
-    and field width: per layer (length, value offset, digest-row offset),
-    plus the two buffer sizes (values in words, digest rows)."""
+def layer_layout(lengths, width: int = 1,
+                 prunes=None) -> tuple[list, int, int]:
+    """Static layout of the FRI buffers for layers of the given lengths,
+    field width and tree prune depths (default: none pruned): per layer
+    (length, value offset, digest-row offset), plus the two buffer sizes
+    (values in words, stored digest rows)."""
     out, voff, doff = [], 0, 0
-    for ln in lengths:
+    for ln, prune in zip(lengths, prunes or (0,) * len(lengths)):
         out.append((ln, voff, doff))
         voff += width * ln
-        doff += 2 * ln - 1
+        doff += 2 * (ln >> prune) - 1
     return out, voff, doff
 
 
@@ -77,8 +82,9 @@ class FRIProof:
     final_value: int | None
     offsets: list[int]  # coset offset per layer (o, o^2, o^4, ...)
     values: torch.Tensor  # every layer's evaluations, concatenated
-    digests: torch.Tensor  # every layer's tree buffer, concatenated
+    digests: torch.Tensor  # every layer's stored tree levels, concatenated
     layout: list[tuple[int, int, int]]  # (length, value off, digest off)
+    prunes: tuple  # each layer's tree prune depth
 
 
 def finish_deferred(p: int, final_vals_host, channel: Channel) -> int:
@@ -101,10 +107,12 @@ def finish_deferred(p: int, final_vals_host, channel: Channel) -> int:
 
 
 def fri_commit(evals: torch.Tensor, p: int, offset: int, fs,
-               num_folds: int | None = None) -> FRIProof:
+               num_folds: int | None = None, prunes=None) -> FRIProof:
     """Commit phase with the caller's active DeviceFS `fs` (deferred: the
     host channel is untouched; the caller fetches ``fs.payloads()`` and
-    the last layer, replays, and calls :func:`finish_deferred`)."""
+    the last layer, replays, and calls :func:`finish_deferred`).  Layer
+    k's tree drops its first ``prunes[k]`` levels (default: each layer's
+    ``prune_depth_for``), all layers through one scratch."""
     n = int(evals.shape[-1])
     if n & (n - 1):
         raise ValueError("FRI domain size must be a power of two")
@@ -114,9 +122,13 @@ def fri_commit(evals: torch.Tensor, p: int, offset: int, fs,
         num_folds = max(n.bit_length() - 4, 0)  # log2(n) - 3
     if num_folds >= n.bit_length():
         raise ValueError(f"cannot fold size {n} domain {num_folds} times")
-    layout, vtotal, dtotal = layer_layout(
-        [n >> k for k in range(num_folds + 1)], f.width)
+    lengths = [n >> k for k in range(num_folds + 1)]
+    if prunes is None:
+        prunes = [prune_depth_for(ln) for ln in lengths]
+    prunes = tuple(int(x) for x in prunes)
+    layout, vtotal, dtotal = layer_layout(lengths, f.width, prunes)
     dev = evals.device
+    scratch = tree_scratch(zip(lengths, prunes), dev)
     values = torch.empty(vtotal, dtype=torch.int32, device=dev)
     digests = torch.empty((dtotal, 8), dtype=torch.int32, device=dev)
 
@@ -127,8 +139,9 @@ def fri_commit(evals: torch.Tensor, p: int, offset: int, fs,
 
     def tree(k):
         ln, _, doff = layout[k]
-        return MerkleTree(layer(k), out=digests[doff:doff + 2 * ln - 1],
-                          wide=wide)
+        rows = 2 * (ln >> prunes[k]) - 1
+        return MerkleTree(layer(k), out=digests[doff:doff + rows],
+                          wide=wide, prune=prunes[k], scratch=scratch)
 
     layer(0).copy_(evals)
     offset = int(offset) % p
@@ -147,4 +160,4 @@ def fri_commit(evals: torch.Tensor, p: int, offset: int, fs,
         off = off * off % p
         offsets.append(off)
     return FRIProof([layer(k) for k in range(num_folds + 1)], trees, None,
-                    offsets, values, digests, layout)
+                    offsets, values, digests, layout, prunes)

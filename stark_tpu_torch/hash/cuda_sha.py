@@ -11,8 +11,11 @@ package).  Both take the field's width explicitly (``wide=True`` for
 Goldilocks limb planes), never from the shape: a (2, n) tensor is two u32
 columns or one Goldilocks column.  A CPU tensor runs the plain torch
 version (``hash/sha256.py``); a CUDA tensor launches the kernel or
-raises.  Each wrapper counts its u32 launches in ``launches`` and its
-64-bit ones in ``wide_launches``.
+raises.  The values may be a slice along the last axis of a larger
+tensor (one chunk of a tree's leaves, ``merkle/tree.py``): the kernel
+reads each plane in place, a fixed stride after the one before.  Each
+wrapper counts its u32 launches in ``launches`` and its 64-bit ones in
+``wide_launches``.
 """
 
 from __future__ import annotations
@@ -24,12 +27,15 @@ from stark_tpu_torch.hash.sha256 import (sha256_pairs, sha256_row_leaves,
                                          sha256_u64_leaves)
 
 
-def _launch_leaves(values, out, n: int, cols: int, wide: bool, what: str):
+def _launch_leaves(values, shape: tuple, out, cols: int, wide: bool,
+                   what: str):
+    n = shape[-1]
+    ld = _build.require_planes(values, "values", shape)
     if out is None:
         out = torch.empty((n, 8), dtype=torch.int32, device=values.device)
     _build.require(out, "out", (n, 8), align=16)
     _build.check(_build.lib("sha256_tree").stark_sha_leaves(
-        values.data_ptr(), out.data_ptr(), n, cols, int(wide),
+        values.data_ptr(), out.data_ptr(), n, ld, cols, int(wide),
         _build.stream_ptr(values.device)), what)
     return out
 
@@ -44,15 +50,14 @@ def _count(wrapper, wide: bool) -> None:
 def sha_leaves(values: torch.Tensor, out: torch.Tensor | None = None, *,
                wide: bool = False):
     """(n,) int32 u32 field values, or with `wide` the (2, n) limb planes
-    of Goldilocks values -> (n, 8) int32 leaf digests, written into `out`
-    when given (a contiguous (n, 8) view, e.g. a tree buffer's leaf
-    level)."""
+    of Goldilocks values (planes contiguous, a fixed stride apart) ->
+    (n, 8) int32 leaf digests, written into `out` when given (a contiguous
+    (n, 8) view, e.g. a tree buffer's leaf level)."""
     n = int(values.shape[-1])
     if _build.plain_device(values):
         res = sha256_u64_leaves(values, wide)
         return res if out is None else out.copy_(res)
-    _build.require(values, "values", (2, n) if wide else (n,))
-    out = _launch_leaves(values, out, n, 1, wide,
+    out = _launch_leaves(values, (2, n) if wide else (n,), out, 1, wide,
                          f"K3 sha_leaves{' (64-bit)' * wide}")
     _count(sha_leaves, wide)
     return out
@@ -70,10 +75,8 @@ def sha_row_leaves(cols: torch.Tensor, out: torch.Tensor | None = None, *,
     if _build.plain_device(cols):
         res = sha256_row_leaves(cols, wide)
         return res if out is None else out.copy_(res)
-    c, n = int(cols.shape[0]), int(cols.shape[-1])
-    _build.require(cols, "cols", tuple(cols.shape))
-    out = _launch_leaves(cols, out, n, c, wide,
-                         f"K3 sha_row_leaves{' (64-bit)' * wide}")
+    out = _launch_leaves(cols, tuple(cols.shape), out, int(cols.shape[0]),
+                         wide, f"K3 sha_row_leaves{' (64-bit)' * wide}")
     _count(sha_row_leaves, wide)
     return out
 

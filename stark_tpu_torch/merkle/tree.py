@@ -23,16 +23,80 @@ layout, so roots and paths equal the JAX package's.
 On a CUDA tensor the leaves go through kernel K3 (its row form for
 columns) and every level above them, down to the root, through K4
 (``hash/cuda_sha.py``); on a CPU tensor through their plain versions.
+
+Pruned storage (``prune=``, the JAX package's ``prune_depth_for``): the
+single-fetch prove stores only the levels of at most 2^PRUNE_KEEP_LOG
+nodes of each tree.  The first ``prune`` levels go through a scratch
+buffer that the caller may share between trees, and the query phase
+recomputes their siblings from the leaf values inside K5's query form
+(``channel/device_query.py``).  The stored levels are one
+(2 (n >> prune) - 1, 8) buffer at the offsets of a tree of n >> prune
+leaves.  A pruned tree of at least 2^CHUNK_MIN_LOG leaves builds in
+chunks of 2^CHUNK_LOG consecutive leaves: one K3 launch into the
+scratch, then ``prune`` K4 launches, the last of which writes the
+chunk's slice of the first stored level, so the leaf-digest level is
+never held whole.  Digests do not depend on either, so roots and
+transcripts are those of the full tree.
 """
 
 from __future__ import annotations
 
 import hashlib
+import os
 
 import torch
 
 from stark_tpu_torch.hash.cuda_sha import (sha_leaves, sha_nodes,
                                            sha_row_leaves)
+
+
+# the stored levels of a pruned tree hold at most 2^PRUNE_KEEP_LOG nodes;
+# pruned trees of at least 2^CHUNK_MIN_LOG leaves build in chunks of
+# 2^CHUNK_LOG leaves (the JAX package's values).  Read at call time, so
+# a test may set them.
+PRUNE_KEEP_LOG = int(os.environ.get("STARK_TPU_TORCH_PRUNE_KEEP_LOG", "22"))
+CHUNK_MIN_LOG = int(os.environ.get("STARK_TPU_TORCH_CHUNK_TREE_LOG", "27"))
+CHUNK_LOG = 24
+
+
+def prune_depth_for(n: int) -> int:
+    """How many leading levels a size-n tree drops under pruned storage
+    (0 = store everything; only power-of-two trees prune, and none when
+    STARK_TPU_TORCH_NO_PRUNE is set)."""
+    if os.environ.get("STARK_TPU_TORCH_NO_PRUNE") or n & (n - 1):
+        return 0
+    return max(0, (n.bit_length() - 1) - PRUNE_KEEP_LOG)
+
+
+def chunk_log(n: int, prune: int) -> int:
+    """log2 of the leaves one pass of a pruned build of n leaves hashes:
+    all of them below 2^CHUNK_MIN_LOG leaves, else 2^CHUNK_LOG (at least
+    2^prune, at most n)."""
+    log_n = n.bit_length() - 1
+    if log_n < CHUNK_MIN_LOG:
+        return log_n
+    return min(log_n, max(CHUNK_LOG, prune))
+
+
+def scratch_rows(n: int, prune: int) -> int:
+    """Digest rows of the scratch a pruned build of n leaves needs: one
+    pass's leaves, then half as many again when there are levels between
+    them and the first stored level (those alternate between the two
+    regions).  0 without pruning."""
+    if not prune:
+        return 0
+    s = 1 << chunk_log(n, prune)
+    return s + (s // 2 if prune > 1 else 0)
+
+
+def tree_scratch(trees, device) -> torch.Tensor | None:
+    """One scratch buffer for the pruned builds of `trees`, (leaf count,
+    prune depth) pairs: the trees of a prove share it.  None when none of
+    them prunes."""
+    rows = max((scratch_rows(n, prune) for n, prune in trees), default=0)
+    if not rows:
+        return None
+    return torch.empty((rows, 8), dtype=torch.int32, device=device)
 
 
 def level_offsets(n: int) -> list[tuple[int, int]]:
@@ -52,26 +116,68 @@ def digest_bytes(words) -> bytes:
 
 
 def build_tree(values: torch.Tensor, out: torch.Tensor | None = None, *,
-               rows: bool = False, wide: bool = False):
-    """All digest levels of the tree over `values` into `out` (a contiguous
-    (2n-1, 8) int32 buffer, allocated when None); n, the last axis, a
-    power of two.  One value a leaf ((n,) u32, or (2, n) limb planes with
-    `wide`), or with `rows` the row messages of C columns ((C, n), or
-    (C, 2, n) with `wide`).  Returns the buffer."""
+               rows: bool = False, wide: bool = False, prune: int = 0,
+               scratch: torch.Tensor | None = None):
+    """The stored digest levels of the tree over `values` into `out` (a
+    contiguous (2m-1, 8) int32 buffer, m = n >> prune, allocated when
+    None); n, the last axis, a power of two.  One value a leaf ((n,) u32,
+    or (2, n) limb planes with `wide`), or with `rows` the row messages of
+    C columns ((C, n), or (C, 2, n) with `wide`).  With `prune` the first
+    `prune` levels go through `scratch` (a (rows, 8) int32 buffer of at
+    least :func:`scratch_rows` rows, allocated when None) and are not
+    stored.  Returns the buffer."""
     n = int(values.shape[-1])
+    if prune and (n & (n - 1) or (1 << prune) > n):
+        raise ValueError(f"prune={prune} needs a power-of-two leaf count "
+                         f">= 2^prune, got {n}")
     if n < 1 or n & (n - 1):
         raise NotImplementedError(
             "the port builds power-of-two trees only; odd-size trees "
             "(rs_merkle promotion) wait for ROADMAP Queue 1 item 14")
+    m = n >> prune
     if out is None:
-        out = torch.empty((2 * n - 1, 8), dtype=torch.int32,
+        out = torch.empty((2 * m - 1, 8), dtype=torch.int32,
                           device=values.device)
-    offs = level_offsets(n)
     leaves = sha_row_leaves if rows else sha_leaves
-    leaves(values, out=out[:n], wide=wide)
+    if prune:
+        _first_stored(values, out[:m], leaves, wide, prune, scratch)
+    else:
+        leaves(values, out=out[:n], wide=wide)
+    offs = level_offsets(m)
     for (off_c, size_c), (off_p, size_p) in zip(offs, offs[1:]):
         sha_nodes(out[off_c:off_c + size_c], out=out[off_p:off_p + size_p])
     return out
+
+
+def _first_stored(values, first, leaves, wide: bool, prune: int,
+                  scratch) -> None:
+    """Level `prune` of the tree over `values` into `first`, pass by pass
+    (:func:`chunk_log`): per pass one K3 launch into the scratch, then
+    `prune` K4 launches, the levels between alternating between the
+    scratch's two regions and the last writing the pass's slice of
+    `first`."""
+    n = int(values.shape[-1])
+    s = 1 << chunk_log(n, prune)
+    need = scratch_rows(n, prune)
+    if scratch is None:
+        scratch = tree_scratch([(n, prune)], values.device)
+    elif (scratch.dtype != torch.int32 or scratch.dim() != 2
+          or scratch.shape[0] < need or scratch.shape[1] != 8
+          or scratch.device != values.device):
+        raise ValueError(f"a pruned build of {n} leaves needs a ({need}, 8) "
+                         f"int32 scratch on {values.device}, got "
+                         f"{tuple(scratch.shape)} {scratch.dtype} on "
+                         f"{scratch.device}")
+    regions = (scratch[:s], scratch[s:s + s // 2])
+    for k in range(n // s):
+        level = leaves(values[..., k * s:(k + 1) * s], out=regions[0],
+                       wide=wide)
+        for lv in range(1, prune + 1):
+            size = s >> lv
+            dst = (first[k * size:(k + 1) * size] if lv == prune
+                   else regions[lv % 2][:size])
+            sha_nodes(level, out=dst)
+            level = dst
 
 
 class MerkleTree:
@@ -79,42 +185,50 @@ class MerkleTree:
     (n,), or with `wide` the (2, n) limb planes of Goldilocks values).
 
     ``MerkleTree(values)`` hashes on the values' device; ``root()``
-    returns lowercase hex like the reference."""
+    returns lowercase hex like the reference.  With ``prune`` the first
+    `prune` levels are not stored (:func:`build_tree`), and the host
+    authentication paths refuse: a pruned tree's paths come from the
+    device query phase."""
 
     def __init__(self, values: torch.Tensor, out: torch.Tensor | None = None,
-                 *, wide: bool = False):
+                 *, wide: bool = False, prune: int = 0,
+                 scratch: torch.Tensor | None = None):
         if (values.dim() != 1 + wide or values.shape[-1] == 0
                 or (wide and values.shape[0] != 2)):
             raise ValueError(f"MerkleTree needs a non-empty "
                              f"{'(2, n)' if wide else '1-D'} tensor, got "
                              f"shape {tuple(values.shape)}")
-        self._build(values, out, rows=False, wide=wide)
+        self._build(values, out, False, wide, prune, scratch)
 
-    def _build(self, values, out, rows: bool, wide: bool) -> None:
+    def _build(self, values, out, rows: bool, wide: bool, prune: int,
+               scratch) -> None:
         self.num_leaves = int(values.shape[-1])
-        self.buffer = build_tree(values, out, rows=rows, wide=wide)
-        self.offsets = level_offsets(self.num_leaves)
+        self.prune = int(prune)
+        self.buffer = build_tree(values, out, rows=rows, wide=wide,
+                                 prune=self.prune, scratch=scratch)
+        self.offsets = level_offsets(self.num_leaves >> self.prune)
 
     @classmethod
     def from_columns(cls, cols: torch.Tensor,
                      out: torch.Tensor | None = None, *,
-                     wide: bool = False) -> "MerkleTree":
+                     wide: bool = False, prune: int = 0,
+                     scratch: torch.Tensor | None = None) -> "MerkleTree":
         """Commit a multi-column codeword: cols (C, n), or (C, 2, n) with
         `wide`, C = 1..6; leaf i = SHA-256 of row i's values, 8 big-endian
         bytes each (the row message a query opens, so the verifier hashes
-        it as the leaf preimage).  The same (2n-1, 8) buffer as a
-        one-column tree."""
+        it as the leaf preimage).  The same buffer as a one-column tree."""
         if (cols.dim() != 2 + wide or not 1 <= cols.shape[0] <= 6
                 or cols.shape[-1] == 0 or (wide and cols.shape[1] != 2)):
             raise ValueError(f"from_columns needs a (C, {'2, ' * wide}n) "
                              f"tensor, C = 1..6")
         tree = cls.__new__(cls)
-        tree._build(cols, out, rows=True, wide=wide)
+        tree._build(cols, out, True, wide, prune, scratch)
         return tree
 
     @property
     def levels(self) -> list[torch.Tensor]:
-        """Per-level (m, 8) views, leaves first, root last."""
+        """Per stored level (m, 8) views, level `prune` first, root
+        last."""
         return [self.buffer[o:o + m] for o, m in self.offsets]
 
     @property
@@ -128,7 +242,13 @@ class MerkleTree:
 
     def path_rows(self, index: int) -> list[int]:
         """Buffer rows of the sibling digests of leaf `index`, leaf level
-        upward."""
+        upward (an unpruned tree only)."""
+        if self.prune:
+            raise RuntimeError(
+                "pruned tree: its first levels are not stored, so its "
+                "authentication paths come from the device query phase's "
+                "subtree recompute (channel/device_query.py), not from "
+                "host gathers")
         if not 0 <= index < self.num_leaves:
             raise IndexError(f"leaf index {index} out of range")
         return [off + ((index >> l) ^ 1)

@@ -7,10 +7,11 @@ whose values are (hi, lo) limb planes, whose NTTs are torch ops
 
     host trace -> trace polynomial (INTT, K1/K2) -> coset LDE (NTT,
     K1/K2; a C-column trace as one batched transform each) -> trace
-    Merkle tree (K3, its row form for C > 1, and K4) -> device
-    Fiat-Shamir absorb + alpha draws (K5) -> composition -> FRI fold +
-    per-layer tree + absorb -> device query phase (one launch of K5's
-    query form, row openings of C values) -> ONE device->host copy ->
+    Merkle tree (K3, its row form for C > 1, and K4; pruned and, from
+    2^27 leaves, chunked) -> device Fiat-Shamir absorb + alpha draws (K5)
+    -> composition -> FRI fold + per-layer tree + absorb -> device query
+    phase (one launch of K5's query form, row openings of C values, the
+    pruned levels' siblings recomputed in it) -> ONE device->host copy ->
     host transcript replay -> StarkProof
 
 Everything after the trace upload stays on the device with a
@@ -35,7 +36,7 @@ from stark_tpu_torch.channel.device_channel import DeviceFS, absorb_value
 from stark_tpu_torch.config import ProverConfig
 from stark_tpu_torch.fields.fp import Fp, upload_u32
 from stark_tpu_torch.fri.commit import finish_deferred, fri_commit
-from stark_tpu_torch.merkle.tree import MerkleTree
+from stark_tpu_torch.merkle.tree import MerkleTree, prune_depth_for
 from stark_tpu_torch.ntt.ntt import coset_evaluate
 from stark_tpu_torch.stark.air import FibonacciSquareAIR
 from stark_tpu_torch.stark.trace import trace_polynomial
@@ -140,26 +141,34 @@ def get_air_context(air, cfg: ProverConfig, device):
 
 @functools.lru_cache(maxsize=None)
 def _query_plan(cfg: ProverConfig, offsets: tuple, num_folds: int,
-                num_columns: int, elem_width: int) -> _dq.DeviceQueryPlan:
+                num_columns: int, elem_width: int, trace_prune: int,
+                fri_prune: tuple) -> _dq.DeviceQueryPlan:
     M = cfg.eval_domain_size
     rng = M - max(offsets)
     fri_lengths = tuple(M >> k for k in range(num_folds + 1))
-    if not _dq.supported(rng, M, fri_lengths, num_columns, elem_width):
+    if not _dq.supported(rng, M, fri_lengths, num_columns, elem_width,
+                         trace_prune, fri_prune):
         raise NotImplementedError(
             "configuration outside the single-fetch path; the per-phase "
             "path waits for ROADMAP Queue 1 item 14")
     return _dq.DeviceQueryPlan(rng, cfg.num_queries, offsets, M,
-                               fri_lengths, num_columns, elem_width)
+                               fri_lengths, num_columns, elem_width,
+                               trace_prune, fri_prune)
 
 
 def query_plan(cfg: ProverConfig, air=None) -> _dq.DeviceQueryPlan:
     """The device query plan of `air`'s prove of `cfg` (Fibonacci-square
     by default), built once per (configuration, trace offsets, fold
-    count, column count, field width)."""
+    count, column count, field width, tree prune depths).  The trees of
+    a prove prune as ``merkle.tree.prune_depth_for`` says at the time of
+    the call, and the prove builds them at the plan's depths."""
     air = air or FibonacciSquareAIR()
+    M, num_folds = cfg.eval_domain_size, air.num_folds(cfg)
     return _query_plan(cfg, tuple(s * cfg.blowup for s in air.shifts),
-                       air.num_folds(cfg), air.num_columns,
-                       Fp.get(cfg.modulus).width)
+                       num_folds, air.num_columns, Fp.get(cfg.modulus).width,
+                       prune_depth_for(M),
+                       tuple(prune_depth_for(M >> k)
+                             for k in range(num_folds + 1)))
 
 
 def prove(cfg: ProverConfig, a1: int = 3141592, *, air=None,
@@ -211,9 +220,13 @@ def _prove_single_fetch(cfg, air, channel, f_evals, publics, plan, mx,
     num_folds = len(plan.fri_lengths) - 1
 
     with mx.phase("trace-commit", leaves=cfg.eval_domain_size):
-        trace_tree = (MerkleTree.from_columns(f_evals, wide=wide)
-                      if air.num_columns > 1
-                      else MerkleTree(f_evals, wide=wide))
+        # pruned storage: each tree stores only its levels of at most
+        # 2^PRUNE_KEEP_LOG nodes (merkle/tree.py), and the query phase
+        # recomputes their siblings.  The dropped levels' scratch lives
+        # for its phase only (the FRI trees share theirs), so the
+        # composition, which sets the prove's peak, runs without it
+        tree = MerkleTree.from_columns if air.num_columns > 1 else MerkleTree
+        trace_tree = tree(f_evals, wide=wide, prune=plan.trace_prune)
         fs = DeviceFS(p, channel.state, device=device)
         fs.mark("trace-commit")
         fs.absorb_root(trace_tree.root_digest)
@@ -226,7 +239,8 @@ def _prove_single_fetch(cfg, air, channel, f_evals, publics, plan, mx,
                                                        publics)
         sync()
     with mx.phase("fri-commit", folds=num_folds):
-        fri = fri_commit(cp, p, h, fs, num_folds=num_folds)
+        fri = fri_commit(cp, p, h, fs, num_folds=num_folds,
+                         prunes=plan.fri_prune)
         sync()
 
     with mx.phase("queries", num_queries=cfg.num_queries):

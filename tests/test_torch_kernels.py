@@ -295,3 +295,86 @@ def test_golden_mimc_fibmul_on_card(dev, name):
                 air=air)
     assert got.serialize() == StarkProof.deserialize(
         json.dumps(vec[name]).encode()).serialize()
+
+
+@pytest.mark.parametrize("shape,wide", [((1 << 12,), False),
+                                        ((2, 1 << 12), True),
+                                        ((3, 1 << 12), False),
+                                        ((2, 2, 1 << 12), True)])
+def test_k3_reads_a_chunk_in_place(dev, shape, wide):
+    """K3 on a slice along the last axis (one chunk of a pruned build):
+    its planes a fixed stride apart, read in place."""
+    from stark_tpu_torch.hash.cuda_sha import sha_leaves, sha_row_leaves
+    from stark_tpu_torch.hash.sha256 import sha256_row_leaves
+
+    v = _u32(shape, 2**32 if wide else P, len(shape) + wide, dev)
+    chunk = v[..., 1024:3072]
+    rows = len(shape) == 2 + wide
+    fn = sha_row_leaves if rows else sha_leaves
+    want = sha256_row_leaves(chunk if rows else chunk[None], wide)
+    assert torch.equal(fn(chunk, wide=wide), want)
+
+
+@pytest.mark.parametrize("form", ["u32", "rows2", "wide"])
+def test_chunked_build_matches_unchunked(dev, monkeypatch, form):
+    """The chunked pruned build (chunks of 2^7 leaves) against the
+    one-pass pruned build and the plain full tree, on the card."""
+    from stark_tpu_torch.merkle import tree as mt
+
+    n, prune = 1 << 10, 3
+    shape = {"u32": (n,), "rows2": (2, n), "wide": (2, n)}[form]
+    v = _u32(shape, 2**32 if form == "wide" else P, 50, dev)
+    wide, rows = form == "wide", form == "rows2"
+    build = mt.MerkleTree.from_columns if rows else mt.MerkleTree
+    one_pass = build(v, wide=wide, prune=prune).buffer
+    monkeypatch.setattr(mt, "CHUNK_MIN_LOG", 8)
+    monkeypatch.setattr(mt, "CHUNK_LOG", 7)
+    chunked = build(v, wide=wide, prune=prune).buffer
+    full = build(v.cpu(), wide=wide).buffer
+    assert torch.equal(chunked, one_pass)
+    assert torch.equal(chunked.cpu(), full[2 * n - 2 * (n >> prune):])
+
+
+# pruned plans (columns, width, trace prune, FRI prunes) over a 2^6-point
+# LDE, as tests/test_torch_pruned_tree.py's
+@pytest.mark.parametrize("cols,width,trace_prune,fri_prune",
+                         [(1, 1, 3, (3, 2, 1, 0, 0, 0)),
+                          (2, 1, 6, (6, 5, 4, 3, 2, 1)),
+                          (3, 2, 4, (3, 0, 2, 0, 1, 0))])
+def test_k5_query_form_pruned_plan_matches_plain(dev, cols, width,
+                                                 trace_prune, fri_prune):
+    """The query form with the in-launch recompute of pruned siblings
+    against its plain version (plain K3 / K4 per query), seeded buffers:
+    one launch, all four outputs equal."""
+    from stark_tpu_torch.channel.device_query import (DeviceQueryPlan,
+                                                      query_chain,
+                                                      query_chain_plain)
+
+    plan = DeviceQueryPlan(56, 6, (0, 4, 8), 64, (64, 32, 16, 8, 4, 2),
+                           cols, width, trace_prune, fri_prune)
+    tb = plan.pack(dev)
+    n_f, n_td, n_fv, n_fd = tb.sizes
+    args = (_u32(8, 2**32, 60, dev), _u32(n_f, 2**32, 61, dev),
+            _u32((n_td, 8), 2**32, 62, dev), _u32(n_fv, 2**32, 63, dev),
+            _u32((n_fd, 8), 2**32, 64, dev))
+    before = query_chain.launches
+    got = query_chain(*args, tb)
+    torch.cuda.synchronize()
+    assert query_chain.launches == before + 1
+    for g, w in zip(got, query_chain_plain(*args, tb)):
+        assert torch.equal(g, w)
+
+
+def test_pruned_prove_on_the_card_equals_unpruned(dev, monkeypatch):
+    """A fib-sq prove at 2^8 rows with every tree above 2^4 leaves pruned
+    and chunked equals the unpruned prove."""
+    from stark_tpu_torch.config import ProverConfig
+    from stark_tpu_torch.merkle import tree as mt
+    from stark_tpu_torch.stark import prove
+
+    cfg = ProverConfig(log2_trace=8, blowup=4, num_queries=4)
+    full = prove(cfg, device=dev).proof
+    monkeypatch.setattr(mt, "PRUNE_KEEP_LOG", 4)
+    monkeypatch.setattr(mt, "CHUNK_MIN_LOG", 9)
+    monkeypatch.setattr(mt, "CHUNK_LOG", 7)
+    assert prove(cfg, device=dev).proof == full
