@@ -86,6 +86,22 @@ reports.  K5 is one serial chain: its bound is a latency bound, with the
 dependent-issue latency that a clock64 probe measures on the card in
 this run (printed beside the assumed 4 cycles).
 
+The rest of the single-device API: each batched kernel form of
+``stark/batch.py`` (K3 / K4 over 16 trees of 2^22 leaves, K5's chain
+form on 16 mixed-flag streams, K5's query form on 16 proofs of the 2^20
+plan) against its plain version and 16 single launches; ``batch``:
+``prove_batch`` of 16 fib-sq, 4 FibMul and 4 fib-sq-GL statements at
+2^20 rows (statement 0 the pinned one), every proof equal to its
+statement's prove and verified, each kernel launched as often as one
+prove launches it, with the batch's and the sequential proves' walls,
+proofs/s and the batch's peak memory; ``resume``: ``prove_resumable`` of
+fib-sq 2^24 stopped after each phase, serialized and resumed to the
+pinned digest, a corrupted checkpoint refused, the per-phase prove's
+walls beside the single-fetch prove's; ``fri``: BASELINE config #3
+(``bench.py``), ``fri_commit`` and ``decommit_fri`` at 2^21 points five
+times, the transcript verified, equal on the BatchGather loop, the
+query form launched once a decommit.
+
 ``--profile`` then adds where a warm prove spends its time, for the
 Fibonacci-square proves at 2^20 and 2^24 rows, MiMC³ at 2^20, FibMul at
 2^24, FibMul-GL and tribmul at 2^20: a phase split synced after each phase (and
@@ -328,6 +344,19 @@ PROBE_MODES = {0: ("shf (dependent)", 1), 1: ("lop3 xor3 (dependent)", 1),
 # the long mixed-flag stream of the chain form: ten 512-row chunks; the
 # first 4096 of its rows also time a block by kind
 LONG_STREAM, ROW_COST_BLOCKS = 5000, 4096
+# batch proving (stark/batch.py): (prove whose statement is statement 0,
+# batch size); the other statements' secrets come from a seeded
+# generator; the first batch's launches fill the batched rows
+BATCHES = (("2^20", 16), ("FibMul 2^20", 4), ("GL 2^20", 4))
+# the batched kernel forms against their plain loops: B trees of 2^22
+# leaves, B chain-form streams of mixed flags, the B = 16 2^20 query plan
+BATCH_B, BATCH_TREE_LOG, BATCH_STREAM = 16, 22, 997
+# checkpoint / resume: the prove stopped after each phase, resumed
+RESUME = "2^24"
+# the standalone FRI commit / decommit (BASELINE config #3, bench.py:
+# 297-345): a seeded polynomial of degree < 2^18, its LDE to 2^21 points
+# at offset 5, 18 folds, 16 queries; commit and decommit walls over runs
+FRI_LOG_DEG, FRI_BLOWUP, FRI_OFFSET, FRI_QUERIES, FRI_RUNS = 18, 8, 5, 16, 5
 
 
 def log(msg: str) -> None:
@@ -1105,9 +1134,11 @@ def counters() -> dict:
     """Each row of the kernels line: its wrappers' counters, as (wrapper,
     attribute) pairs (K5 has two entry points, both counted; the batched
     NTT rows count the same wrappers' (C, n) launches)."""
-    from stark_tpu_torch.channel.device_query import query_chain
-    from stark_tpu_torch.hash.cuda_chain import sha_chain
-    from stark_tpu_torch.hash.cuda_sha import (sha_leaves, sha_nodes,
+    from stark_tpu_torch.channel.device_query import (query_chain,
+                                                      query_chain_batch)
+    from stark_tpu_torch.hash.cuda_chain import sha_chain, sha_chain_batch
+    from stark_tpu_torch.hash.cuda_sha import (sha_leaves, sha_leaves_batch,
+                                               sha_nodes, sha_nodes_batch,
                                                sha_row_leaves)
     from stark_tpu_torch.ntt.cuda_ntt import ntt_k1, ntt_k2
 
@@ -1121,7 +1152,12 @@ def counters() -> dict:
             "K4": ((sha_nodes, "launches"),),
             "K5": ((sha_chain, "launches"), (query_chain, "launches")),
             "K5 row messages": ((query_chain, "launches"),),
-            "K5 pruned recompute": ((query_chain, "launches"),)}
+            "K5 pruned recompute": ((query_chain, "launches"),),
+            "K3 tree batch": ((sha_leaves_batch, "launches"),
+                              (sha_leaves_batch, "wide_launches")),
+            "K4 tree batch": ((sha_nodes_batch, "launches"),),
+            "K5 chain batch": ((sha_chain_batch, "launches"),),
+            "K5 query batch": ((query_chain_batch, "launches"),)}
 
 
 def read_counts() -> dict:
@@ -1400,6 +1436,409 @@ def warm_turns(cfg, air, dev) -> dict:
         finally:
             os.environ.pop("STARK_TPU_TORCH_NO_PRUNE", None)
     return walls
+
+
+def phase_kernel_batches(res: Results, dev) -> None:
+    """The batched kernel forms of stark/batch.py, each exact against its
+    plain version (a loop over the single plain version) and against B
+    single launches: K3 / K4's tree batch over B trees of 2^22 leaves,
+    K5's chain form on B mixed-flag streams, K5's query form on the B =
+    16 plan of the 2^20 batch with seeded buffers."""
+    from stark_tpu_torch.channel.device_query import (query_chain,
+                                                      query_chain_batch,
+                                                      query_chain_plain)
+    from stark_tpu_torch.hash.cuda_chain import (FIRST_HEX, FIRST_ROW,
+                                                 sha_chain, sha_chain_batch,
+                                                 sha_chain_plain)
+    from stark_tpu_torch.hash.cuda_sha import (sha_leaves, sha_leaves_batch,
+                                               sha_nodes, sha_nodes_batch)
+    from stark_tpu_torch.hash.sha256 import sha256_pairs, sha256_u64_leaves
+    from stark_tpu_torch.merkle.tree import level_offsets
+    from stark_tpu_torch.stark.batch import _batched_tree
+    from stark_tpu_torch.stark.prover import query_plan
+
+    b, n = BATCH_B, 1 << BATCH_TREE_LOG
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 7)
+    vals = rand_u32_dev(gen, (b, n), P, dev)
+    trees = torch.empty((b, 2 * n - 1, 8), dtype=torch.int32, device=dev)
+    _batched_tree(vals, trees, rows=False, wide=False)
+    offs = level_offsets(n)
+    for k in range(b):
+        one = torch.empty((2 * n - 1, 8), dtype=torch.int32, device=dev)
+        plain = torch.empty_like(one)
+        sha_leaves(vals[k], out=one[:n])
+        plain[:n] = sha256_u64_leaves(vals[k])
+        for (oc, sc), (op, sp) in zip(offs, offs[1:]):
+            sha_nodes(one[oc:oc + sc], out=one[op:op + sp])
+            plain[op:op + sp] = sha256_pairs(plain[oc:oc + sc])
+        what = f"tree {k} of {b} x 2^{BATCH_TREE_LOG} leaves"
+        res.check("K3 tree batch", f"{what} (leaves): single launch",
+                  trees[k, :n], one[:n])
+        res.check("K3 tree batch", f"{what} (leaves): plain",
+                  trees[k, :n], plain[:n])
+        res.check("K4 tree batch", f"{what} (every level): single launches",
+                  trees[k], one)
+        res.check("K4 tree batch", f"{what} (every level): plain",
+                  trees[k], plain)
+    del one, plain
+    leaves = trees[:, :n]
+    res.time("K3 tree batch", f"leaves B={b} x n=2^{BATCH_TREE_LOG}",
+             lambda: sha_leaves_batch(vals, leaves),
+             lambda: [sha256_u64_leaves(vals[k]) for k in range(b)],
+             res.card.bound(36 * b * n, SHA_OPS * b * n))
+    single = cuda_ms(lambda: [sha_leaves(vals[k], out=leaves[k])
+                              for k in range(b)])
+    log(f"K3 tree batch: {b} single launches {single:.4f} ms")
+    m = n // 2
+    kids, parents = trees[:, :n], trees[:, n:n + m]
+    res.time("K4 tree batch", f"nodes B={b} x m=2^{BATCH_TREE_LOG - 1}",
+             lambda: sha_nodes_batch(kids, parents),
+             lambda: [sha256_pairs(kids[k]) for k in range(b)],
+             res.card.bound(96 * b * m, (SHA_OPS + SHA_PAD_OPS) * b * m))
+    single = cuda_ms(lambda: [sha_nodes(kids[k], out=parents[k])
+                              for k in range(b)])
+    log(f"K4 tree batch: {b} single launches {single:.4f} ms")
+    del vals, trees, leaves, kids, parents
+
+    rs = np.random.RandomState(SEED + 8)
+    r = BATCH_STREAM
+    first = rs.choice([0, 0, 0, 0, FIRST_HEX, FIRST_ROW], size=(b, r))
+    last = rs.randint(0, 2, size=(b, r))
+    fl = torch.from_numpy(np.stack([first, last], -1).astype(np.int32)).to(
+        dev)
+    stream = rand_u32(rs, (b, r, 16), 1 << 32, dev)
+    chains = rand_u32(rs, (b, 8), 1 << 32, dev)
+    got = sha_chain_batch(stream, fl, chains)
+    for k in range(b):
+        what = f"chain {k} of {b} ({r} blocks of mixed flags)"
+        res.check("K5 chain batch", f"{what}: single launch", got[k],
+                  sha_chain(stream[k], fl[k], chains[k]))
+        res.check("K5 chain batch", f"{what}: plain", got[k],
+                  sha_chain_plain(stream[k], fl[k], chains[k]))
+    timed = res.time(
+        "K5 chain batch", f"{b} chains of {r} blocks",
+        lambda: sha_chain_batch(stream, fl, chains),
+        lambda: [sha_chain_plain(stream[k], fl[k], chains[k])
+                 for k in range(b)],
+        res.card.chain_bound(r), plain_reps=1)
+    single = cuda_ms(lambda: [sha_chain(stream[k], fl[k], chains[k])
+                              for k in range(b)])
+    log(f"K5 chain batch: {b} single launches {single:.4f} ms; "
+        f"{res.card.chain_bounds_text(r, timed['ms'])}")
+    del stream, fl
+
+    cfg, air = prove_setup(BATCHES[0][0])
+    tb = query_plan(cfg, air, pruned=False).pack(dev)
+    n_f, n_td, n_fv, n_fd = tb.sizes
+    args = (rand_u32(rs, (b, 8), 1 << 32, dev),
+            rand_words_dev(gen, (b, n_f), dev),
+            rand_words_dev(gen, (b, n_td, 8), dev),
+            rand_words_dev(gen, (b, n_fv), dev),
+            rand_words_dev(gen, (b, n_fd, 8), dev))
+    got = query_chain_batch(*args, tb)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = [query_chain_plain(*[a[k] for a in args], tb) for k in range(b)]
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    for k in range(b):
+        single = query_chain(*[a[k] for a in args], tb)
+        for out, g, w, s1 in zip(("final chain", "idxs", "vals", "digs"),
+                                 got, plain[k], single):
+            what = f"proof {k} of {b}, {BATCHES[0][0]} plan: {out}"
+            res.check("K5 query batch", f"{what}: single launch", g[k], s1)
+            res.check("K5 query batch", f"{what}: plain", g[k], w)
+    del plain
+    blocks, comps = res.card.query_bound(tb)
+    ms = cuda_ms(lambda: query_chain_batch(*args, tb))
+    single = cuda_ms(lambda: [query_chain(*[a[k] for a in args], tb)
+                              for k in range(b)])
+    bound = res.card.chain_bound(comps)
+    res.rows["K5 query batch"].update(
+        ms=ms, plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1],
+        shape=f"B={b} x the {BATCHES[0][0]} plan ({blocks} blocks a proof)")
+    log(f"K5 query batch, B={b} x the {BATCHES[0][0]} plan: kernel "
+        f"{ms:.4f} ms (median of {REPS}), plain loop {plain_ms:.4f} ms "
+        f"(one run), {b} single launches "
+        f"{single:.4f} ms; bound {bound[0]:.4f} ms (one proof's chain, "
+        f"latency); kernel / bound {ms / bound[0]:.2f}")
+    del args, got
+    torch.cuda.empty_cache()
+
+
+def batch_airs(name: str, b: int):
+    """(config, b AIRs): statement 0 is the `name` prove's (its pinned
+    digest), the others' secrets come from a seeded generator."""
+    from stark_tpu_torch.stark import FibMulAIR, FibonacciSquareAIR
+
+    cfg, air = prove_setup(name)
+    rs = np.random.RandomState(SEED + 9)
+    secrets = [int(x) for x in rs.randint(1, 2**31, size=b - 1)]
+    if air is None:
+        return cfg, [FibonacciSquareAIR()] + [FibonacciSquareAIR(a1=x)
+                                              for x in secrets]
+    return cfg, [air] + [FibMulAIR(a0=air.a0, b0=x) for x in secrets]
+
+
+def phase_batch(res: Results, dev) -> dict:
+    """prove_batch of each of BATCHES: every proof equal to its statement's
+    prove, statement 0 to the pinned digest, all verified (and one
+    tampered proof rejected), the kernels launched as often as one prove
+    launches them; the batch's walls beside the sequential proves'."""
+    from stark_tpu_torch.stark import prove, prove_batch, verify
+
+    out = {}
+    for name, b in BATCHES:
+        cfg, airs = batch_airs(name, b)
+        prove(cfg, air=airs[0], device=dev)  # warm (contexts, plans)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        seq = [prove(cfg, air=a, device=dev) for a in airs]
+        torch.cuda.synchronize()
+        seq_s = time.perf_counter() - t0
+        single = read_counts()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        proofs = prove_batch(cfg, airs, device=dev)
+        torch.cuda.synchronize()
+        cold_s = time.perf_counter() - t0
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated() - base
+        t0 = time.perf_counter()
+        again = prove_batch(cfg, airs, device=dev)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        for i, (got, want, rep) in enumerate(zip(proofs, seq, again)):
+            if got.proof != want.proof or rep.proof != got.proof:
+                raise AssertionError(f"{name} batch proof {i} differs from "
+                                     "its statement's prove")
+            if not verify(got, expected_config=cfg):
+                raise AssertionError(f"{name} batch proof {i} rejected")
+        digest = hashlib.sha256(b"".join(proofs[0].proof)).hexdigest()
+        if digest != TRANSCRIPT_SHA256[name]:
+            raise AssertionError(f"{name} batch statement 0 sha256 {digest}"
+                                 f" != the pinned {TRANSCRIPT_SHA256[name]}")
+        check_verifies(f"{name} batch proof {b - 1}", cfg, proofs[-1])
+        # one prove's launches, over b proves; the batch's, once
+        per_prove = {k: v // b for k, v in single.items()}
+        want = {"K3 tree batch": per_prove["K3"] + per_prove["K3 row form"]
+                + per_prove["K3 wide"] + per_prove["K3 wide row form"],
+                "K4 tree batch": per_prove["K4"],
+                "K5 chain batch": (single["K5"] - single["K5 row messages"])
+                // b,
+                "K5 query batch": 1,
+                "NTT": (per_prove["K1"] + per_prove["K2"])}
+        got = {k: counts[k] for k in want if k != "NTT"}
+        got["NTT"] = counts["K1"] + counts["K2"]
+        if got != want:
+            raise AssertionError(f"{name} batch launched {got}, one prove "
+                                 f"launches {want}")
+        if name == BATCHES[0][0]:
+            for k in ("K3 tree batch", "K4 tree batch", "K5 chain batch",
+                      "K5 query batch"):
+                res.rows[k]["launches"] = counts[k]
+            split = batch_split(cfg, airs, dev, warm_s)
+        for k in ("K3 tree batch", "K4 tree batch", "K5 chain batch",
+                  "K5 query batch"):
+            res.rows[k]["launches_by_prove"][f"{name} batch of {b}"] = \
+                counts[k]
+        out[f"{name} x {b}"] = row = {
+            "batch_cold_s": round(cold_s, 3), "batch_warm_s": round(warm_s, 3),
+            "sequential_warm_s": round(seq_s, 3),
+            "batch_proofs_per_s": round(b / warm_s, 3),
+            "sequential_proofs_per_s": round(b / seq_s, 3),
+            "batch_peak_mib": round(peak / 2**20, 1),
+            "peak_mib_per_proof": round(peak / 2**20 / b, 1),
+            "launches": got}
+        if name == BATCHES[0][0]:
+            row["split"] = split
+        log(f"batch {name} x {b}: every proof equals its prove, statement 0 "
+            f"as pinned, all verified; {json.dumps(row)}")
+        del proofs, again, seq
+        torch.cuda.empty_cache()
+    return out
+
+
+def batch_split(cfg, airs, dev, warm_s: float) -> dict:
+    """Where a warm batch spends its wall: its host traces on their own,
+    and one batch under torch.profiler (device busy = union of device
+    event intervals; idle = 1 - busy / the warm wall)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from stark_tpu_torch.stark import prove_batch
+
+    t0 = time.perf_counter()
+    for a in airs:
+        a.host_trace(cfg)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        prove_batch(cfg, airs, device=dev)
+        torch.cuda.synchronize()
+    gpu = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = busy_us(gpu) / 1e3
+    out = {"host_traces_ms": round(host_ms, 3), "device_busy_ms":
+           round(busy, 3), "device_events": len(gpu),
+           "idle_share": round(1 - busy / (warm_s * 1e3), 4)}
+    log(f"batch of {len(airs)}: {json.dumps(out)}")
+    return out
+
+
+def phase_resume(dev) -> dict:
+    """prove_resumable of the RESUME prove: the per-phase prove's walls
+    and peak beside the single-fetch prove's, then a stop after each
+    phase, serialize, deserialize, resume: the pinned digest each time;
+    a checkpoint with one changed message raises ResumeMismatch."""
+    from stark_tpu_torch.stark import (ProverCheckpoint, StarkProof, prove,
+                                       prove_resumable)
+    from stark_tpu_torch.stark import prover as tprover
+    from stark_tpu_torch.stark.checkpoint import PHASES, ResumeMismatch
+
+    cfg, air = prove_setup(RESUME)
+    pinned = TRANSCRIPT_SHA256[RESUME]
+
+    def digest(pr):
+        return hashlib.sha256(b"".join(pr.proof)).hexdigest()
+
+    def walled(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        return got, time.perf_counter() - t0
+
+    drop_plans()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cold, cold_s = walled(lambda: prove_resumable(cfg, air=air, device=dev))
+    peak = torch.cuda.max_memory_allocated() - base
+    if tprover.LAST_PROVE_PATH != "per-phase" or digest(cold) != pinned:
+        raise AssertionError(f"per-phase {RESUME} prove: path "
+                             f"{tprover.LAST_PROVE_PATH}, sha256 "
+                             f"{digest(cold)} != the pinned {pinned}")
+    warm = [walled(lambda: prove_resumable(cfg, air=air, device=dev))[1]
+            for _ in range(3)]
+    single = [walled(lambda: prove(cfg, air=air, device=dev))[1]
+              for _ in range(3)]
+    out = {"per_phase_cold_s": round(cold_s, 3),
+           "per_phase_warm_s": [round(x, 3) for x in warm],
+           "single_fetch_warm_s": [round(x, 3) for x in single],
+           "per_phase_peak_mib": round(peak / 2**20, 1), "stops": {}}
+    for ph in PHASES:
+        ckpt, stop_s = walled(lambda: prove_resumable(
+            cfg, air=air, stop_after=ph, device=dev))
+        if isinstance(ckpt, StarkProof):  # no boundary after the last one
+            final, blob = ckpt, b""
+        else:
+            blob = ckpt.serialize()
+            restored = ProverCheckpoint.deserialize(blob)
+            if restored.serialize() != blob or restored.phase != ph:
+                raise AssertionError(f"checkpoint after {ph} does not "
+                                     "round-trip")
+            final, _ = walled(lambda: prove_resumable(
+                cfg, resume=restored, device=dev))
+        if digest(final) != pinned:
+            raise AssertionError(f"resumed after {ph}: sha256 "
+                                 f"{digest(final)} != the pinned {pinned}")
+        out["stops"][ph] = {"stop_s": round(stop_s, 3),
+                            "checkpoint_bytes": len(blob)}
+        log(f"resume {RESUME}: stopped after {ph} ({len(blob)} bytes "
+            f"serialized), resumed to the pinned digest")
+        if ph == "fri-commit":
+            bad = ProverCheckpoint.deserialize(blob)
+            m = bytearray(bad.proof[2])
+            m[-1] ^= 1
+            bad.proof[2] = bytes(m)
+            try:
+                prove_resumable(cfg, resume=bad, device=dev)
+            except ResumeMismatch as e:
+                log(f"a checkpoint with message 2 changed: ResumeMismatch "
+                    f"({str(e)[:60]})")
+            else:
+                raise AssertionError("a corrupted checkpoint resumed")
+    log(f"resume {RESUME}: {json.dumps(out)}")
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_fri(dev) -> dict:
+    """BASELINE config #3 as bench.py sets it up: fri_commit on a host
+    channel and decommit_fri, FRI_RUNS times (walls of each part), the
+    transcript accepted by verify_fri and refused with a byte flipped,
+    the same under STARK_TPU_TORCH_HOST_QUERIES (the BatchGather loop);
+    decommit_fri launches the query form exactly once."""
+    from stark_tpu_torch.channel.channel import Channel, ChannelError
+    from stark_tpu_torch.channel.device_query import query_chain
+    from stark_tpu_torch.fields.fp import upload_u32
+    from stark_tpu_torch.fri.commit import decommit_fri, fri_commit
+    from stark_tpu_torch.fri.verify import FRIVerificationError, verify_fri
+    from stark_tpu_torch.ntt.ntt import coset_evaluate
+
+    n = FRI_BLOWUP << FRI_LOG_DEG
+    rs = np.random.RandomState(SEED + 10)
+    coeffs = upload_u32(rs.randint(0, P, size=1 << FRI_LOG_DEG,
+                                   dtype=np.int64).astype(np.uint32), dev)
+    evals = coset_evaluate(coeffs, P, n, FRI_OFFSET)
+
+    def run():
+        ch = Channel(P)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pr = fri_commit(evals, P, FRI_OFFSET, ch, num_folds=FRI_LOG_DEG)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        before = query_chain.launches
+        decommit_fri(FRI_QUERIES, n - 1, pr.fri_layers, pr.fri_merkles, ch)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        return ch, t1 - t0, t2 - t1, query_chain.launches - before
+
+    first = run()
+    runs = [run() for _ in range(FRI_RUNS)]
+    for ch, _, _, launches in [first] + runs:
+        if ch.proof != first[0].proof or launches != 1:
+            raise AssertionError(f"FRI transcripts differ or the query form "
+                                 f"launched {launches} times")
+    proof = first[0].proof
+    verify_fri(proof, P, n, FRI_OFFSET, FRI_LOG_DEG, FRI_QUERIES, n - 1)
+    bad = list(proof)
+    k = len(bad) // 2
+    bad[k] = bytes([bad[k][0] ^ 1]) + bad[k][1:]
+    try:
+        verify_fri(bad, P, n, FRI_OFFSET, FRI_LOG_DEG, FRI_QUERIES, n - 1)
+    except (FRIVerificationError, ChannelError) as e:
+        log(f"FRI transcript with message {k} flipped rejected: "
+            f"{type(e).__name__}")
+    else:
+        raise AssertionError("verify_fri accepted a tampered transcript")
+    os.environ["STARK_TPU_TORCH_HOST_QUERIES"] = "1"
+    try:
+        host_ch, _, host_s, host_launches = run()
+    finally:
+        del os.environ["STARK_TPU_TORCH_HOST_QUERIES"]
+    if host_ch.proof != proof or host_launches != 0:
+        raise AssertionError("the BatchGather loop's FRI transcript differs")
+    commit = sorted(r[1] * 1e3 for r in runs)
+    decommit = sorted(r[2] * 1e3 for r in runs)
+    out = {"commit_ms": [round(x, 3) for x in commit],
+           "decommit_ms": [round(x, 3) for x in decommit],
+           "commit_median_ms": round(statistics.median(commit), 3),
+           "decommit_median_ms": round(statistics.median(decommit), 3),
+           "commit_spread_ms": round(commit[-1] - commit[0], 3),
+           "decommit_spread_ms": round(decommit[-1] - decommit[0], 3),
+           "first_commit_ms": round(first[1] * 1e3, 3),
+           "host_loop_decommit_ms": round(host_s * 1e3, 3),
+           "messages": len(proof)}
+    log(f"FRI config #3 (degree < 2^{FRI_LOG_DEG}, {n} points, blowup "
+        f"{FRI_BLOWUP}, {FRI_QUERIES} queries): transcript verified, equal "
+        f"on the BatchGather loop; {json.dumps(out)}")
+    return out
 
 
 def phase_gl_memory(dev, at_2e20: dict) -> None:
@@ -1711,8 +2150,8 @@ def phase_split(cfg, air, dev) -> dict:
     cp = get_air_context(air, cfg, dev).compose(
         lde, alphas, air.publics_from_host(cfg, host))
     mark("composition")
-    fri = fri_commit(cp, p, h, fs, num_folds=len(plan.fri_lengths) - 1,
-                     prunes=plan.fri_prune)
+    fri = fri_commit(cp, p, h, Channel(p),
+                     num_folds=len(plan.fri_lengths) - 1, fs=fs, defer=True)
     mark("FRI commit")
     last = fri.fri_layers[-1]
     fs.state = absorb_value(fs.state, *final_words(last, wide))
@@ -1807,6 +2246,7 @@ def main() -> int:
                     help="also profile warm proves (" + ", ".join(PROFILED)
                     + ")")
     args = ap.parse_args()
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; the port's "
               "smoke run needs one CUDA device", file=sys.stderr)
@@ -1854,7 +2294,21 @@ def main() -> int:
             ("K5 pruned recompute", "stark_tpu_torch/csrc/sha_chain.cu",
              "stark_tpu/hash/pallas_chain.py:80 in the lax.scan of "
              "stark_tpu/channel/device_query.py:314 with the pruned trees' "
-             "_subtree_sibs (:245-280)")):
+             "_subtree_sibs (:245-280)"),
+            ("K3 tree batch", "stark_tpu_torch/csrc/sha256_tree.cu",
+             "stark_tpu/hash/pallas_sha.py:100 (:167), batched over B "
+             "proofs' trees as stark_tpu/stark/batch.py:42-63 does"),
+            ("K4 tree batch", "stark_tpu_torch/csrc/sha256_tree.cu",
+             "stark_tpu/hash/pallas_sha.py:124 (:202, :294), batched over B "
+             "proofs' trees as stark_tpu/stark/batch.py:42-63 does"),
+            ("K5 chain batch", "stark_tpu_torch/csrc/sha_chain.cu",
+             "stark_tpu/hash/pallas_chain.py:80 (:127), vmapped over B "
+             "proofs in stark_tpu/stark/batch.py:165-172, 194-207"),
+            ("K5 query batch", "stark_tpu_torch/csrc/sha_chain.cu",
+             "stark_tpu/hash/pallas_chain.py:80 in the lax.scan of "
+             "stark_tpu/channel/device_query.py:314, for B proofs (the JAX "
+             "batch's per-proof BatchGather loops, "
+             "stark_tpu/stark/batch.py:358-405)")):
         res.add(name, source, replaces)
     phase_latency(card, dev)
     phase_ntt(res, dev)
@@ -1862,6 +2316,7 @@ def main() -> int:
     phase_tree_wide(res, dev)
     phase_tree_chunked(res, dev)
     phase_chain(res, dev)
+    phase_kernel_batches(res, dev)
     phase_golden()
     walls = {name: phase_prove(res, dev, name) for name in PROVES
              if name not in FAMILY_PROVES}
@@ -1870,6 +2325,9 @@ def main() -> int:
             {name: {k: v for k, v in walls[name].items() if k != "sha256"}
              for name in LARGE}))
     families = phase_families(res, dev)
+    phase_batch(res, dev)
+    phase_resume(dev)
+    phase_fri(dev)
     phase_gl_memory(dev, {k: v for k, v in walls["FibMul-GL 2^20"].items()
                           if k != "sha256"})
     phase_anchors(dev)
@@ -1878,6 +2336,7 @@ def main() -> int:
     if args.profile:
         for name in PROFILED:
             phase_profile(dev, name)
+    log(f"whole run: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(res.rows.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

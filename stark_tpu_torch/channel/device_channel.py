@@ -26,7 +26,16 @@ import numpy as np
 import torch
 
 from stark_tpu_torch.fields.fp import Fp, lift, store
-from stark_tpu_torch.hash.cuda_chain import FIRST_HEX, FIRST_ROW, sha_chain
+from stark_tpu_torch.hash.cuda_chain import (FIRST_HEX, FIRST_ROW, sha_chain,
+                                             sha_chain_batch)
+from stark_tpu_torch.utils.gather import fetch_packed
+
+
+def state_words(state_hex: str, device) -> torch.Tensor:
+    """The channel's 64-char hex state -> (8,) int32 words on `device`."""
+    words = np.frombuffer(bytes.fromhex(state_hex), dtype=">u4")
+    return torch.from_numpy(
+        words.astype(np.uint32).view(np.int32).copy()).to(device)
 
 
 def ascii_hex_words(d: torch.Tensor) -> torch.Tensor:
@@ -90,32 +99,52 @@ def _consts(device: str) -> dict:
     }
 
 
+# Every chain operation takes one state, (8,), or a batch of B states,
+# (B, 8) with the other operands' leading axis B (stark/batch.py): a
+# batch's block streams are (B, rows, 16) and run as B chains in one
+# launch of K5's chain form.
+
+def _stream(rows: list, lead: tuple) -> torch.Tensor:
+    """Block rows ((r, 16), or (*lead, r, 16)) -> one contiguous int32
+    (*lead, R, 16) stream, the constant rows repeated for each chain."""
+    return store(torch.cat([r.expand(lead + tuple(r.shape[-2:]))
+                            for r in rows], dim=-2)).contiguous()
+
+
+def _chain(stream, flags, chain):
+    return (sha_chain if chain.dim() == 1 else sha_chain_batch)(
+        stream, flags, chain)
+
+
 def _run(rows: list, flags: str, chain: torch.Tensor) -> torch.Tensor:
-    stream = store(torch.cat(rows, dim=0)).contiguous()
-    return sha_chain(stream, _consts(str(chain.device))[flags], chain)
+    return _chain(_stream(rows, tuple(chain.shape[:-1])),
+                  _consts(str(chain.device))[flags], chain)
 
 
 def absorb_stream(digest: torch.Tensor, initial: bool):
     """(stream, flags) of send(hex_string_of(digest).encode()) for K5;
     `initial` for the first absorb of a fresh channel."""
     c = _consts(str(digest.device))
-    msg = _double_hex_words(digest).reshape(2, 16)
+    lead = tuple(digest.shape[:-1])
+    msg = _double_hex_words(digest).reshape(lead + (2, 16))
     if initial:
         # quirk reproduced: the first absorb has no 64-char state prefix,
         # so its blocks are the message itself (a distinct layout)
         rows, flags = [msg, c["pad128"]], c["f_initial"]
     else:
         rows, flags = [c["zero_row"], msg, c["pad192"]], c["f_absorb"]
-    return store(torch.cat(rows, dim=0)).contiguous(), flags
+    return _stream(rows, lead), flags
 
 
 def absorb_digest(state, digest: torch.Tensor) -> torch.Tensor:
     """send(hex_string_of(digest).encode()) -> state' words.  `state` is
-    an (8,) int32 tensor or None (the initial empty state)."""
+    an (8,) int32 tensor or None (the initial empty state); a batch of
+    (B, 8) digests takes (B, 8) states."""
     stream, flags = absorb_stream(digest, state is None)
     if state is None:
-        state = torch.zeros(8, dtype=torch.int32, device=digest.device)
-    return sha_chain(stream, flags, state)
+        state = torch.zeros(digest.shape, dtype=torch.int32,
+                            device=digest.device)
+    return _chain(stream, flags, state)
 
 
 def advance(state: torch.Tensor) -> torch.Tensor:
@@ -126,10 +155,12 @@ def advance(state: torch.Tensor) -> torch.Tensor:
 
 def absorb_value(state: torch.Tensor, hi, lo) -> torch.Tensor:
     """send(value.to_bytes(8, 'big')): the 80-byte message = 64-char state
-    hex + 16 hex chars of the value (FRI's final-constant send)."""
+    hex + 16 hex chars of the value (FRI's final-constant send); a batch
+    of (B, 8) states takes (B,) words."""
     c = _consts(str(state.device))
-    hv = ascii_hex_words(torch.stack([lift(hi), lift(lo)]))
-    row = torch.cat([hv, c["value_tail"]])[None]
+    hv = ascii_hex_words(torch.stack([lift(hi), lift(lo)], dim=-1))
+    tail = c["value_tail"].expand(hv.shape[:-1] + (12,))
+    row = torch.cat([hv, tail], dim=-1)[..., None, :]
     return _run([c["zero_row"], row], "f_one", state)
 
 
@@ -143,11 +174,13 @@ def mod_weights(rng: int, device: str) -> torch.Tensor:
 
 
 def mod_state(state: torch.Tensor, rng: int) -> torch.Tensor:
-    """int(state_hex, 16) mod rng as an int64 0-dim tensor (any rng below
-    2^32): the sum of at most 256 weights < 2^32 fits int64 exactly."""
+    """int(state_hex, 16) mod rng as an int64 0-dim tensor ((B,) for a
+    batch of states; any rng below 2^32): the sum of at most 256 weights
+    < 2^32 fits int64 exactly."""
     w = mod_weights(rng, str(state.device))
-    bits = (lift(state)[:, None] >> torch.arange(32, device=state.device)) & 1
-    return (bits * w).sum() % rng
+    bits = (lift(state)[..., None]
+            >> torch.arange(32, device=state.device)) & 1
+    return (bits * w).sum((-1, -2)) % rng
 
 
 @functools.lru_cache(maxsize=None)
@@ -161,19 +194,21 @@ def _word_weights(p: int, device: str) -> torch.Tensor:
 def state_mod(state: torch.Tensor, p: int) -> torch.Tensor:
     """int(state_hex, 16) mod p as a canonical field element, width-generic
     (the JAX ``state_mod``): an int64 0-dim tensor for p < 2^32, a (2,)
-    (hi, lo) pair for the Goldilocks field.  There the 8 words (each
+    (hi, lo) pair for the Goldilocks field ((B,) / (2, B) for a batch of
+    (B, 8) states).  There the 8 words (each
     below p) times their weights mod p are summed by field adds, the
     value of JAX's Horner loop over the words."""
     f = Fp.get(p)
     if f.width == 1:
         return mod_state(state, p)
     words = lift(state)
+    weights = _word_weights(p, str(state.device))
     acc = f.mul(torch.stack([torch.zeros_like(words), words]),
-                _word_weights(p, str(state.device)))
+                weights.view((2,) + (1,) * (words.dim() - 1) + (8,)))
     while acc.shape[-1] > 1:
         h = acc.shape[-1] // 2
-        acc = f.add(acc[:, :h], acc[:, h:])
-    return acc[:, 0]
+        acc = f.add(acc[..., :h], acc[..., h:])
+    return acc[..., 0]
 
 
 def draw_field_element(state: torch.Tensor, p: int):
@@ -189,18 +224,16 @@ class DeviceFS:
     Commit phases call :meth:`absorb_root` with the root digest still on
     the device and :meth:`draw` for a device challenge scalar; the log of
     payloads is fetched once at the end and replayed into the host
-    channel by :meth:`replay_fetched`, which checks every draw."""
+    channel by :meth:`replay_fetched`, which checks every draw.  Fed
+    (B, 8) root digests, a fresh one runs B chains at once, (B, 8)
+    states and (B,) or (2, B) draws (``stark/batch.py``)."""
 
     def __init__(self, p: int, state_hex: str = "", *, device):
         self.p = p
         self.width = Fp.get(p).width
         self.device = torch.device(device)
-        if state_hex:
-            words = np.frombuffer(bytes.fromhex(state_hex), dtype=">u4")
-            self.state = torch.from_numpy(
-                words.astype(np.uint32).view(np.int32).copy()).to(self.device)
-        else:
-            self.state = None
+        self.state = state_words(state_hex, self.device) if state_hex \
+            else None
         self.log: list[tuple[str, object]] = []
 
     def absorb_root(self, digest: torch.Tensor) -> None:
@@ -247,3 +280,13 @@ class DeviceFS:
                     raise RuntimeError(
                         "device Fiat-Shamir diverged from host transcript "
                         f"({dev_val} != {el.value})")
+
+    def finalize(self, channel, extras=()) -> list:
+        """Replay the log into `channel` (which must be at this FS's
+        construction state) from one packed fetch of the payloads and
+        the `extras` tensors; returns the fetched extras (numpy int32
+        words of their shapes)."""
+        payloads = self.payloads()
+        fetched = fetch_packed(payloads + list(extras))
+        self.replay_fetched(channel, fetched[:len(payloads)])
+        return fetched[len(payloads):]

@@ -1,6 +1,7 @@
 """Device-resident query phase (counterpart of
 ``stark_tpu/channel/device_query.py``; a u32 or the Goldilocks field,
-1..6 trace columns, power-of-two trees, pruned or not).
+1..6 trace columns or none (the standalone FRI query phase), power-of-two
+trees, pruned or not).
 
 For each query, on the device and without a host sync:
 
@@ -52,13 +53,16 @@ import numpy as np
 import torch
 
 from stark_tpu_torch import _build
+from stark_tpu_torch.channel.channel import ChannelError
 from stark_tpu_torch.channel.device_channel import (ascii_hex_words,
-                                                    mod_state, pad_row)
+                                                    mod_state, pad_row,
+                                                    state_words)
 from stark_tpu_torch.fields.fp import store
 from stark_tpu_torch.fri.commit import layer_layout
 from stark_tpu_torch.hash.cuda_chain import FIRST_HEX, sha_chain_plain
 from stark_tpu_torch.hash.sha256 import sha256_pairs, sha256_row_leaves
 from stark_tpu_torch.merkle.tree import level_offsets
+from stark_tpu_torch.utils.gather import fetch_packed
 
 # the slot table's columns; a slot reads position
 # base + ((((idx + add) & mask) ^ xr) >> shift) ^ flip of its source and
@@ -206,15 +210,11 @@ def query_chain_plain(chain, f_evals, trace_digests, fri_values,
     return chain, idxs, vals, digs
 
 
-def query_chain(chain, f_evals, trace_digests, fri_values, fri_digests,
-                tb: QueryTables):
-    """K5's query form: every query of the phase in one launch, the
-    pruned trees' siblings recomputed in it.  A CPU tensor runs
-    :func:`query_chain_plain`; a CUDA tensor launches the kernel or
-    raises."""
-    if _build.plain_device(chain):
-        return query_chain_plain(chain, f_evals, trace_digests, fri_values,
-                                 fri_digests, tb)
+def _launch_query(tb: QueryTables, b: int, chain, f_evals, trace_digests,
+                  fri_values, fri_digests):
+    """One launch of K5's query form: one proof (b = 0, no batch axis) or
+    b proofs of the plan, one block each, every operand with a leading
+    proof axis."""
     lib = _build.lib("sha_chain")
     nrows, nslots = int(tb.template.shape[0]), int(tb.slots.shape[0])
     ntasks = int(tb.tasks.shape[0])
@@ -224,12 +224,14 @@ def query_chain(chain, f_evals, trace_digests, fri_values, fri_digests,
             f"query stream of {nrows} rows and {tb.subtree_rows} recomputed "
             f"nodes exceeds the shared memory of K5's query form "
             f"({max_rows} rows with those nodes)")
+    lead = (b,) if b else ()
     n_f, n_td, n_fv, n_fd = tb.sizes
-    _build.require(chain, "chain", (8,))
-    _build.require(f_evals, "f_evals", (n_f,))
-    _build.require(trace_digests, "trace_digests", (n_td, 8), align=16)
-    _build.require(fri_values, "fri_values", (n_fv,))
-    _build.require(fri_digests, "fri_digests", (n_fd, 8), align=16)
+    _build.require(chain, "chain", lead + (8,))
+    _build.require(f_evals, "f_evals", lead + (n_f,))
+    _build.require(trace_digests, "trace_digests", lead + (n_td, 8),
+                   align=16)
+    _build.require(fri_values, "fri_values", lead + (n_fv,))
+    _build.require(fri_digests, "fri_digests", lead + (n_fd, 8), align=16)
     _build.require(tb.template, "template", (nrows, 16), align=16)
     _build.require(tb.flags, "flags", (nrows, 2), align=8)
     _build.require(tb.slots, "slots", (nslots, 8), dtype=torch.int64,
@@ -237,10 +239,12 @@ def query_chain(chain, f_evals, trace_digests, fri_values, fri_digests,
     _build.require(tb.tasks, "tasks", (ntasks, len(TASK_COLUMNS)),
                    dtype=torch.int64, align=8)
     dev, q_n, nv = chain.device, tb.num_queries, tb.num_values
-    out = torch.empty(8, dtype=torch.int32, device=dev)
-    idxs = torch.empty(q_n, dtype=torch.int64, device=dev)
-    vals = torch.empty((q_n, nv), dtype=torch.int32, device=dev)
-    digs = torch.empty((q_n, nslots - nv, 8), dtype=torch.int32, device=dev)
+    out = torch.empty(lead + (8,), dtype=torch.int32, device=dev)
+    idxs = torch.empty(lead + (q_n,), dtype=torch.int64, device=dev)
+    vals = torch.empty(lead + (q_n, nv), dtype=torch.int32, device=dev)
+    digs = torch.empty(lead + (q_n, nslots - nv, 8), dtype=torch.int32,
+                       device=dev)
+    strides = tb.sizes if b else (0, 0, 0, 0)
     _build.check(lib.stark_query_chain(
         chain.data_ptr(), f_evals.data_ptr(), trace_digests.data_ptr(),
         fri_values.data_ptr(), fri_digests.data_ptr(),
@@ -248,13 +252,52 @@ def query_chain(chain, f_evals, trace_digests, fri_values, fri_digests,
         tb.tasks.data_ptr(), nrows, nslots, nv, ntasks, tb.max_prune,
         tb.subtree_rows, int(tb.elem_width == 2), tb.rng, q_n,
         out.data_ptr(), idxs.data_ptr(), vals.data_ptr(), digs.data_ptr(),
-        _build.stream_ptr(dev)), "K5 query_chain")
-    query_chain.launches += 1
+        *strides, max(b, 1), _build.stream_ptr(dev)),
+        "K5 query_chain" + "_batch" * bool(b))
     return out, idxs, vals, digs
+
+
+def query_chain(chain, f_evals, trace_digests, fri_values, fri_digests,
+                tb: QueryTables):
+    """K5's query form: every query of the phase in one launch, the
+    pruned trees' siblings recomputed in it.  A CPU tensor runs
+    :func:`query_chain_plain`; a CUDA tensor launches the kernel or
+    raises."""
+    if _build.plain_device(chain):
+        return query_chain_plain(chain, f_evals, trace_digests, fri_values,
+                                 fri_digests, tb)
+    res = _launch_query(tb, 0, chain, f_evals, trace_digests, fri_values,
+                        fri_digests)
+    query_chain.launches += 1
+    return res
 
 
 query_chain.launches = 0
 query_chain.plain = query_chain_plain
+
+
+def query_chain_batch(chain, f_evals, trace_digests, fri_values,
+                      fri_digests, tb: QueryTables):
+    """K5's query form for B proofs of one plan in one launch, one block
+    a proof (stark/batch.py): each input with a leading proof axis
+    ((B, 8) chains, (B, n) value words, (B, rows, 8) digests, contiguous)
+    -> (final chains (B, 8), idxs (B, Q), vals (B, Q, Nv), digs (B, Q,
+    Nd, 8)).  A CPU tensor runs :func:`query_chain_plain` proof by
+    proof."""
+    b = int(chain.shape[0])
+    if _build.plain_device(chain):
+        outs = [query_chain_plain(chain[k], f_evals[k], trace_digests[k],
+                                  fri_values[k], fri_digests[k], tb)
+                for k in range(b)]
+        return tuple(torch.stack(x) for x in zip(*outs))
+    res = _launch_query(tb, b, chain, f_evals, trace_digests, fri_values,
+                        fri_digests)
+    query_chain_batch.launches += 1
+    return res
+
+
+query_chain_batch.launches = 0
+query_chain_batch.plain = query_chain_plain
 
 
 def build_script(num_offsets: int, fri_lengths: tuple) -> list:
@@ -300,16 +343,17 @@ def _positions(t: dict, idx: torch.Tensor) -> torch.Tensor:
 
 class DeviceQueryPlan:
     """The whole query phase for one static configuration: draw range,
-    query count, trace offsets, trace length (of each column), the FRI
-    length ladder (all powers of two), the trace's column count, the
-    field's width in u32 words (1, or 2 for Goldilocks), and the prune
-    depths of the trace tree and of each FRI layer's tree (default: none
-    pruned)."""
+    query count, trace offsets, trace length (of each column; None, with
+    no offsets, for the standalone FRI query phase, which opens no
+    trace), the FRI length ladder (all powers of two), the trace's column
+    count, the field's width in u32 words (1, or 2 for Goldilocks), and
+    the prune depths of the trace tree and of each FRI layer's tree
+    (default: none pruned)."""
 
     def __init__(self, rng: int, num_queries: int, offsets: tuple,
-                 trace_len: int, fri_lengths: tuple, num_columns: int = 1,
-                 elem_width: int = 1, trace_prune: int = 0,
-                 fri_prune: tuple = ()):
+                 trace_len: int | None, fri_lengths: tuple,
+                 num_columns: int = 1, elem_width: int = 1,
+                 trace_prune: int = 0, fri_prune: tuple = ()):
         if rng <= 0 or rng >= 1 << 32:
             raise ValueError(f"draw range {rng} not in [1, 2^32)")
         if elem_width not in (1, 2):
@@ -319,21 +363,25 @@ class DeviceQueryPlan:
                 f"the device query phase takes 1..{MAX_COLUMNS} trace "
                 f"columns (a row leaf's one-block message), got "
                 f"{num_columns}")
-        for ln in fri_lengths + (trace_len,):
-            if ln & (ln - 1):
+        if trace_len is None and (offsets or trace_prune):
+            raise ValueError("trace offsets and a trace prune need a trace "
+                             "length")
+        trace = (trace_len,) if trace_len is not None else ()
+        for ln in tuple(fri_lengths) + trace:
+            if ln < 1 or ln & (ln - 1):
                 raise ValueError("device query phase needs power-of-two sizes")
         fri_prune = tuple(int(x) for x in fri_prune) or (0,) * len(
             fri_lengths)
         if (len(fri_prune) != len(fri_lengths)
-                or not _prunes_fit((trace_len,) + tuple(fri_lengths),
-                                   (trace_prune,) + fri_prune)):
+                or not _prunes_fit(trace + tuple(fri_lengths),
+                                   (trace_prune,) * len(trace) + fri_prune)):
             raise ValueError(f"prune depths {trace_prune}, {fri_prune} do "
                              f"not fit trees of {trace_len}, {fri_lengths} "
                              "leaves")
         self.rng = rng
         self.num_queries = num_queries
         self.offsets = tuple(int(o) for o in offsets)
-        self.trace_len = int(trace_len)
+        self.trace_len = None if trace_len is None else int(trace_len)
         self.num_columns = int(num_columns)
         self.elem_width = int(elem_width)
         self.fri_lengths = tuple(int(x) for x in fri_lengths)
@@ -459,9 +507,7 @@ class DeviceQueryPlan:
                 num_values=len(self._slots[0].cols["word"])
                 + len(self._slots[1].cols["word"]),
                 rng=self.rng, num_queries=self.num_queries,
-                sizes=(self.num_columns * self.elem_width * self.trace_len,
-                       2 * (self.trace_len >> self.trace_prune) - 1, vt,
-                       dt),
+                sizes=self._trace_sizes() + (vt, dt),
                 tasks=torch.tensor(self._tasks, dtype=torch.int64,
                                    device=device).reshape(
                                        -1, len(TASK_COLUMNS)),
@@ -469,6 +515,14 @@ class DeviceQueryPlan:
                 subtree_rows=self._subtree_rows,
                 elem_width=self.elem_width)
         return self._packed[key]
+
+    def _trace_sizes(self) -> tuple:
+        """(trace LDE words, stored trace digest rows); (0, 0) without a
+        trace."""
+        if self.trace_len is None:
+            return 0, 0
+        return (self.num_columns * self.elem_width * self.trace_len,
+                2 * (self.trace_len >> self.trace_prune) - 1)
 
     def stream(self, v: torch.Tensor, d: torch.Tensor):
         """(stream, flags) of one query for K5, from its opened values
@@ -487,9 +541,27 @@ class DeviceQueryPlan:
         ``fri/commit.py``; `fri_values`: every FRI layer concatenated.
         Returns (final_state (8,), idxs (Q,) int64, vals (Q, Nv), digs
         (Q, Nd, 8)) in script order, a trace opening's C values
-        together, a Goldilocks value as its (hi, lo) words."""
+        together, a Goldilocks value as its (hi, lo) words.  A plan
+        without a trace takes None for `f_evals` and `trace_digests`."""
+        if self.trace_len is None:
+            f_evals = torch.empty(0, dtype=torch.int32, device=state.device)
+            trace_digests = torch.empty((0, 8), dtype=torch.int32,
+                                        device=state.device)
         return query_chain(state, f_evals.reshape(-1), trace_digests,
                            fri_values, fri_digests, self.pack(state.device))
+
+    def run(self, channel, f_evals, trace_digests, fri_values,
+            fri_digests) -> None:
+        """The query phase from the host channel's state: on the values'
+        device (:meth:`run_device`), one fetch, then the canonical
+        transcript replayed into `channel` (:meth:`replay`)."""
+        if not channel.state:
+            raise ChannelError(
+                "query phase before any send (empty channel state)")
+        state = state_words(channel.state, fri_values.device)
+        final_h, idxs_h, vals_h, digs_h = fetch_packed(self.run_device(
+            state, f_evals, trace_digests, fri_values, fri_digests))
+        self.replay(channel, final_h, idxs_h, vals_h, digs_h)
 
     def replay(self, channel, final_h, idxs_h, vals_h, digs_h) -> None:
         """Replay the canonical transcript into `channel` from fetched
@@ -535,18 +607,20 @@ def _prunes_fit(lengths, prunes) -> bool:
     return all(0 <= p and 1 << p <= ln for ln, p in zip(lengths, prunes))
 
 
-def supported(rng: int, trace_len: int, fri_lengths,
+def supported(rng: int, trace_len: int | None, fri_lengths,
               num_columns: int = 1, elem_width: int = 1,
               trace_prune: int = 0, fri_prune: tuple = ()) -> bool:
     """Whether this plan handles the configuration (power-of-two sizes,
     draw range below 2^32, 1..6 trace columns, a field of 1 or 2 u32
-    words, prune depths no deeper than their trees)."""
+    words, prune depths no deeper than their trees; `trace_len` None for
+    the FRI query phase alone)."""
     if (not 0 < rng < 1 << 32 or not 1 <= num_columns <= MAX_COLUMNS
             or elem_width not in (1, 2)):
         return False
-    sizes = list(fri_lengths) + [trace_len]
+    trace = [trace_len] if trace_len is not None else []
+    sizes = list(fri_lengths) + trace
     fri_prune = tuple(fri_prune) or (0,) * len(fri_lengths)
     return (all(s > 0 and not (s & (s - 1)) for s in sizes)
             and len(fri_prune) == len(fri_lengths)
-            and _prunes_fit([trace_len, *fri_lengths],
-                            [trace_prune, *fri_prune]))
+            and _prunes_fit(trace + list(fri_lengths),
+                            [trace_prune] * len(trace) + list(fri_prune)))

@@ -23,6 +23,12 @@
 // leaf preimage and of the node's padding block fold into immediates.
 // Nodes run for every level down to the root, so no level takes another
 // path.
+//
+// Tree batch (stark/batch.py's B proofs): blockIdx.y is the tree, and
+// each tree's values and digest rows start a fixed 64-bit stride after
+// the last tree's, so one launch hashes the leaves of all B trees and one
+// launch a level their nodes (B x 2^22 leaves x 8 words passes 2^31, so
+// the tree offsets are size_t).  A single tree is the batch of one.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -46,13 +52,17 @@ constexpr int kThreads = 256;
 // length 64C are immediates, the u32 mode's zero high words included.
 // Consecutive planes lie `ld` words apart (ld >= n), so one chunk of a
 // larger tree's leaves (merkle/tree.py's chunked build) is read in place.
+// Tree blockIdx.y reads its values `vstride` words and writes its digests
+// `ostride` rows after tree 0's.
 template <int C, bool WIDE>
 __global__ void __launch_bounds__(kThreads)
 sha_leaves(const uint32_t* __restrict__ values, uint4* __restrict__ out,
-           int n, long long ld) {
+           int n, long long ld, long long vstride, long long ostride) {
   static_assert(C >= 1 && C <= 6, "one block holds at most 6 values");
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
+  values += static_cast<size_t>(blockIdx.y) * vstride;
+  out += static_cast<size_t>(blockIdx.y) * ostride * 2;
   uint32_t w[16];
 #pragma unroll
   for (int k = 0; k < 16; ++k) w[k] = 0u;
@@ -75,12 +85,15 @@ sha_leaves(const uint32_t* __restrict__ values, uint4* __restrict__ out,
 }
 
 // Parent j = SHA-256(child[2j] || child[2j+1]): one data block plus the
-// constant padding block of a 64-byte message.
+// constant padding block of a 64-byte message.  Tree blockIdx.y's rows
+// lie `cstride` / `ostride` rows after tree 0's.
 __global__ void __launch_bounds__(kThreads)
 sha_nodes(const uint4* __restrict__ children, uint4* __restrict__ out,
-          int m) {
+          int m, long long cstride, long long ostride) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= m) return;
+  children += static_cast<size_t>(blockIdx.y) * cstride * 2;
+  out += static_cast<size_t>(blockIdx.y) * ostride * 2;
   uint32_t w[16];
 #pragma unroll
   for (int q = 0; q < 4; ++q) {
@@ -98,32 +111,42 @@ sha_nodes(const uint4* __restrict__ children, uint4* __restrict__ out,
 
 // values: (cols, n) words, column-major rows of a trace (cols = 1: n
 // values), or with `wide` the (cols, 2, n) limb planes of 64-bit values,
-// each plane `ld` words after the one before (ld >= n); out: (n, 8)
-// digest rows (16-byte aligned).
+// each plane `ld` words after the one before (ld >= n), for each of
+// `batch` trees, tree b's `vstride` words after tree 0's; out: (n, 8)
+// digest rows (16-byte aligned) a tree, tree b's `ostride` rows after
+// tree 0's.
 extern "C" int stark_sha_leaves(const void* values, void* out, int n,
-                                long long ld, int cols, int wide,
-                                void* stream) {
-  using Leaves = void (*)(const uint32_t*, uint4*, int, long long);
+                                long long ld, long long vstride,
+                                long long ostride, int cols, int wide,
+                                int batch, void* stream) {
+  using Leaves = void (*)(const uint32_t*, uint4*, int, long long, long long,
+                          long long);
   static const Leaves kLeaves[2][6] = {
       {sha_leaves<1, false>, sha_leaves<2, false>, sha_leaves<3, false>,
        sha_leaves<4, false>, sha_leaves<5, false>, sha_leaves<6, false>},
       {sha_leaves<1, true>, sha_leaves<2, true>, sha_leaves<3, true>,
        sha_leaves<4, true>, sha_leaves<5, true>, sha_leaves<6, true>}};
-  if (cols < 1 || cols > 6 || n < 0 || ld < n)
+  if (cols < 1 || cols > 6 || n < 0 || ld < n || batch < 0 ||
+      batch > 65535 || vstride < 0 || ostride < 0)
     return (int)cudaErrorInvalidValue;
-  if (n > 0)
-    kLeaves[wide != 0][cols - 1]<<<(n + kThreads - 1) / kThreads, kThreads,
-                                   0, (cudaStream_t)stream>>>(
-        (const uint32_t*)values, (uint4*)out, n, ld);
+  if (n > 0 && batch > 0)
+    kLeaves[wide != 0][cols - 1]<<<dim3((n + kThreads - 1) / kThreads,
+                                        batch),
+                                   kThreads, 0, (cudaStream_t)stream>>>(
+        (const uint32_t*)values, (uint4*)out, n, ld, vstride, ostride);
   return (int)cudaGetLastError();
 }
 
-// children: (2m, 8) digest rows; out: (m, 8) parent rows.
+// children: (2m, 8) digest rows; out: (m, 8) parent rows; for each of
+// `batch` trees, tree b's `cstride` / `ostride` rows after tree 0's.
 extern "C" int stark_sha_nodes(const void* children, void* out, int m,
-                               void* stream) {
-  if (m > 0)
-    sha_nodes<<<(m + kThreads - 1) / kThreads, kThreads, 0,
+                               long long cstride, long long ostride,
+                               int batch, void* stream) {
+  if (m < 0 || batch < 0 || batch > 65535 || cstride < 0 || ostride < 0)
+    return (int)cudaErrorInvalidValue;
+  if (m > 0 && batch > 0)
+    sha_nodes<<<dim3((m + kThreads - 1) / kThreads, batch), kThreads, 0,
                 (cudaStream_t)stream>>>((const uint4*)children, (uint4*)out,
-                                        m);
+                                        m, cstride, ostride);
   return (int)cudaGetLastError();
 }

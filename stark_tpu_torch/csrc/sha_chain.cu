@@ -60,6 +60,12 @@
 //   one leaf compression a thread (up to 128 leaves at once) and two
 //   compressions a level: ~2 prune + 1 compressions on the critical
 //   path.
+// * Batch (stark/batch.py's B proofs): both forms run one independent
+//   block a chain, blockIdx.x the proof.  The chain form reads proof b's
+//   rows and flags a fixed stride after proof 0's; the query form shares
+//   the plan's tables and reads proof b's values and trees at fixed
+//   strides, so the B query phases are one launch on B SMs, each as long
+//   as one proof's.  A single chain is the batch of one.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -247,8 +253,14 @@ __global__ void __launch_bounds__(kThreads, 1)
     sha_chain(const uint4* __restrict__ stream,
               const int2* __restrict__ flags,
               const uint32_t* __restrict__ chain_in,
-              uint32_t* __restrict__ chain_out, int nblocks) {
+              uint32_t* __restrict__ chain_out, int nblocks,
+              long long stream_stride, long long flag_stride) {
   extern __shared__ __align__(128) unsigned char smem[];
+  // chain blockIdx.x: its rows and flags a fixed stride after chain 0's
+  stream += static_cast<size_t>(blockIdx.x) * stream_stride * 4;
+  flags += static_cast<size_t>(blockIdx.x) * flag_stride;
+  chain_in += 8 * blockIdx.x;
+  chain_out += 8 * blockIdx.x;
   const Ring r = ring_at(smem);
   uint4* chunks = reinterpret_cast<uint4*>(smem + kRingBytes + kRingBarBytes);
   uint64_t* cfull = reinterpret_cast<uint64_t*>(
@@ -442,8 +454,22 @@ __global__ void __launch_bounds__(kThreads, 1)
                 uint32_t rng, int nqueries,
                 uint32_t* __restrict__ chain_out,
                 long long* __restrict__ idxs, uint32_t* __restrict__ vals,
-                uint32_t* __restrict__ digs) {
+                uint32_t* __restrict__ digs, long long f_stride,
+                long long td_stride, long long fv_stride,
+                long long fd_stride) {
   extern __shared__ __align__(128) unsigned char smem[];
+  // proof blockIdx.x: its chain, values and trees (value words, digest
+  // rows) a fixed stride after proof 0's; its outputs after proof 0's
+  const size_t b = blockIdx.x;
+  chain_in += 8 * b;
+  f_evals += b * f_stride;
+  trace_digests += b * td_stride * 2;
+  fri_values += b * fv_stride;
+  fri_digests += b * fd_stride * 2;
+  chain_out += 8 * b;
+  idxs += b * nqueries;
+  vals += b * nqueries * nvalues;
+  digs += b * nqueries * (nslots - nvalues) * 8;
   const Ring r = ring_at(smem);
   uint4* stream = reinterpret_cast<uint4*>(smem + kRingBytes + kRingBarBytes);
   int2* sflags = reinterpret_cast<int2*>(stream + 4 * nrows);
@@ -585,8 +611,6 @@ __global__ void dep_latency(long long* out, int mode, int iters, uint32_t y,
 
 }  // namespace
 
-// stream: (B, 16) words; flags: (B, 2) int32 (first, last);
-// chain_in / chain_out: 8 words each.
 // Let both kernels take up to kMaxSmem of dynamic shared memory, once per
 // device (bit d of `allowed`); a refused attribute is returned as the
 // launch's error.
@@ -604,14 +628,23 @@ static cudaError_t allow_smem() {
   return err;
 }
 
+// stream: (nblocks, 16) words; flags: (nblocks, 2) int32 (first, last);
+// chain_in / chain_out: 8 words each; for `batch` chains (one block
+// each), chain b's rows `stream_stride` and its flags `flag_stride` rows
+// after chain 0's (a stride of 0 shares them), its states 8 words after
+// chain b - 1's.
 extern "C" int stark_sha_chain(const void* stream, const void* flags,
                                const void* chain_in, void* chain_out,
-                               int nblocks, void* s) {
+                               int nblocks, long long stream_stride,
+                               long long flag_stride, int batch, void* s) {
+  if (nblocks < 0 || batch < 0 || stream_stride < 0 || flag_stride < 0)
+    return (int)cudaErrorInvalidValue;
   const cudaError_t err = allow_smem();
   if (err != cudaSuccess) return (int)err;
-  sha_chain<<<1, kThreads, kChainSmem, (cudaStream_t)s>>>(
-      (const uint4*)stream, (const int2*)flags, (const uint32_t*)chain_in,
-      (uint32_t*)chain_out, nblocks);
+  if (batch > 0)
+    sha_chain<<<batch, kThreads, kChainSmem, (cudaStream_t)s>>>(
+        (const uint4*)stream, (const int2*)flags, (const uint32_t*)chain_in,
+        (uint32_t*)chain_out, nblocks, stream_stride, flag_stride);
   return (int)cudaGetLastError();
 }
 
@@ -622,27 +655,35 @@ extern "C" int stark_sha_chain(const void* stream, const void* flags,
 // wide: the values are 64-bit limb planes; trace_digests / fri_digests:
 // the trees' stored levels, (rows, 8) words.  Out: chain_out (8,), idxs
 // (nqueries,) int64, vals (nqueries, nvalues), digs (nqueries, nslots -
-// nvalues, 8).
+// nvalues, 8).  For `batch` proofs of one plan, one block each, proof
+// b's chain state, values and trees lie f_stride / fv_stride words and
+// td_stride / fd_stride digest rows after proof 0's, its outputs right
+// after proof b - 1's.
 extern "C" int stark_query_chain(
     const void* chain_in, const void* f_evals, const void* trace_digests,
     const void* fri_values, const void* fri_digests, const void* tmpl,
     const void* flags, const void* slots, const void* tasks, int nrows,
     int nslots, int nvalues, int ntasks, int max_prune, int nodes, int wide,
     unsigned rng, int nqueries, void* chain_out, void* idxs, void* vals,
-    void* digs, void* s) {
-  if (nodes < 0 || max_prune < 0 || (max_prune > 0) != (ntasks > 0))
+    void* digs, long long f_stride, long long td_stride,
+    long long fv_stride, long long fd_stride, int batch, void* s) {
+  if (nodes < 0 || max_prune < 0 || (max_prune > 0) != (ntasks > 0) ||
+      batch < 0 || f_stride < 0 || td_stride < 0 || fv_stride < 0 ||
+      fd_stride < 0)
     return (int)cudaErrorInvalidValue;
   const int bytes = query_smem(nrows, nodes);
   if (bytes > kMaxSmem) return (int)cudaErrorInvalidValue;
   const cudaError_t err = allow_smem();
   if (err != cudaSuccess) return (int)err;
-  query_chain<<<1, kThreads, bytes, (cudaStream_t)s>>>(
-      (const uint32_t*)chain_in, (const uint32_t*)f_evals,
-      (const uint4*)trace_digests, (const uint32_t*)fri_values,
-      (const uint4*)fri_digests, (const uint4*)tmpl, (const int2*)flags,
-      (const long long*)slots, (const long long*)tasks, nrows, nslots,
-      nvalues, ntasks, max_prune, wide, rng, nqueries, (uint32_t*)chain_out,
-      (long long*)idxs, (uint32_t*)vals, (uint32_t*)digs);
+  if (batch > 0)
+    query_chain<<<batch, kThreads, bytes, (cudaStream_t)s>>>(
+        (const uint32_t*)chain_in, (const uint32_t*)f_evals,
+        (const uint4*)trace_digests, (const uint32_t*)fri_values,
+        (const uint4*)fri_digests, (const uint4*)tmpl, (const int2*)flags,
+        (const long long*)slots, (const long long*)tasks, nrows, nslots,
+        nvalues, ntasks, max_prune, wide, rng, nqueries,
+        (uint32_t*)chain_out, (long long*)idxs, (uint32_t*)vals,
+        (uint32_t*)digs, f_stride, td_stride, fv_stride, fd_stride);
   return (int)cudaGetLastError();
 }
 

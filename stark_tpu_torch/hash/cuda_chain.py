@@ -69,10 +69,41 @@ def sha_chain(stream: torch.Tensor, flags: torch.Tensor,
     out = torch.empty(8, dtype=torch.int32, device=stream.device)
     _build.check(_build.lib("sha_chain").stark_sha_chain(
         stream.data_ptr(), flags.data_ptr(), chain.data_ptr(),
-        out.data_ptr(), b, _build.stream_ptr(stream.device)), "K5 sha_chain")
+        out.data_ptr(), b, 0, 0, 1, _build.stream_ptr(stream.device)),
+        "K5 sha_chain")
     sha_chain.launches += 1
     return out
 
 
 sha_chain.launches = 0
 sha_chain.plain = sha_chain_plain
+
+
+def sha_chain_batch(stream: torch.Tensor, flags: torch.Tensor,
+                    chain: torch.Tensor) -> torch.Tensor:
+    """B independent chains in one launch, one block each (stark/batch.py:
+    the B proofs' absorbs and draws): (B, R, 16) int32 rows, (R, 2) flags
+    shared by all or (B, R, 2) one set a chain, (B, 8) initial states ->
+    (B, 8) final states.  A CPU tensor runs the plain version chain by
+    chain."""
+    b, r = int(stream.shape[0]), int(stream.shape[1])
+    shared = flags.dim() == 2
+    if _build.plain_device(stream):
+        return torch.stack([
+            sha_chain_plain(stream[k], flags if shared else flags[k],
+                            chain[k]) for k in range(b)]) if b else \
+            chain.clone()
+    _build.require(stream, "stream", (b, r, 16), align=16)
+    _build.require(flags, "flags", (r, 2) if shared else (b, r, 2), align=8)
+    _build.require(chain, "chain", (b, 8))
+    out = torch.empty((b, 8), dtype=torch.int32, device=stream.device)
+    _build.check(_build.lib("sha_chain").stark_sha_chain(
+        stream.data_ptr(), flags.data_ptr(), chain.data_ptr(),
+        out.data_ptr(), r, r, 0 if shared else r, b,
+        _build.stream_ptr(stream.device)), "K5 sha_chain_batch")
+    sha_chain_batch.launches += 1
+    return out
+
+
+sha_chain_batch.launches = 0
+sha_chain_batch.plain = sha_chain_plain

@@ -35,7 +35,7 @@ def _launch_leaves(values, shape: tuple, out, cols: int, wide: bool,
         out = torch.empty((n, 8), dtype=torch.int32, device=values.device)
     _build.require(out, "out", (n, 8), align=16)
     _build.check(_build.lib("sha256_tree").stark_sha_leaves(
-        values.data_ptr(), out.data_ptr(), n, ld, cols, int(wide),
+        values.data_ptr(), out.data_ptr(), n, ld, 0, 0, cols, int(wide), 1,
         _build.stream_ptr(values.device)), what)
     return out
 
@@ -93,7 +93,7 @@ def sha_nodes(children: torch.Tensor, out: torch.Tensor | None = None):
         out = torch.empty((m, 8), dtype=torch.int32, device=children.device)
     _build.require(out, "out", (m, 8), align=16)
     _build.check(_build.lib("sha256_tree").stark_sha_nodes(
-        children.data_ptr(), out.data_ptr(), m,
+        children.data_ptr(), out.data_ptr(), m, 0, 0, 1,
         _build.stream_ptr(children.device)), "K4 sha_nodes")
     sha_nodes.launches += 1
     return out
@@ -105,3 +105,72 @@ sha_nodes.launches = 0
 sha_leaves.plain = sha256_u64_leaves
 sha_row_leaves.plain = sha256_row_leaves
 sha_nodes.plain = sha256_pairs
+
+
+# -- the tree batch (stark/batch.py: B proofs' trees in one launch) ---------
+
+def _batch_stride(t, name: str, inner: tuple, align: int) -> int:
+    """Check a batch operand: a CUDA int32 tensor of shape (B,) + inner
+    whose every tree is one contiguous block (a tree buffer's level is a
+    view of (B, rows, 8)), each `align`-byte aligned; returns the stride
+    between trees in its inner units (words or digest rows)."""
+    _build._require(t, name, tuple(t.shape))
+    if tuple(t.shape[1:]) != tuple(inner):
+        raise ValueError(f"{name}: expected (B,) + {tuple(inner)}, got "
+                         f"{tuple(t.shape)}")
+    if not t[0].is_contiguous() or t.data_ptr() % align or (
+            t.shape[0] > 1 and (4 * t.stride(0)) % align):
+        raise ValueError(f"{name}: each tree must be one contiguous, "
+                         f"{align}-byte aligned block")
+    return t.stride(0) if t.shape[0] > 1 else 0
+
+
+def sha_leaves_batch(values: torch.Tensor, out: torch.Tensor, *,
+                     rows: bool = False, wide: bool = False):
+    """K3 over B trees in one launch (the tree as grid y): values (B, n)
+    u32 words, (B, 2, n) Goldilocks limb planes with `wide`, or with
+    `rows` the row form's (B, C, n) / (B, C, 2, n) columns -> leaf digests
+    into `out`, (B, n, 8) with each tree's rows contiguous (the leaf level
+    of a (B, rows, 8) tree buffer).  A CPU tensor runs the plain version
+    tree by tree."""
+    b, n = int(values.shape[0]), int(values.shape[-1])
+    if _build.plain_device(values):
+        for k in range(b):
+            if rows:
+                out[k].copy_(sha256_row_leaves(values[k], wide))
+            else:
+                out[k].copy_(sha256_u64_leaves(values[k], wide))
+        return out
+    cols = int(values.shape[1]) if rows else 1
+    inner = tuple(values.shape[1:])
+    vstride = _batch_stride(values, "values", inner, 4)
+    ld = values.stride(-2) if values.dim() > 2 else n
+    ostride = _batch_stride(out, "out", (n, 8), 16) // 8
+    _build.check(_build.lib("sha256_tree").stark_sha_leaves(
+        values.data_ptr(), out.data_ptr(), n, ld, vstride, ostride, cols,
+        int(wide), b, _build.stream_ptr(values.device)),
+        f"K3 sha_leaves_batch{' (64-bit)' * wide}")
+    _count(sha_leaves_batch, wide)
+    return out
+
+
+def sha_nodes_batch(children: torch.Tensor, out: torch.Tensor):
+    """K4 over B trees' levels in one launch: children (B, 2m, 8) ->
+    parents into `out` (B, m, 8), each tree's rows contiguous (views of a
+    (B, rows, 8) tree buffer)."""
+    b, m = int(children.shape[0]), int(children.shape[1]) // 2
+    if _build.plain_device(children):
+        for k in range(b):
+            out[k].copy_(sha256_pairs(children[k]))
+        return out
+    cstride = _batch_stride(children, "children", (2 * m, 8), 16) // 8
+    ostride = _batch_stride(out, "out", (m, 8), 16) // 8
+    _build.check(_build.lib("sha256_tree").stark_sha_nodes(
+        children.data_ptr(), out.data_ptr(), m, cstride, ostride, b,
+        _build.stream_ptr(children.device)), "K4 sha_nodes_batch")
+    sha_nodes_batch.launches += 1
+    return out
+
+
+sha_leaves_batch.launches = sha_leaves_batch.wide_launches = 0
+sha_nodes_batch.launches = 0

@@ -1,6 +1,6 @@
 """Converters between the JAX package's host values and the port's
-tensors, configurations and statements — the port's "weights carried
-across", used by the tests.
+tensors, configurations, statements and checkpoints — the port's
+"weights carried across", used by the tests.
 
 Field values and digest words are uint32 in JAX and int32 (same bits) in
 the port, so numpy views carry them over without copying values; a
@@ -55,8 +55,9 @@ def state_to_hex(state: torch.Tensor) -> str:
 
 def hex_to_state(state_hex: str, *, device) -> torch.Tensor:
     """64-char hex state -> (8,) int32 state words on `device`."""
-    words = np.frombuffer(bytes.fromhex(state_hex), dtype=">u4")
-    return u32_to_tensor(words.astype(np.uint32), device=device)
+    from stark_tpu_torch.channel.device_channel import state_words
+
+    return state_words(state_hex, device)
 
 
 def config_from(cfg) -> ProverConfig:
@@ -96,3 +97,23 @@ def air_from(jax_air):
         register=False)
     bound = jax_air.witness_params()
     return spec(**bound["witness"], **bound["params"])
+
+
+def airs_from(jax_airs) -> list:
+    """The port's AIRs of a batch of JAX package statements
+    (:func:`air_from` each)."""
+    return [air_from(a) for a in jax_airs]
+
+
+def checkpoint_from(jax_checkpoint):
+    """The port's ProverCheckpoint of a JAX package checkpoint, through
+    its serialized bytes, which the port must read back to the same
+    config (:func:`config_from`) and serialize to the same bytes."""
+    from stark_tpu_torch.stark.checkpoint import ProverCheckpoint
+
+    blob = jax_checkpoint.serialize()
+    ckpt = ProverCheckpoint.deserialize(blob)
+    if (ckpt.config != config_from(jax_checkpoint.config)
+            or ckpt.serialize() != blob):
+        raise ValueError("the checkpoint does not carry across unchanged")
+    return ckpt

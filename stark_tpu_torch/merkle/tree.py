@@ -1,5 +1,5 @@
 """Merkle commitment over field-element codewords (counterpart of
-``stark_tpu/merkle/tree.py``; power-of-two trees).
+``stark_tpu/merkle/tree.py``).
 
 Node semantics are the reference's rs_merkle wrapper:
 
@@ -10,19 +10,24 @@ Node semantics are the reference's rs_merkle wrapper:
   and every entry takes that width as ``wide``, never from the shape (a
   (2, n) tensor is two u32 columns or one Goldilocks column)
 * node hash = SHA-256(left_digest || right_digest)
+* odd node  = promoted unhashed to the next level      (rs_merkle v1.4)
 * root      = lowercase hex string                     (merkle/mod.rs:24-26)
 
-Storage: one (2n-1, 8) int32 buffer of digest rows in natural node order,
-level after level (leaves first, root last), at static offsets
-(:func:`level_offsets`).  The children of parent j of a level are rows
-2j and 2j+1 of the level below, so a node hash reads 64 contiguous bytes,
-and the authentication path of leaf j is the rows
-``offset_l + ((j >> l) ^ 1)``.  Digests do not depend on the storage
-layout, so roots and paths equal the JAX package's.
+Storage: one int32 buffer of digest rows in natural node order, level
+after level (leaves first, root last), at static offsets
+(:func:`level_offsets`): (2n-1, 8) for a power-of-two tree; level l of
+any tree holds ceil(n / 2^l) nodes.  The children of parent j of a level
+are rows 2j and 2j+1 of the level below, so a node hash reads 64
+contiguous bytes, and the authentication path of leaf j is the rows
+``offset_l + ((j >> l) ^ 1)``, skipping the levels where the node is
+the odd one out (promoted, so it has no sibling).  Digests do not depend
+on the storage layout, so roots and paths equal the JAX package's.
 
 On a CUDA tensor the leaves go through kernel K3 (its row form for
 columns) and every level above them, down to the root, through K4
-(``hash/cuda_sha.py``); on a CPU tensor through their plain versions.
+(``hash/cuda_sha.py``): one launch a level over its floor(size / 2)
+pairs, the promoted node of an odd level copied after them; on a CPU
+tensor through their plain versions.
 
 Pruned storage (``prune=``, the JAX package's ``prune_depth_for``): the
 single-fetch prove stores only the levels of at most 2^PRUNE_KEEP_LOG
@@ -68,6 +73,12 @@ def prune_depth_for(n: int) -> int:
     return max(0, (n.bit_length() - 1) - PRUNE_KEEP_LOG)
 
 
+def prune_depths(lengths, pruned: bool = True) -> tuple:
+    """Each size's prune depth (``prune_depth_for``), or all 0 when not
+    `pruned`: the one rule for a prove's trees and its query plan."""
+    return tuple(prune_depth_for(n) if pruned else 0 for n in lengths)
+
+
 def chunk_log(n: int, prune: int) -> int:
     """log2 of the leaves one pass of a pruned build of n leaves hashes:
     all of them below 2^CHUNK_MIN_LOG leaves, else 2^CHUNK_LOG (at least
@@ -100,14 +111,15 @@ def tree_scratch(trees, device) -> torch.Tensor | None:
 
 
 def level_offsets(n: int) -> list[tuple[int, int]]:
-    """(row offset, node count) of each level of a size-n tree buffer."""
+    """(row offset, node count) of each level of a size-n tree buffer
+    (rs_merkle shape: level l + 1 holds ceil(size_l / 2) nodes)."""
     out, off, size = [], 0, n
     while True:
         out.append((off, size))
         if size == 1:
             return out
         off += size
-        size //= 2
+        size = (size + 1) // 2
 
 
 def digest_bytes(words) -> bytes:
@@ -119,24 +131,23 @@ def build_tree(values: torch.Tensor, out: torch.Tensor | None = None, *,
                rows: bool = False, wide: bool = False, prune: int = 0,
                scratch: torch.Tensor | None = None):
     """The stored digest levels of the tree over `values` into `out` (a
-    contiguous (2m-1, 8) int32 buffer, m = n >> prune, allocated when
-    None); n, the last axis, a power of two.  One value a leaf ((n,) u32,
-    or (2, n) limb planes with `wide`), or with `rows` the row messages of
-    C columns ((C, n), or (C, 2, n) with `wide`).  With `prune` the first
-    `prune` levels go through `scratch` (a (rows, 8) int32 buffer of at
-    least :func:`scratch_rows` rows, allocated when None) and are not
-    stored.  Returns the buffer."""
+    contiguous (rows, 8) int32 buffer of :func:`tree_rows` rows, allocated
+    when None); n, the last axis, at least 1.  One value a leaf ((n,)
+    u32, or (2, n) limb planes with `wide`), or with `rows` the row
+    messages of C columns ((C, n), or (C, 2, n) with `wide`).  A level of
+    odd size promotes its last node unhashed.  With `prune` (a
+    power-of-two tree only) the first `prune` levels go through `scratch`
+    (a (rows, 8) int32 buffer of at least :func:`scratch_rows` rows,
+    allocated when None) and are not stored.  Returns the buffer."""
     n = int(values.shape[-1])
     if prune and (n & (n - 1) or (1 << prune) > n):
         raise ValueError(f"prune={prune} needs a power-of-two leaf count "
                          f">= 2^prune, got {n}")
-    if n < 1 or n & (n - 1):
-        raise NotImplementedError(
-            "the port builds power-of-two trees only; odd-size trees "
-            "(rs_merkle promotion) wait for ROADMAP Queue 1 item 14")
+    if n < 1:
+        raise ValueError("a Merkle tree needs at least one leaf")
     m = n >> prune
     if out is None:
-        out = torch.empty((2 * m - 1, 8), dtype=torch.int32,
+        out = torch.empty((tree_rows(m), 8), dtype=torch.int32,
                           device=values.device)
     leaves = sha_row_leaves if rows else sha_leaves
     if prune:
@@ -145,8 +156,18 @@ def build_tree(values: torch.Tensor, out: torch.Tensor | None = None, *,
         leaves(values, out=out[:n], wide=wide)
     offs = level_offsets(m)
     for (off_c, size_c), (off_p, size_p) in zip(offs, offs[1:]):
-        sha_nodes(out[off_c:off_c + size_c], out=out[off_p:off_p + size_p])
+        half = size_c // 2
+        sha_nodes(out[off_c:off_c + 2 * half], out=out[off_p:off_p + half])
+        if size_c % 2:  # the odd node goes up unhashed
+            out[off_p + half] = out[off_c + size_c - 1]
     return out
+
+
+def tree_rows(n: int) -> int:
+    """Digest rows of the buffer of a tree of n leaves (2n - 1 for a
+    power of two)."""
+    off, size = level_offsets(n)[-1]
+    return off + size
 
 
 def _first_stored(values, first, leaves, wide: bool, prune: int,
@@ -242,7 +263,8 @@ class MerkleTree:
 
     def path_rows(self, index: int) -> list[int]:
         """Buffer rows of the sibling digests of leaf `index`, leaf level
-        upward (an unpruned tree only)."""
+        upward, skipping the levels where its node is promoted (an
+        unpruned tree only)."""
         if self.prune:
             raise RuntimeError(
                 "pruned tree: its first levels are not stored, so its "
@@ -251,8 +273,12 @@ class MerkleTree:
                 "host gathers")
         if not 0 <= index < self.num_leaves:
             raise IndexError(f"leaf index {index} out of range")
-        return [off + ((index >> l) ^ 1)
-                for l, (off, _) in enumerate(self.offsets[:-1])]
+        rows = []
+        for l, (off, size) in enumerate(self.offsets[:-1]):
+            j = index >> l
+            if not (j == size - 1 and size % 2):
+                rows.append(off + (j ^ 1))
+        return rows
 
     def get_authentication_path(self, index: int) -> bytes:
         """Concatenated sibling digests, leaf level upward."""

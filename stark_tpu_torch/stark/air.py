@@ -12,7 +12,9 @@
 
 Each context holds the LDE coset domain and the boundary / zerofier
 inverse tables on the device; the composition is pointwise torch ops on
-them and on the LDE rolled by the blowup along its last axis.  Every AIR
+them and on the LDE rolled by the blowup along its last axis, so it also
+composes a batch of proofs at once (``stark/batch.py``: a leading batch
+axis of lanes, the publics and alphas as tensors broadcast over it).  Every AIR
 runs over a u32 field or the Goldilocks field: there a column is (2, M)
 limb planes (a C-column LDE (C, 2, M)), constants are (2, 1) pairs and
 the drawn alphas (2,) pairs, so the same code broadcasts plane by
@@ -47,9 +49,18 @@ class _BaseContext:
         self.domain = self.fp.coset_domain(cfg.offset, self.w, self.M,
                                            self.device)
 
-    def _const(self, value: int) -> torch.Tensor:
-        """A broadcastable constant: 0-dim, or a (2, 1) pair (JAX ``_bc``)."""
+    def _const(self, value) -> torch.Tensor:
+        """A broadcastable constant: 0-dim, or a (2, 1) pair (JAX ``_bc``);
+        a tensor (a batch's publics, ``stark/batch.py``) passes through."""
+        if torch.is_tensor(value):
+            return value
         return self.fp.const(value, self.device)
+
+    def column(self, lde: torch.Tensor, c: int) -> torch.Tensor:
+        """Column c of a C-column LDE: (C, M) u32 words, or (B, C, M) for a
+        batch of B proofs (``stark/batch.py``); (C, 2, M) Goldilocks limb
+        planes."""
+        return lde[..., c, :, :] if self.fp.width == 2 else lde[..., c, :]
 
     def boundary_inv(self, point: int) -> torch.Tensor:
         """1 / (x - point) on the LDE domain (int32 storage)."""
@@ -81,7 +92,7 @@ class _FibContext(_BaseContext):
         `alphas`: three device scalars (DeviceFS draws) or ints."""
         f = self.fp
         b = self.cfg.blowup
-        al = [a if torch.is_tensor(a) else self._const(a) for a in alphas]
+        al = [self._const(a) for a in alphas]
         f_x = lde
         f_gx = torch.roll(lde, -b, -1)
         f_g2x = torch.roll(lde, -2 * b, -1)
@@ -187,7 +198,7 @@ class _MimcContext(_NextRowContext):
     def compose(self, lde: torch.Tensor, alphas, publics: dict):
         f = self.fp
         b = self.cfg.blowup
-        al = [a if torch.is_tensor(a) else self._const(a) for a in alphas]
+        al = [self._const(a) for a in alphas]
         f_x = lde
         f_gx = torch.roll(lde, -b, -1)
         p0 = f.mul(f.sub(f_x, self._const(publics["input"])), self.inv_b0)
@@ -254,8 +265,8 @@ class _FibMulContext(_NextRowContext):
         planes for Goldilocks)."""
         f = self.fp
         b = self.cfg.blowup
-        al = [a if torch.is_tensor(a) else self._const(a) for a in alphas]
-        a_x, b_x = lde[0], lde[1]
+        al = [self._const(a) for a in alphas]
+        a_x, b_x = self.column(lde, 0), self.column(lde, 1)
         a_gx = torch.roll(a_x, -b, -1)
         b_gx = torch.roll(b_x, -b, -1)
         terms = (
@@ -339,3 +350,25 @@ def air_from_name(name: str, publics: dict):
     if name == FibMulAIR.name:
         return FibMulAIR(a0=publics.get("input", 1), b0=publics.get("b0", 1))
     raise ValueError(f"unknown AIR {name!r}")
+
+
+def rebuild_air(name: str, params: dict):
+    """The prover-side AIR of (name, witness_params()), the inverse that
+    checkpoint resume uses (``stark_tpu/stark/air.py:74``): a
+    hand-written AIR from its constructor arguments, a declarative
+    AirSpec through the registry (the shipped families included) with
+    its witness and param values re-bound."""
+    import stark_tpu_torch.stark.families  # noqa: F401  (registers them)
+    from stark_tpu_torch.stark.air_builder import lookup_spec
+
+    legacy = {cls.name: cls for cls in (FibonacciSquareAIR, MimcAIR,
+                                        FibMulAIR)}
+    if name in legacy:
+        return legacy[name](**params)
+    spec = lookup_spec(name)
+    if spec is None:
+        raise ValueError(
+            f"unknown AIR {name!r}: not a hand-written family and not in "
+            "the spec registry (declarative specs must be registered "
+            "before resume)")
+    return spec(**params.get("witness", {}), **params.get("params", {}))

@@ -448,8 +448,8 @@ class _SpecContext(_BaseContext):
         f = self.fp
         spec = self.spec
         blw = self.cfg.blowup
-        al = [a if torch.is_tensor(a) else self._const(a) for a in alphas]
-        cols = (tuple(lde[c] for c in range(spec.num_columns))
+        al = [self._const(a) for a in alphas]
+        cols = (tuple(self.column(lde, c) for c in range(spec.num_columns))
                 if spec.num_columns > 1 else (lde,))
         rows = tuple(
             tuple(col if s == 0 else torch.roll(col, -s * blw, -1)

@@ -1,9 +1,9 @@
-"""Top-level STARK prover (counterpart of ``stark_tpu/stark/prover.py``;
-the single-fetch pipeline only), generic over the AIR
-(``stark/air.py``: Fibonacci-square, MiMC³, the two-column FibMul) and
-over the field: a u32 prime, or the Goldilocks prime 2^64 - 2^32 + 1,
-whose values are (hi, lo) limb planes, whose NTTs are torch ops
-(``ntt/ntt.py``) and whose trees take K3's 64-bit mode.
+"""Top-level STARK prover (counterpart of ``stark_tpu/stark/prover.py``),
+generic over the AIR (``stark/air.py``: Fibonacci-square, MiMC³, the
+two-column FibMul; the declarative AirSpecs) and over the field: a u32
+prime, or the Goldilocks prime 2^64 - 2^32 + 1, whose values are (hi, lo)
+limb planes, whose NTTs are torch ops (``ntt/ntt.py``) and whose trees
+take K3's 64-bit mode.
 
     host trace -> trace polynomial (INTT, K1/K2) -> coset LDE (NTT,
     K1/K2; a C-column trace as one batched transform each) -> trace
@@ -14,11 +14,21 @@ whose values are (hi, lo) limb planes, whose NTTs are torch ops
     pruned levels' siblings recomputed in it) -> ONE device->host copy ->
     host transcript replay -> StarkProof
 
-Everything after the trace upload stays on the device with a
-device-resident Fiat-Shamir state; the host replays the canonical
-transcript from a single ``.cpu()`` of the packed outputs and checks
-that every device-derived challenge equals the host derivation, so the
-proof bytes are identical to the JAX package's.
+That is the single-fetch path: everything after the trace upload stays on
+the device with a device-resident Fiat-Shamir state; the host replays the
+canonical transcript from a single ``.cpu()`` of the packed outputs and
+checks that every device-derived challenge equals the host derivation,
+so the proof bytes are identical to the JAX package's.
+
+The per-phase path gives the same bytes with the transcript on the host
+channel at each phase boundary: a phase-accurate channel (checkpoint /
+resume's ``ReplayChannel``), ``STARK_TPU_TORCH_HOST_QUERIES`` or
+``STARK_TPU_TORCH_PHASE_SYNC``, or a configuration the device query plan
+does not take, as the JAX package's gate decides.  Its trees are stored
+whole; the trace commit and the FRI commit each end in one fetch and a
+replay, and the queries run on the device plan (one fetch) or, when it
+does not take the configuration or under ``STARK_TPU_TORCH_HOST_QUERIES``,
+as one BatchGather a query.
 """
 
 from __future__ import annotations
@@ -26,6 +36,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import json
+import os
 
 import torch
 
@@ -35,14 +46,18 @@ from stark_tpu_torch.channel.channel import Channel
 from stark_tpu_torch.channel.device_channel import DeviceFS, absorb_value
 from stark_tpu_torch.config import ProverConfig
 from stark_tpu_torch.fields.fp import Fp, upload_u32
-from stark_tpu_torch.fri.commit import finish_deferred, fri_commit
-from stark_tpu_torch.merkle.tree import MerkleTree, prune_depth_for
+from stark_tpu_torch.fri.commit import (collect_query_arrays, emit_plan,
+                                        finish_deferred, fri_commit,
+                                        host_queries, open_layout,
+                                        plan_fri_query)
+from stark_tpu_torch.merkle.tree import MerkleTree, prune_depths
 from stark_tpu_torch.ntt.ntt import coset_evaluate
 from stark_tpu_torch.stark.air import FibonacciSquareAIR
 from stark_tpu_torch.stark.trace import trace_polynomial
 from stark_tpu_torch.utils import metrics as _metrics
+from stark_tpu_torch.utils.gather import BatchGather, fetch_packed
 
-# which pipeline the last prove() took (the port has one)
+# which pipeline the last prove() took: "single-fetch" or "per-phase"
 LAST_PROVE_PATH: str | None = None
 
 
@@ -146,36 +161,41 @@ def _query_plan(cfg: ProverConfig, offsets: tuple, num_folds: int,
     M = cfg.eval_domain_size
     rng = M - max(offsets)
     fri_lengths = tuple(M >> k for k in range(num_folds + 1))
-    if not _dq.supported(rng, M, fri_lengths, num_columns, elem_width,
-                         trace_prune, fri_prune):
-        raise NotImplementedError(
-            "configuration outside the single-fetch path; the per-phase "
-            "path waits for ROADMAP Queue 1 item 14")
     return _dq.DeviceQueryPlan(rng, cfg.num_queries, offsets, M,
                                fri_lengths, num_columns, elem_width,
                                trace_prune, fri_prune)
 
 
-def query_plan(cfg: ProverConfig, air=None) -> _dq.DeviceQueryPlan:
+def query_plan(cfg: ProverConfig, air=None,
+               pruned: bool = True) -> _dq.DeviceQueryPlan:
     """The device query plan of `air`'s prove of `cfg` (Fibonacci-square
     by default), built once per (configuration, trace offsets, fold
-    count, column count, field width, tree prune depths).  The trees of
-    a prove prune as ``merkle.tree.prune_depth_for`` says at the time of
-    the call, and the prove builds them at the plan's depths."""
+    count, column count, field width, tree prune depths); pruned as
+    ``merkle.tree.prune_depths`` says at the time of the call, or not
+    at all with `pruned` false (the per-phase path's whole trees).
+    Raises ValueError for a configuration the plan does not take."""
     air = air or FibonacciSquareAIR()
     M, num_folds = cfg.eval_domain_size, air.num_folds(cfg)
+    (trace_prune,) = prune_depths((M,), pruned)
     return _query_plan(cfg, tuple(s * cfg.blowup for s in air.shifts),
                        num_folds, air.num_columns, Fp.get(cfg.modulus).width,
-                       prune_depth_for(M),
-                       tuple(prune_depth_for(M >> k)
-                             for k in range(num_folds + 1)))
+                       trace_prune, prune_depths(
+                           [M >> k for k in range(num_folds + 1)], pruned))
 
 
 def prove(cfg: ProverConfig, a1: int = 3141592, *, air=None,
-          device="cuda", metrics=None) -> StarkProof:
+          device="cuda", metrics=None, channel: Channel | None = None,
+          trace=None, strict: bool = True) -> StarkProof:
     """Prove a statement of `air` on `device` (default: Fibonacci-square
     with secret a_1): the card by default, where the kernels run; a CPU
     device runs their plain versions.
+
+    `channel`: the host transcript to continue (default a fresh one); a
+    channel with ``phase_accurate`` set keeps the prove on the per-phase
+    path.  `trace`: the AIR's trace as storage words (numpy or a tensor;
+    (T,) / (C, T) u32, limb planes for Goldilocks), default
+    ``air.host_trace(cfg)``.  `strict`: refuse a final FRI layer that is
+    not constant (False emits the doomed transcript; testing only).
 
     Every prove records its phase walls (``trace-lde``, ``trace-commit``,
     ``composition``, ``fri-commit``, ``queries``) and the ``proves`` and
@@ -191,7 +211,6 @@ def prove(cfg: ProverConfig, a1: int = 3141592, *, air=None,
         air = FibonacciSquareAIR(a1=a1)
     air.validate(cfg)
     p, M, h = cfg.modulus, cfg.eval_domain_size, cfg.offset
-    plan = query_plan(cfg, air)
     mx = metrics if metrics is not None else _metrics.GLOBAL
 
     def sync():
@@ -201,17 +220,35 @@ def prove(cfg: ProverConfig, a1: int = 3141592, *, air=None,
     # -- trace + LDE: one upload of the host trace -------------------------
     # (T,), or (C, T) for C columns; (2, T) / (C, 2, T) for Goldilocks
     with mx.phase("trace-lde", n=M):
-        trace_host = air.host_trace(cfg)
+        trace_host = air.host_trace(cfg) if trace is None else (
+            trace.cpu().numpy() if torch.is_tensor(trace) else trace)
         publics = air.publics_from_host(cfg, trace_host)
-        trace = upload_u32(trace_host, device)
-        f_evals = coset_evaluate(trace_polynomial(trace, p), p, M, h)
+        trace_dev = upload_u32(trace_host, device)
+        f_evals = coset_evaluate(trace_polynomial(trace_dev, p), p, M, h)
         sync()
-    return _prove_single_fetch(cfg, air, Channel(p), f_evals, publics, plan,
-                               mx, sync)
+
+    # the JAX gate (stark_tpu/stark/prover.py:234-240): phase-accurate
+    # channels need the transcript at each phase boundary
+    width = Fp.get(p).width
+    offsets = tuple(s * cfg.blowup for s in air.shifts)
+    fri_lengths = tuple(M >> k for k in range(air.num_folds(cfg) + 1))
+    rng = M - max(offsets)
+    if channel is None:
+        channel = Channel(p)
+    single_fetch = (
+        not getattr(channel, "phase_accurate", False)
+        and not host_queries()
+        and not os.environ.get("STARK_TPU_TORCH_PHASE_SYNC")
+        and _dq.supported(rng, M, fri_lengths, air.num_columns, width))
+    if single_fetch:
+        return _prove_single_fetch(cfg, air, channel, f_evals, publics,
+                                   query_plan(cfg, air), mx, sync, strict)
+    return _prove_per_phase(cfg, air, channel, f_evals, publics, offsets,
+                            fri_lengths, mx, sync, strict)
 
 
 def _prove_single_fetch(cfg, air, channel, f_evals, publics, plan, mx,
-                        sync) -> StarkProof:
+                        sync, strict) -> StarkProof:
     global LAST_PROVE_PATH
     LAST_PROVE_PATH = "single-fetch"
     p, h = cfg.modulus, cfg.offset
@@ -239,8 +276,8 @@ def _prove_single_fetch(cfg, air, channel, f_evals, publics, plan, mx,
                                                        publics)
         sync()
     with mx.phase("fri-commit", folds=num_folds):
-        fri = fri_commit(cp, p, h, fs, num_folds=num_folds,
-                         prunes=plan.fri_prune)
+        fri = fri_commit(cp, p, h, channel, num_folds=num_folds, fs=fs,
+                         defer=True)
         sync()
 
     with mx.phase("queries", num_queries=cfg.num_queries):
@@ -253,23 +290,85 @@ def _prove_single_fetch(cfg, air, channel, f_evals, publics, plan, mx,
                               fri.values, fri.digests)
 
         # THE one device->host copy: every payload, packed into one buffer
-        pieces = [t.reshape(-1).to(torch.int32)
-                  for t in (*fs.payloads(), last, *dev)]
-        host = torch.cat(pieces).cpu().numpy()
-        parts, pos = [], 0
-        for t in pieces:
-            parts.append(host[pos:pos + t.numel()])
-            pos += t.numel()
         n_pay = len(fs.payloads())
+        fetched = fetch_packed([*fs.payloads(), last, *dev])
         payload_h, (last_h, final_h, idxs_h, vals_h, digs_h) = (
-            parts[:n_pay], parts[n_pay:])
-        q_n = cfg.num_queries
+            fetched[:n_pay], fetched[n_pay:])
 
         fs.replay_fetched(channel, payload_h)
-        fri.final_value = finish_deferred(p, last_h, channel)
+        fri.final_value = finish_deferred(p, last_h, channel, strict)
         channel.mark_phase("queries")
-        plan.replay(channel, final_h, idxs_h, vals_h.reshape(q_n, -1),
-                    digs_h.reshape(q_n, -1, 8))
+        plan.replay(channel, final_h, idxs_h, vals_h, digs_h)
+    return _finish_proof(cfg, air, channel, publics, mx)
+
+
+def _prove_per_phase(cfg, air, channel, f_evals, publics, offsets,
+                     fri_lengths, mx, sync, strict) -> StarkProof:
+    """The prove after the LDE with the host transcript complete at each
+    phase boundary (stark_tpu/stark/prover.py:257-365): whole trees, one
+    fetch and replay at the end of the trace commit and of the FRI
+    commit, then the query phase on the device plan or the BatchGather
+    loop."""
+    global LAST_PROVE_PATH
+    LAST_PROVE_PATH = "per-phase"
+    p, M, h = cfg.modulus, cfg.eval_domain_size, cfg.offset
+    device = f_evals.device
+    width = Fp.get(p).width
+    ncols = air.num_columns
+    num_folds = len(fri_lengths) - 1
+
+    channel.mark_phase("trace-commit")
+    with mx.phase("trace-commit", leaves=M):
+        tree = MerkleTree.from_columns if ncols > 1 else MerkleTree
+        trace_tree = tree(f_evals, wide=width == 2)
+        fs = DeviceFS(p, channel.state, device=device)
+        fs.absorb_root(trace_tree.root_digest)
+        alphas = tuple(fs.draw() for _ in range(air.num_alphas))
+        fs.finalize(channel)
+        sync()
+
+    channel.mark_phase("composition")
+    with mx.phase("composition"):
+        cp = get_air_context(air, cfg, device).compose(f_evals, alphas,
+                                                       publics)
+        sync()
+    with mx.phase("fri-commit", folds=num_folds):
+        fri = fri_commit(cp, p, h, channel, num_folds=num_folds,
+                         strict=strict)
+        sync()
+
+    channel.mark_phase("queries")
+    with mx.phase("queries", num_queries=cfg.num_queries):
+        rng = M - max(offsets)
+        if not host_queries() and _dq.supported(rng, M, fri_lengths, ncols,
+                                                width):
+            query_plan(cfg, air, pruned=False).run(
+                channel, f_evals, trace_tree.buffer, fri.values,
+                fri.digests)
+        else:
+            # one gather-row tensor a trace column (a Goldilocks column
+            # as (M, 2) limb pairs); a "vrow" entry sends the row message
+            # of all C values
+            cols = (tuple(open_layout(f_evals[c]) for c in range(ncols))
+                    if ncols > 1 else (open_layout(f_evals),))
+            arrays, slots, open_layers = collect_query_arrays(
+                fri.fri_layers, fri.fri_merkles,
+                extra_arrays=(*cols, trace_tree.buffer))
+            tslot = slots[id(trace_tree.buffer)]
+            for _ in range(cfg.num_queries):
+                idx = channel.receive_random_int(0, rng - 1, True)
+                bg = BatchGather(arrays)
+                plan = []
+                for off in offsets:
+                    plan.append(("vrow", [bg.want(slots[id(c)], idx + off)
+                                          for c in cols]))
+                    plan.append(("p", [bg.want(tslot, row) for row in
+                                       trace_tree.path_rows(idx + off)]))
+                plan += plan_fri_query(bg, slots, idx, open_layers,
+                                       fri.fri_merkles)
+                bg.run()
+                emit_plan(plan, bg, channel)
+        sync()
     return _finish_proof(cfg, air, channel, publics, mx)
 
 

@@ -1,1 +1,1 @@
-"""Host utilities: per-phase metrics and logging."""
+"""Host utilities: per-phase metrics, logging and packed fetches."""

@@ -1,0 +1,111 @@
+"""Packed device->host fetches (counterpart of ``stark_tpu/utils/gather.py``
+and of the JAX package's ``utils/packfetch.py``).
+
+:func:`fetch_packed` copies several device tensors to the host as ONE
+``.cpu()`` of their words; :class:`BatchGather` collects row requests
+against a fixed tuple of device tensors and resolves them with one
+flat index upload, one gather per tensor on the device and one such
+fetch (the per-query host loop of the per-phase prove and of
+``fri/commit.py`` ``decommit_fri``).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def fetch_packed(tensors) -> list[np.ndarray]:
+    """Every tensor's values as int32 words (an int64 tensor's low 32
+    bits), in one device->host copy: numpy arrays of the tensors'
+    shapes."""
+    tensors = list(tensors)
+    if not tensors:
+        return []
+    flat = [t.reshape(-1).to(torch.int32) for t in tensors]
+    host = torch.cat(flat).cpu().numpy()
+    out, pos = [], 0
+    for t, f in zip(tensors, flat):
+        out.append(host[pos:pos + f.numel()].reshape(tuple(t.shape)))
+        pos += f.numel()
+    return out
+
+
+class BatchGather:
+    """Accumulates row requests against a fixed tuple of device tensors,
+    resolved by :meth:`run` in one gather per tensor and one host fetch.
+
+    Usage::
+
+        bg = BatchGather((values, tree.buffer, ...))
+        h1 = bg.want(0, idx)          # row of arrays[0]
+        h2 = bg.want(1, row)          # row of arrays[1]
+        bg.run()
+        value = bg.value_u64(h1)      # a field element, as a host int
+        digest = bg.digest(h2)        # an (n, 8) digest row: 32 bytes
+
+    A row is one element along axis 0: of a 1-D value tensor, an (n, 2)
+    limb-pair view, an (n, 8) digest buffer.  (The JAX package's `axes`
+    served its plane-form tree levels; the port's trees store rows.)"""
+
+    def __init__(self, arrays: tuple):
+        self.arrays = tuple(arrays)
+        self._reqs: list[list[int]] = [[] for _ in self.arrays]
+        self._handles: list[tuple[int, int]] = []
+        self._result: np.ndarray | None = None
+        self._offsets: list[int] | None = None
+
+    def _row_elems(self, i: int) -> int:
+        arr = self.arrays[i]
+        return arr.numel() // int(arr.shape[0]) if arr.dim() > 1 else 1
+
+    def want(self, array_i: int, row: int) -> int:
+        """Request a row; returns a handle resolved after run()."""
+        self._reqs[array_i].append(int(row))
+        self._handles.append((array_i, len(self._reqs[array_i]) - 1))
+        return len(self._handles) - 1
+
+    def run(self) -> None:
+        """One upload of every requested row index, one gather a tensor,
+        one fetch of the packed rows."""
+        flat = [r for reqs in self._reqs for r in reqs]
+        dev = self.arrays[0].device
+        idx = torch.tensor(flat, dtype=torch.int64, device=dev)
+        parts, offs, acc, pos = [], [], 0, 0
+        for i, (arr, reqs) in enumerate(zip(self.arrays, self._reqs)):
+            offs.append(acc)
+            if reqs:
+                rows = arr.index_select(0, idx[pos:pos + len(reqs)])
+                parts.append(rows.reshape(-1))
+            pos += len(reqs)
+            acc += len(reqs) * self._row_elems(i)
+        self._result = (fetch_packed([torch.cat(parts)])[0].view(np.uint32)
+                        if parts else np.zeros(0, np.uint32))
+        self._offsets = offs
+
+    def _slot(self, handle: int) -> tuple[int, int]:
+        array_i, pos = self._handles[handle]
+        row_elems = self._row_elems(array_i)
+        return self._offsets[array_i] + pos * row_elems, row_elems
+
+    def scalar(self, handle: int) -> int:
+        start, row_elems = self._slot(handle)
+        if row_elems != 1:
+            raise ValueError("scalar() on a multi-element row")
+        return int(self._result[start])
+
+    def value_u64(self, handle: int) -> int:
+        """A field element as a host int: a 1-element row is a u32
+        value, a 2-element row the (hi, lo) limb pair of a Goldilocks
+        value (limb planes enter the gather transposed to (n, 2))."""
+        start, row_elems = self._slot(handle)
+        if row_elems == 1:
+            return int(self._result[start])
+        if row_elems == 2:
+            return (int(self._result[start]) << 32
+                    | int(self._result[start + 1]))
+        raise ValueError(f"value_u64() on a {row_elems}-element row")
+
+    def digest(self, handle: int) -> bytes:
+        start, row_elems = self._slot(handle)
+        return self._result[start:start + row_elems].astype(">u4").tobytes()

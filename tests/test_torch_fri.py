@@ -64,8 +64,8 @@ def test_fri_commit_matches_jax(fresh):
     jfc.finish_deferred(P, np.asarray(jfri.fri_layers[-1]), jch)
 
     fs = DeviceFS(P, ch.state, device="cpu")
-    fri = tfc.fri_commit(u32_to_tensor(ev, device="cpu"), P, offset, fs,
-                         num_folds=num_folds)
+    fri = tfc.fri_commit(u32_to_tensor(ev, device="cpu"), P, offset, ch,
+                         num_folds=num_folds, fs=fs, defer=True)
     for got, want in zip(fri.fri_layers, jfri.fri_layers):
         np.testing.assert_array_equal(tensor_to_u32(got), np.asarray(want))
     assert [t.root() for t in fri.fri_merkles] == [
@@ -95,8 +95,8 @@ def test_fri_verify_accepts_replayed_layers_and_rejects_tampering():
     ev = _low_degree(n, 8, offset, seed=9)
     ch = Channel(P)
     fs = DeviceFS(P, ch.state, device="cpu")
-    fri = tfc.fri_commit(u32_to_tensor(ev, device="cpu"), P, offset, fs,
-                         num_folds=num_folds)
+    fri = tfc.fri_commit(u32_to_tensor(ev, device="cpu"), P, offset, ch,
+                         num_folds=num_folds, fs=fs, defer=True)
     fs.replay_fetched(ch, [t.reshape(-1).numpy() for t in fs.payloads()])
     tfc.finish_deferred(P, tensor_to_u32(fri.fri_layers[-1]), ch)
     idx = ch.receive_random_int(0, n - 1, True)

@@ -287,8 +287,8 @@ def test_fri_commit_matches_jax():
     jfc.finish_deferred(P, np.asarray(jfri.fri_layers[-1]), jch)
 
     fs = DeviceFS(P, ch.state, device="cpu")
-    fri = tfc.fri_commit(limbs_to_tensor(ev, device="cpu"), P, offset, fs,
-                         num_folds=num_folds)
+    fri = tfc.fri_commit(limbs_to_tensor(ev, device="cpu"), P, offset, ch,
+                         num_folds=num_folds, fs=fs, defer=True)
     for got, want in zip(fri.fri_layers, jfri.fri_layers):
         np.testing.assert_array_equal(tensor_to_limbs(got), np.asarray(want))
     assert [t.root() for t in fri.fri_merkles] == [

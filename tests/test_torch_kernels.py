@@ -378,3 +378,100 @@ def test_pruned_prove_on_the_card_equals_unpruned(dev, monkeypatch):
     monkeypatch.setattr(mt, "CHUNK_MIN_LOG", 9)
     monkeypatch.setattr(mt, "CHUNK_LOG", 7)
     assert prove(cfg, device=dev).proof == full
+
+
+# -- the batched forms (stark/batch.py): one launch for B proofs -----------
+
+@pytest.mark.parametrize("rows,wide", [(False, False), (True, False),
+                                       (False, True)])
+def test_tree_batch_matches_plain_loop(dev, rows, wide):
+    """K3 / K4's tree batch (the tree as grid y) into a (B, 2n - 1, 8)
+    buffer against the plain version tree by tree, and against B single
+    launches."""
+    from stark_tpu_torch.hash.cuda_sha import (sha_leaves_batch,
+                                               sha_nodes_batch)
+    from stark_tpu_torch.merkle.tree import build_tree
+    from stark_tpu_torch.stark.batch import _batched_tree
+
+    b, n = 5, 1 << 10
+    shape = (b, 3, n) if rows else (b, 2, n) if wide else (b, n)
+    vals = _u32(shape, 2**32 if wide else P, 40, dev)
+    out = torch.empty((b, 2 * n - 1, 8), dtype=torch.int32, device=dev)
+    before = (sha_leaves_batch.launches + sha_leaves_batch.wide_launches,
+              sha_nodes_batch.launches)
+    _batched_tree(vals, out, rows=rows, wide=wide)
+    torch.cuda.synchronize()
+    assert (sha_leaves_batch.launches + sha_leaves_batch.wide_launches,
+            sha_nodes_batch.launches) == (before[0] + 1, before[1] + 10)
+    plain = torch.empty_like(out).cpu()
+    _batched_tree(vals.cpu(), plain, rows=rows, wide=wide)
+    assert torch.equal(out.cpu(), plain)
+    for k in range(b):
+        assert torch.equal(out[k], build_tree(vals[k], rows=rows, wide=wide))
+
+
+def test_k5_chain_batch_matches_plain_loop(dev):
+    """K5's chain form on 16 mixed-flag streams in one launch, one block
+    a chain, own flags or shared ones, against the plain version and B
+    single launches."""
+    from stark_tpu_torch.hash.cuda_chain import (FIRST_HEX, FIRST_ROW,
+                                                 sha_chain, sha_chain_batch,
+                                                 sha_chain_plain)
+
+    b, r = 16, 700
+    rs = np.random.RandomState(41)
+    first = rs.choice([0, 0, 0, FIRST_HEX, FIRST_ROW], size=(b, r))
+    last = rs.randint(0, 2, size=(b, r))
+    fl = torch.from_numpy(np.stack([first, last], -1).astype(np.int32)).to(
+        dev)
+    stream = _u32((b, r, 16), 2**32, 42, dev)
+    chain = _u32((b, 8), 2**32, 43, dev)
+    before = sha_chain_batch.launches
+    for flags in (fl, fl[0]):
+        got = sha_chain_batch(stream, flags.contiguous(), chain)
+        for k in range(b):
+            fk = flags if flags.dim() == 2 else flags[k]
+            assert torch.equal(got[k], sha_chain_plain(stream[k], fk,
+                                                       chain[k]))
+            assert torch.equal(got[k], sha_chain(stream[k], fk, chain[k]))
+    assert sha_chain_batch.launches == before + 2
+
+
+def test_k5_query_batch_matches_plain_loop(dev):
+    """K5's query form for 16 proofs of one plan in one launch against the
+    plain version proof by proof and 16 single launches."""
+    from stark_tpu_torch.channel.device_query import (query_chain,
+                                                      query_chain_batch,
+                                                      query_chain_plain)
+    from stark_tpu_torch.config import ProverConfig
+    from stark_tpu_torch.stark.prover import query_plan
+
+    b = 16
+    tb = query_plan(ProverConfig(log2_trace=8, blowup=4, num_queries=4),
+                    pruned=False).pack(dev)
+    n_f, n_td, n_fv, n_fd = tb.sizes
+    args = (_u32((b, 8), 2**32, 50, dev), _u32((b, n_f), P, 51, dev),
+            _u32((b, n_td, 8), 2**32, 52, dev), _u32((b, n_fv), P, 53, dev),
+            _u32((b, n_fd, 8), 2**32, 54, dev))
+    before = query_chain_batch.launches
+    got = query_chain_batch(*args, tb)
+    torch.cuda.synchronize()
+    assert query_chain_batch.launches == before + 1
+    for k in range(b):
+        one = [a[k] for a in args]
+        for g, w, s in zip(got, query_chain_plain(*one, tb),
+                           query_chain(*one, tb)):
+            assert torch.equal(g[k], w) and torch.equal(g[k], s)
+
+
+def test_prove_batch_on_card_equals_proves(dev):
+    """A batch of three fib-sq statements on the card equals three
+    proves."""
+    from stark_tpu_torch.config import ProverConfig
+    from stark_tpu_torch.stark import FibonacciSquareAIR, prove, prove_batch
+
+    cfg = ProverConfig(log2_trace=8, blowup=4, num_queries=4)
+    airs = [FibonacciSquareAIR(a1=a) for a in (3, 4, 5)]
+    got = prove_batch(cfg, airs, device=dev)
+    assert [g.proof for g in got] == [prove(cfg, air=a, device=dev).proof
+                                      for a in airs]

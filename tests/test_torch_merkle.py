@@ -118,8 +118,16 @@ def test_storage_layout_is_natural_and_contiguous():
 
 
 def test_unported_tree_shapes_raise():
-    with pytest.raises(NotImplementedError, match="power-of-two"):
-        MerkleTree(u32_to_tensor(_vals(6, 1), device="cpu"))
+    """An odd-size tree now builds (rs_merkle promotion, as the JAX
+    package; tests/test_torch_merkle_odd.py holds it against JAX); an
+    empty tree and a pruned one of odd size still raise."""
+    v = _vals(6, 1)
+    t = MerkleTree(u32_to_tensor(v, device="cpu"))
+    assert t.root() == merkle_root_host([int(x) for x in v])
+    with pytest.raises(ValueError, match="non-empty"):
+        MerkleTree(torch.empty(0, dtype=torch.int32))
+    with pytest.raises(ValueError, match="power-of-two"):
+        MerkleTree(u32_to_tensor(v, device="cpu"), prune=1)
 
 
 def _row_msg(cols, i) -> bytes:
