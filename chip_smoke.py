@@ -102,13 +102,29 @@ walls beside the single-fetch prove's; ``fri``: BASELINE config #3
 times, the transcript verified, equal on the BatchGather loop, the
 query form launched once a decommit.
 
+``mesh``: the sharded prove (``stark_tpu_torch/dist``) on four logical
+shards of the one card: the four-step NTT and INTT and the sharded tree
+at 2^26 points against the single-device K2 transform and tree (root
+and 16 paths), timed beside them with the bytes their exchanges copy;
+K5's sharded query form (each source a table of entries, one a block or
+subtree) on the fib-sq 2^24 mesh plan against its plain version, timed;
+fib-sq 2^24 proved on the mesh to the pinned single-device digest on
+the ``single-fetch-mesh`` path, verified, tamper-rejected, its copies
+equal to ``dist.comm``'s model, every kernel of the path launched and
+the sharded query form once (its row of the kernels line), cold and
+warm walls and phases' peaks; FibMul and fib-sq-GL 2^20 on two shards
+and a per-phase mesh prove of fib-sq 2^20, each to its pinned digest.
+With several cards the 2^24 prove runs again over them; with one, a
+line says it was not run.
+
 ``--profile`` then adds where a warm prove spends its time, for the
 Fibonacci-square proves at 2^20 and 2^24 rows, MiMC³ at 2^20, FibMul at
 2^24, FibMul-GL and tribmul at 2^20: a phase split synced after each phase (and
 the cold build of the AIR's context, which a warm prove takes from its
 cache), five warm walls, and one prove under ``torch.profiler`` (device
 busy time, the kernels' shares; the full tables go to
-``chiprun_out/profile_prove_*.txt``).
+``chiprun_out/profile_prove_*.txt``), and the mesh prove's warm phase
+split.
 
 Needs one CUDA device; exits non-zero without one.  Imports nothing of
 JAX.  The last line of standard output is the result object.
@@ -262,6 +278,21 @@ TRANSCRIPT_SHA256 = {
         "3b274489078fa81684fb113fc36cf89d22e62fa43fb12e73ab65eee24d73061d",
     "FibMul-GL 2^24":
         "c0dc576838008a76ab0e94eaab013138fb62997249db7de0e2d4b761ad810905"}
+# the sharded prove over a mesh (stark_tpu_torch/dist): MESH_SHARDS logical
+# shards on the one card; the four-step NTT and the sharded tree at
+# 2^MESH_LOG points against the single-device K2 NTT and tree; K5's
+# sharded query form on the MESH_PROVE mesh plan; the MESH_PROVE prove
+# (its pinned single-device digest, launches counted), then MESH_OTHER
+# on MESH_OTHER_SHARDS shards and one per-phase mesh prove of
+# MESH_PER_PHASE
+MESH_SHARDS = 4
+MESH_LOG = 26
+MESH_PROVE = "2^24"
+MESH_OTHER = ("FibMul 2^20", "GL 2^20")
+MESH_OTHER_SHARDS = 2
+MESH_PER_PHASE = "2^20"
+MESH_PATHS = 16  # authentication paths compared
+MESH_WARM = 3
 # the prove whose launch counts fill each row of the kernels line (rows
 # not named here: the 2^24 Fibonacci-square prove)
 ROW_PATH = {"K1": "2^20", "K1 batched": "FibMul 2^20",
@@ -1157,7 +1188,8 @@ def counters() -> dict:
                               (sha_leaves_batch, "wide_launches")),
             "K4 tree batch": ((sha_nodes_batch, "launches"),),
             "K5 chain batch": ((sha_chain_batch, "launches"),),
-            "K5 query batch": ((query_chain_batch, "launches"),)}
+            "K5 query batch": ((query_chain_batch, "launches"),),
+            "K5 sharded query": ((query_chain, "sharded_launches"),)}
 
 
 def read_counts() -> dict:
@@ -1196,15 +1228,18 @@ def prove_setup(name: str):
 
 def drop_plans() -> None:
     """Forget the NTT plans and oracle tables (device memory) that the
-    kernel checks built, and the AIR contexts and FRI domains of earlier
-    proves, so a cold prove builds its own as in a fresh process and its
-    peak memory counts only its own."""
+    kernel checks built (the four-step's twiddles too), and the AIR
+    contexts and FRI domains of earlier proves, so a cold prove builds
+    its own as in a fresh process and its peak memory counts only its
+    own."""
+    from stark_tpu_torch.dist import ntt as dist_ntt
     from stark_tpu_torch.fri import commit
     from stark_tpu_torch.ntt import cuda_ntt
     from stark_tpu_torch.stark import prover
 
     cuda_ntt.get_cuda_plan.cache_clear()
     cuda_ntt._stage_twiddles.cache_clear()  # the Stockham oracle's tables
+    dist_ntt._twiddle.cache_clear()  # the four-step's w^(j2 k1) blocks
     prover._CTX_CACHE.clear()
     commit._inv_domain.cache_clear()
     torch.cuda.empty_cache()
@@ -1841,6 +1876,222 @@ def phase_fri(dev) -> dict:
     return out
 
 
+def mesh_prove(name: str, mesh, dev, channel=None, peaks: bool = False):
+    """One prove of `name` over `mesh` from dropped plans and contexts:
+    (proof, wall s, launches, phases' {"peak_mib", "wall_ms"} when
+    `peaks`, the mesh's copy counts), its transcript checked against the
+    pinned single-device digest."""
+    from stark_tpu_torch.stark import prove
+
+    cfg, air = prove_setup(name)
+    mx = phase_peaks() if peaks else None
+    mesh.reset_stats()
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pr = prove(cfg, air=air, mesh=mesh, metrics=mx, channel=channel)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    digest = hashlib.sha256(b"".join(pr.proof)).hexdigest()
+    if digest != TRANSCRIPT_SHA256[name]:
+        raise AssertionError(f"{name} on {mesh.size} shards: sha256 "
+                             f"{digest} != the pinned single-device "
+                             f"{TRANSCRIPT_SHA256[name]}")
+    phases = None if mx is None else {"peak_mib": mx.peaks, "wall_ms": {
+        ph.name: round(ph.wall_s * 1e3, 3) for ph in mx.phases}}
+    return pr, wall, launches, phases, {k: list(v) for k, v in
+                                        mesh.stats.items()}
+
+
+def phase_mesh(res: Results, dev, profile: bool) -> dict:
+    """The sharded prove over a mesh of MESH_SHARDS logical shards on the
+    card: the four-step NTT and INTT (dist_ntt / dist_intt) and the
+    sharded tree (dist_merkle_tree) at 2^MESH_LOG points equal to the
+    single-device K2 transform and the unpruned MerkleTree (root and
+    MESH_PATHS paths), each timed beside it with the bytes the exchanges
+    copied; K5's sharded query form on the MESH_PROVE mesh plan against
+    its plain version; then MESH_PROVE proved on the mesh (the pinned
+    single-device digest, "single-fetch-mesh", verified, a flipped byte
+    rejected; cold and warm walls, phases' peaks, copies against
+    dist.comm's model, every kernel of the path launched), MESH_OTHER on
+    MESH_OTHER_SHARDS shards and one per-phase mesh prove of
+    MESH_PER_PHASE.  With several cards, MESH_PROVE again on a mesh of
+    the real devices; with one, a line says that it was not run."""
+    from stark_tpu_torch.channel.channel import Channel
+    from stark_tpu_torch.channel.device_query import (query_chain,
+                                                      query_chain_plain)
+    from stark_tpu_torch.dist import (dist_intt, dist_merkle_tree, dist_ntt,
+                                      make_mesh, sharded)
+    from stark_tpu_torch.dist.comm import prove_collectives, stats_bytes
+    from stark_tpu_torch.fields.fp import Fp
+    from stark_tpu_torch.merkle.tree import MerkleTree
+    from stark_tpu_torch.ntt.cuda_ntt import ntt_k2
+    from stark_tpu_torch.stark import FibonacciSquareAIR
+    from stark_tpu_torch.stark import prover as tprover
+    from stark_tpu_torch.stark.prover import query_plan
+
+    t_phase = time.perf_counter()
+    s = MESH_SHARDS
+    mesh = make_mesh(devices=[dev] * s)
+    out = {"shards": s}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 10)
+    n = 1 << MESH_LOG
+
+    # the four-step NTT against the single-device K2 transform
+    x = rand_u32_dev(gen, (n,), P, dev)
+    xs = sharded(mesh, x)
+    for what, dist_fn, inverse in (("NTT", dist_ntt, False),
+                                   ("INTT", dist_intt, True)):
+        mesh.reset_stats()
+        got = dist_fn(xs, P, mesh).join()
+        copied = mesh.copied_bytes()
+        # the four-step's row transforms are K1's batched form
+        res.check("K1 batched", f"dist {what} 2^{MESH_LOG} on {s} shards "
+                  "against the single-device K2 transform", got,
+                  ntt_k2(x, P, inverse))
+        del got
+        ms = cuda_ms(lambda: dist_fn(xs, P, mesh))
+        single = cuda_ms(lambda: ntt_k2(x, P, inverse))
+        out[f"dist_{what.lower()}"] = {"ms": ms, "single_k2_ms": single,
+                                       "copied_bytes": copied}
+        log(f"mesh: dist {what} 2^{MESH_LOG} on {s} shards {ms:.4f} ms "
+            f"against K2 {single:.4f} ms; {copied} bytes exchanged")
+    del x, xs
+    torch.cuda.empty_cache()
+
+    # the sharded tree against the whole one
+    v = rand_u32_dev(gen, (n,), P, dev)
+    vs = sharded(mesh, v)
+    mesh.reset_stats()
+    dt = dist_merkle_tree(vs, mesh)
+    st = MerkleTree(v)
+    if dt.root() != st.root():
+        raise AssertionError("dist tree root != the single tree's")
+    rs = np.random.RandomState(SEED + 10)
+    for idx in rs.randint(0, n, size=MESH_PATHS):
+        if (dt.get_authentication_path(int(idx))
+                != st.get_authentication_path(int(idx))):
+            raise AssertionError(f"dist tree path of leaf {idx} differs")
+    log(f"mesh: dist tree 2^{MESH_LOG} leaves on {s} shards: root and "
+        f"{MESH_PATHS} paths equal the single tree's; "
+        f"{mesh.copied_bytes()} bytes exchanged")
+    del dt, st
+    ms = cuda_ms(lambda: dist_merkle_tree(vs, mesh))
+    single = cuda_ms(lambda: MerkleTree(v))
+    out["dist_tree"] = {"ms": ms, "single_ms": single}
+    log(f"mesh: dist tree {ms:.4f} ms against the single tree "
+        f"{single:.4f} ms")
+    del v, vs
+    torch.cuda.empty_cache()
+
+    # K5's query form over the sharded sources of the mesh plan
+    cfg, air = prove_setup(MESH_PROVE)
+    tb = query_plan(cfg, air, shards=s).pack(dev)
+    chain = rand_u32(rs, 8, 1 << 32, dev)
+    srcs = [[rand_words_dev(gen, (size, 8) if k % 2 else (size,), dev)
+             for size in sizes] for k, sizes in enumerate(tb.entries)]
+    got = query_chain(chain, *srcs, tb)
+    want = query_chain_plain(chain, *srcs, tb)
+    for what, a, b in zip(("final chain", "idxs", "vals", "digs"), got,
+                          want):
+        res.check("K5 sharded query", f"query form, {MESH_PROVE} plan on "
+                  f"{s} shards ({sum(map(len, tb.entries))} source entries): "
+                  f"{what}", a, b)
+    blocks, comps = res.card.query_bound(tb)
+    got = res.time("K5 sharded query", f"query form, {MESH_PROVE} plan on "
+                   f"{s} shards, {tb.num_queries} queries ({blocks} blocks)",
+                   lambda: query_chain(chain, *srcs, tb),
+                   lambda: query_chain_plain(chain, *srcs, tb),
+                   res.card.chain_bound(comps), plain_reps=1)
+    unsharded = res.rows["K5"].get("query_form", {}).get(MESH_PROVE, {})
+    bounds = res.card.chain_bounds_text(comps, got["ms"])
+    log(f"K5 sharded query form: {bounds}; the unsharded {MESH_PROVE} plan "
+        f"in this run {unsharded.get('ms')} ms")
+    del srcs, got, want
+    torch.cuda.empty_cache()
+
+    # the prove at full size over the mesh: this slice's main path
+    drop_plans()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    cold, cold_s, launches, phases, stats = mesh_prove(MESH_PROVE, mesh,
+                                                       dev, peaks=True)
+    if tprover.LAST_PROVE_PATH != "single-fetch-mesh":
+        raise AssertionError(f"mesh prove took {tprover.LAST_PROVE_PATH}")
+    check_verifies(f"{MESH_PROVE} mesh", cfg, cold)
+    for k in ("K1", "K2", "K3", "K4", "K5"):
+        if launches[k] == 0:
+            raise AssertionError(f"{k} never launched in the mesh prove")
+    if launches["K5 sharded query"] != 1:
+        raise AssertionError(f"K5's sharded query form launched "
+                             f"{launches['K5 sharded query']} times")
+    tag = f"{MESH_PROVE} mesh ({s} shards)"
+    for k, count in launches.items():
+        res.rows[k]["launches_by_prove"][tag] = count
+    res.rows["K5 sharded query"]["launches"] = launches["K5 sharded query"]
+    use = air or FibonacciSquareAIR()
+    model = stats_bytes(prove_collectives(
+        cfg.log2_trace, cfg.blowup, s, use.num_folds(cfg),
+        max(use.shifts) * cfg.blowup, use.num_columns,
+        4 * Fp.get(cfg.modulus).width))
+    got_bytes = {k: b for k, (_, b) in stats.items()}
+    if got_bytes != model:
+        raise AssertionError(f"mesh prove copied {got_bytes}, the model "
+                             f"says {model}")
+    warm = [mesh_prove(MESH_PROVE, mesh, dev)[1] for _ in range(MESH_WARM)]
+    out["prove"] = {"cold_s": round(cold_s, 3),
+                    "warm_s": [round(w, 3) for w in warm],
+                    "peak_mib": max(phases["peak_mib"].values()),
+                    "allocated_before_mib": round(base / 2**20, 1),
+                    "phase_peak_mib": phases["peak_mib"],
+                    "cold_phase_ms": phases["wall_ms"], "copies": stats,
+                    "launches": launches}
+    log(f"mesh prove {MESH_PROVE} on {s} shards: pinned digest, "
+        f"single-fetch-mesh, verified; cold {cold_s:.3f} s, warm "
+        f"{out['prove']['warm_s']} s; phases' peaks (MiB) "
+        f"{json.dumps(phases['peak_mib'])}, walls (ms) "
+        f"{json.dumps(phases['wall_ms'])}; copies {json.dumps(stats)} "
+        f"(as dist.comm's model); launches {launches}")
+    if profile:
+        _, _, _, split, _ = mesh_prove(MESH_PROVE, mesh, dev, peaks=True)
+        out["prove"]["warm_phase_ms"] = split["wall_ms"]
+        log(f"mesh prove {MESH_PROVE} warm phase split (ms, synced): "
+            f"{json.dumps(split['wall_ms'])}")
+    del cold
+    torch.cuda.empty_cache()
+
+    # the other statements, and the per-phase mesh path
+    small = make_mesh(devices=[dev] * MESH_OTHER_SHARDS)
+    for name in MESH_OTHER:
+        mesh_prove(name, small, dev)
+        log(f"mesh: {name} on {MESH_OTHER_SHARDS} shards equals its pinned "
+            f"single-device digest ({tprover.LAST_PROVE_PATH})")
+    ch = Channel(P)
+    ch.phase_accurate = True
+    mesh_prove(MESH_PER_PHASE, small, dev, channel=ch)
+    if tprover.LAST_PROVE_PATH != "per-phase-mesh":
+        raise AssertionError(f"phase-accurate mesh prove took "
+                             f"{tprover.LAST_PROVE_PATH}")
+    log(f"mesh: per-phase {MESH_PER_PHASE} on {MESH_OTHER_SHARDS} shards "
+        "equals the single-fetch digest")
+
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        real = make_mesh(1 << (cards.bit_length() - 1))
+        _, wall, _, _, stats = mesh_prove(MESH_PROVE, real, dev)
+        out["real_devices"] = {"cards": real.size, "wall_s": round(wall, 3)}
+        log(f"mesh prove {MESH_PROVE} on {real.size} cards: pinned digest, "
+            f"{wall:.3f} s cold")
+    else:
+        log("mesh: one card visible; the prove over distinct cards (peer "
+            "access between them) was not run")
+    torch.cuda.empty_cache()
+    log(f"mesh phase: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def phase_gl_memory(dev, at_2e20: dict) -> None:
     """FibMul-GL's cold and warm walls and the cold prove's peak device
     memory at GL_MEMORY_LOGS rows and, from its prove above, 2^20: each
@@ -2308,7 +2559,12 @@ def main() -> int:
              "stark_tpu/hash/pallas_chain.py:80 in the lax.scan of "
              "stark_tpu/channel/device_query.py:314, for B proofs (the JAX "
              "batch's per-proof BatchGather loops, "
-             "stark_tpu/stark/batch.py:358-405)")):
+             "stark_tpu/stark/batch.py:358-405)"),
+            ("K5 sharded query", "stark_tpu_torch/csrc/sha_chain.cu",
+             "stark_tpu/hash/pallas_chain.py:80 in the lax.scan of "
+             "stark_tpu/channel/device_query.py:314 over a mesh's sharded "
+             "sources (the JAX mesh prove ran that scan in XLA, "
+             "stark_tpu/stark/prover.py:720-726)")):
         res.add(name, source, replaces)
     phase_latency(card, dev)
     phase_ntt(res, dev)
@@ -2328,6 +2584,7 @@ def main() -> int:
     phase_batch(res, dev)
     phase_resume(dev)
     phase_fri(dev)
+    phase_mesh(res, dev, args.profile)
     phase_gl_memory(dev, {k: v for k, v in walls["FibMul-GL 2^20"].items()
                           if k != "sha256"})
     phase_anchors(dev)

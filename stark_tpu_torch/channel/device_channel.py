@@ -226,12 +226,18 @@ class DeviceFS:
     payloads is fetched once at the end and replayed into the host
     channel by :meth:`replay_fetched`, which checks every draw.  Fed
     (B, 8) root digests, a fresh one runs B chains at once, (B, 8)
-    states and (B,) or (2, B) draws (``stark/batch.py``)."""
+    states and (B,) or (2, B) draws (``stark/batch.py``).  On a mesh
+    (`mesh`, a ``dist.mesh.Mesh``) the state lives on its first shard:
+    the chain is serial and tiny, and in one process its replication is
+    nothing more than the one fetch."""
 
-    def __init__(self, p: int, state_hex: str = "", *, device):
+    def __init__(self, p: int, state_hex: str = "", *, device=None,
+                 mesh=None):
+        if (device is None) == (mesh is None):
+            raise ValueError("DeviceFS takes a device or a mesh")
         self.p = p
         self.width = Fp.get(p).width
-        self.device = torch.device(device)
+        self.device = mesh.first if mesh is not None else torch.device(device)
         self.state = state_words(state_hex, self.device) if state_hex \
             else None
         self.log: list[tuple[str, object]] = []

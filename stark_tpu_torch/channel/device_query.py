@@ -31,6 +31,16 @@ shared-memory copy of the template and runs the chain, as the JAX
 package's ``lax.scan`` over queries does.  :func:`query_chain_plain`
 runs the same tables as a per-query loop.
 
+On a mesh (``DeviceQueryPlan(..., shards=S)``, ``stark_tpu_torch/dist/``)
+the same launch reads sharded sources: each of the four sources is a
+list of entries (a sharded array one a block, a sharded tree one a
+subtree plus one for its top levels, the FRI tail one a layer), and a
+slot names its first entry and the log2 of the lanes an entry holds, so
+a position resolves to (entry, element) in the kernel.  A digest slot
+carries its level's block size, so no slot searches for its level.
+Unsharded, each source is one entry and every slot's lane lies in it,
+today's launch bit for bit.
+
 A pruned tree (``merkle/tree.py``) does not store its first ``prune``
 levels.  Their siblings are recomputed per query from the leaf values:
 one recompute task per pruned authentication path (a trace opening at
@@ -57,6 +67,8 @@ from stark_tpu_torch.channel.channel import ChannelError
 from stark_tpu_torch.channel.device_channel import (ascii_hex_words,
                                                     mod_state, pad_row,
                                                     state_words)
+from stark_tpu_torch.dist.comm import sharded_layers
+from stark_tpu_torch.dist.merkle import shards_tree
 from stark_tpu_torch.fields.fp import store
 from stark_tpu_torch.fri.commit import layer_layout
 from stark_tpu_torch.hash.cuda_chain import FIRST_HEX, sha_chain_plain
@@ -64,25 +76,28 @@ from stark_tpu_torch.hash.sha256 import sha256_pairs, sha256_row_leaves
 from stark_tpu_torch.merkle.tree import level_offsets
 from stark_tpu_torch.utils.gather import fetch_packed
 
-# the slot table's columns; a slot reads position
-# base + ((((idx + add) & mask) ^ xr) >> shift) ^ flip of its source and
-# writes its hex from word `word` of the query's stream (row-major (R, 16)
-# words): a value's 2 hex words, a digest's 16
-SLOT_COLUMNS = ("source", "base", "add", "mask", "xr", "shift", "flip",
-                "word")
+# the slot table's columns; a slot reads element
+# base + (lane & (2^shard - 1)) of source entry ptab + (lane >> shard),
+# lane = ((((idx + add) & mask) ^ xr) >> shift) ^ flip, and writes its hex
+# from word `word` of the query's stream (row-major (R, 16) words): a
+# value's 2 hex words, a digest's 16.  A recomputed sibling reads node
+# base + lane of the query's recompute buffer
+SLOT_COLUMNS = ("source", "ptab", "base", "add", "mask", "xr", "shift",
+                "flip", "word", "shard")
+NO_SHARD = 62  # the shard field of a slot whose entry holds every lane
 # sources (the kernel's enum): trace values, FRI values, stored trace and
 # FRI digests, and the recomputed siblings of a pruned trace or FRI tree
 # (position = a node of the query's recompute tasks)
 (TRACE_VALUE, FRI_VALUE, TRACE_DIGEST, FRI_DIGEST, TRACE_SUBTREE,
  FRI_SUBTREE) = range(6)
 # the recompute tasks' columns: the leaf j = ((idx + add) & mask) ^ xr of
-# the source's tree (TRACE_VALUE or FRI_VALUE); the task hashes leaves
-# (j >> prune) << prune + i, i < 2^prune, each the row message of `cols`
-# values whose word planes lie at base + plane * stride of the source's
-# value buffer, and keeps levels 0 .. prune - 1 of that block from node
-# row `node` of the query's recompute buffer on, level l at
-# node + 2^(prune + 1) - 2^(prune - l + 1)
-TASK_COLUMNS = ("source", "add", "mask", "xr", "prune", "base", "stride",
+# the tree over the values of source entry `ptab` (the trace LDE or the
+# FRI values, unsharded); the task hashes leaves (j >> prune) << prune + i,
+# i < 2^prune, each the row message of `cols` values whose word planes lie
+# at base + plane * stride of that buffer, and keeps levels 0 .. prune - 1
+# of that block from node row `node` of the query's recompute buffer on,
+# level l at node + 2^(prune + 1) - 2^(prune - l + 1)
+TASK_COLUMNS = ("ptab", "add", "mask", "xr", "prune", "base", "stride",
                 "cols", "node")
 HEX_ZEROS = 0x30303030  # "0000"
 MAX_COLUMNS = 6  # a row leaf's message is one SHA block (sha256_row_leaves)
@@ -110,13 +125,18 @@ class QueryTables:
 
     template: torch.Tensor  # (R, 16) int32 stream rows, constants in place
     flags: torch.Tensor  # (R, 2) int32 (first, last)
-    slots: torch.Tensor  # (S, 8) int64 rows of SLOT_COLUMNS, values first
+    slots: torch.Tensor  # (S, 10) int64 rows of SLOT_COLUMNS, values first
     num_values: int  # value slots (words): 2 a Goldilocks value
     rng: int
     num_queries: int
     # f_evals words (C x width x trace length), stored trace tree rows,
     # FRI values words, stored FRI digest rows
     sizes: tuple
+    # per source (f_evals, trace digests, FRI values, FRI digests) the
+    # sizes of its entries, in the order their tensors are passed (value
+    # words, digest rows); one entry each when unsharded
+    entries: tuple
+    shards: int  # the mesh's shard count (1: unsharded sources)
     tasks: torch.Tensor  # (T, 9) int64 rows of TASK_COLUMNS
     max_prune: int  # the deepest task's prune (0: no task)
     subtree_rows: int  # digest rows of a query's recomputed nodes
@@ -127,7 +147,7 @@ def _assemble(tb: QueryTables, v: torch.Tensor, d: torch.Tensor):
     """One query's stream: the template with the hex of the opened values
     (Nv,) and digests (Nd, 8) written at their slots' words."""
     nv = tb.num_values
-    word = tb.slots[:, 7]
+    word = tb.slots[:, SLOT_COLUMNS.index("word")]
     stream = tb.template.clone()
     flat = stream.view(-1)
     span = torch.arange(16, device=word.device)
@@ -136,18 +156,18 @@ def _assemble(tb: QueryTables, v: torch.Tensor, d: torch.Tensor):
     return stream
 
 
-def _subtrees_plain(tb: QueryTables, idx, f_evals, fri_values):
+def _subtrees_plain(tb: QueryTables, idx, ents):
     """One query's recomputed nodes, (subtree_rows, 8), level by level
     for all tasks together as the kernel computes them: every task's
     block of leaves hashed with the plain K3 (its row form, one call a
     column count), then each level's pairs of all the tasks that keep the
-    level above with one plain K4 call."""
-    dev = f_evals.device
+    level above with one plain K4 call.  `ents`: the source entries."""
+    dev = idx.device
     sub = torch.empty((tb.subtree_rows, 8), dtype=torch.int32, device=dev)
     tasks = tb.tasks.cpu().tolist()
     blocks = []
-    for src, add, mask, xr, prune, base, stride, cols, _ in tasks:
-        values = f_evals if src == TRACE_VALUE else fri_values
+    for ptab, add, mask, xr, prune, base, stride, cols, _ in tasks:
+        values = ents[ptab]
         j = ((idx + add) & mask) ^ xr
         lanes = (j >> prune << prune) + torch.arange(1 << prune, device=dev)
         planes = torch.arange(cols * tb.elem_width, device=dev)
@@ -177,17 +197,39 @@ def _subtrees_plain(tb: QueryTables, idx, f_evals, fri_values):
     return sub
 
 
+def source_entries(tb: QueryTables, sources) -> list:
+    """The flat entry list of the four sources (f_evals, trace digests,
+    FRI values, FRI digests), each a tensor (one entry) or a sequence of
+    tensors (its entries, in the plan's order), checked against the
+    plan's entry counts."""
+    ents = []
+    for name, src, sizes in zip(_SOURCE_NAMES, sources, tb.entries):
+        got = list(src) if isinstance(src, (list, tuple)) else [src]
+        if len(got) != len(sizes):
+            raise ValueError(f"{name}: the plan reads {len(sizes)} entries, "
+                             f"got {len(got)}")
+        ents += got
+    return ents
+
+
+_SOURCE_NAMES = ("f_evals", "trace_digests", "fri_values", "fri_digests")
+
+
 def query_chain_plain(chain, f_evals, trace_digests, fri_values,
                       fri_digests, tb: QueryTables):
     """Plain version of K5's query form, with the kernel's inputs: the
-    per-query loop over the packed tables, gathers and the pruned trees'
-    recompute (plain K3 / K4) on the tensors' device, each query's chain
-    through :func:`sha_chain_plain` (on the host).  Returns (final chain
-    (8,), idxs (Q,) int64, vals (Q, Nv), digs (Q, Nd, 8))."""
+    per-query loop over the packed tables, gathers through the source
+    entries (each source a tensor, or on a mesh the list of its entries,
+    on any device) and the pruned trees' recompute (plain K3 / K4), each
+    query's chain through :func:`sha_chain_plain` (on the host).  Returns
+    (final chain (8,), idxs (Q,) int64, vals (Q, Nv), digs (Q, Nd, 8)) on
+    the chain's device."""
     dev = chain.device
+    ents = source_entries(tb, (f_evals, trace_digests, fri_values,
+                               fri_digests))
     nv = tb.num_values
     nd = int(tb.slots.shape[0]) - nv
-    cols = dict(zip(SLOT_COLUMNS, tb.slots.unbind(1)))
+    cols = dict(zip(SLOT_COLUMNS, tb.slots.to(dev).unbind(1)))
     src = tb.slots[:, 0].cpu()
     sel = [torch.nonzero(src == k).flatten().to(dev) for k in range(6)]
     idxs = torch.empty(tb.num_queries, dtype=torch.int64, device=dev)
@@ -196,15 +238,18 @@ def query_chain_plain(chain, f_evals, trace_digests, fri_values,
                        device=dev)
     for q in range(tb.num_queries):
         idx = mod_state(chain, tb.rng)
-        pos = _positions(cols, idx)
-        sub = _subtrees_plain(tb, idx, f_evals, fri_values)
+        pos, ent = _positions(cols, idx), _entries(cols, idx)
         v, d = vals[q], digs[q]
-        for k, buf in ((TRACE_VALUE, f_evals), (FRI_VALUE, fri_values)):
-            v[sel[k]] = buf[pos[sel[k]]]
-        for k, buf in ((TRACE_DIGEST, trace_digests),
-                       (FRI_DIGEST, fri_digests), (TRACE_SUBTREE, sub),
-                       (FRI_SUBTREE, sub)):
-            d[sel[k] - nv] = buf[pos[sel[k]]]
+        for k in (TRACE_VALUE, FRI_VALUE, TRACE_DIGEST, FRI_DIGEST):
+            out, first = (v, 0) if k in (TRACE_VALUE, FRI_VALUE) else (d, nv)
+            for e in torch.unique(ent[sel[k]]).tolist():
+                m = sel[k][ent[sel[k]] == e]
+                buf = ents[e]
+                out[m - first] = buf[pos[m].to(buf.device)].to(dev)
+        if tb.max_prune:
+            sub = _subtrees_plain(tb, idx, ents)
+            for k in (TRACE_SUBTREE, FRI_SUBTREE):
+                d[sel[k] - nv] = sub[pos[sel[k]]]
         chain = sha_chain_plain(_assemble(tb, v, d), tb.flags, chain)
         idxs[q] = idx
     return chain, idxs, vals, digs
@@ -214,7 +259,8 @@ def _launch_query(tb: QueryTables, b: int, chain, f_evals, trace_digests,
                   fri_values, fri_digests):
     """One launch of K5's query form: one proof (b = 0, no batch axis) or
     b proofs of the plan, one block each, every operand with a leading
-    proof axis."""
+    proof axis.  Entries on another card than the chain's are read
+    through peer access, enabled here; a pair without it raises."""
     lib = _build.lib("sha_chain")
     nrows, nslots = int(tb.template.shape[0]), int(tb.slots.shape[0])
     ntasks = int(tb.tasks.shape[0])
@@ -225,42 +271,54 @@ def _launch_query(tb: QueryTables, b: int, chain, f_evals, trace_digests,
             f"nodes exceeds the shared memory of K5's query form "
             f"({max_rows} rows with those nodes)")
     lead = (b,) if b else ()
-    n_f, n_td, n_fv, n_fd = tb.sizes
+    dev = chain.device
     _build.require(chain, "chain", lead + (8,))
-    _build.require(f_evals, "f_evals", lead + (n_f,))
-    _build.require(trace_digests, "trace_digests", lead + (n_td, 8),
-                   align=16)
-    _build.require(fri_values, "fri_values", lead + (n_fv,))
-    _build.require(fri_digests, "fri_digests", lead + (n_fd, 8), align=16)
+    ents = source_entries(tb, (f_evals, trace_digests, fri_values,
+                               fri_digests))
+    sizes = [(name, k, size) for name, sz in zip(_SOURCE_NAMES, tb.entries)
+             for k, size in enumerate(sz)]
+    for t, (name, k, size) in zip(ents, sizes):
+        if name.endswith("digests"):
+            _build.require(t, f"{name}[{k}]", lead + (size, 8), align=16)
+        else:
+            _build.require(t, f"{name}[{k}]", lead + (size,))
+        if t.device != dev:
+            if not torch.cuda.can_device_access_peer(dev, t.device):
+                raise ValueError(f"{name}[{k}] lies on {t.device}, which "
+                                 f"{dev} cannot access")
+            with torch.cuda.device(dev):
+                _build.check(lib.stark_enable_peer(t.device.index),
+                             f"peer access {dev} -> {t.device}")
+    ptrs = torch.tensor(
+        [[t.data_ptr(), t[0].numel() * 4 if b else 0] for t in ents],
+        dtype=torch.int64).to(dev)
     _build.require(tb.template, "template", (nrows, 16), align=16)
     _build.require(tb.flags, "flags", (nrows, 2), align=8)
-    _build.require(tb.slots, "slots", (nslots, 8), dtype=torch.int64,
-                   align=8)
+    _build.require(tb.slots, "slots", (nslots, len(SLOT_COLUMNS)),
+                   dtype=torch.int64, align=8)
     _build.require(tb.tasks, "tasks", (ntasks, len(TASK_COLUMNS)),
                    dtype=torch.int64, align=8)
-    dev, q_n, nv = chain.device, tb.num_queries, tb.num_values
+    q_n, nv = tb.num_queries, tb.num_values
     out = torch.empty(lead + (8,), dtype=torch.int32, device=dev)
     idxs = torch.empty(lead + (q_n,), dtype=torch.int64, device=dev)
     vals = torch.empty(lead + (q_n, nv), dtype=torch.int32, device=dev)
     digs = torch.empty(lead + (q_n, nslots - nv, 8), dtype=torch.int32,
                        device=dev)
-    strides = tb.sizes if b else (0, 0, 0, 0)
     _build.check(lib.stark_query_chain(
-        chain.data_ptr(), f_evals.data_ptr(), trace_digests.data_ptr(),
-        fri_values.data_ptr(), fri_digests.data_ptr(),
-        tb.template.data_ptr(), tb.flags.data_ptr(), tb.slots.data_ptr(),
-        tb.tasks.data_ptr(), nrows, nslots, nv, ntasks, tb.max_prune,
-        tb.subtree_rows, int(tb.elem_width == 2), tb.rng, q_n,
-        out.data_ptr(), idxs.data_ptr(), vals.data_ptr(), digs.data_ptr(),
-        *strides, max(b, 1), _build.stream_ptr(dev)),
-        "K5 query_chain" + "_batch" * bool(b))
+        chain.data_ptr(), ptrs.data_ptr(), tb.template.data_ptr(),
+        tb.flags.data_ptr(), tb.slots.data_ptr(), tb.tasks.data_ptr(), nrows,
+        nslots, nv, ntasks, tb.max_prune, tb.subtree_rows,
+        int(tb.elem_width == 2), tb.rng, q_n, out.data_ptr(),
+        idxs.data_ptr(), vals.data_ptr(), digs.data_ptr(), max(b, 1),
+        _build.stream_ptr(dev)), "K5 query_chain" + "_batch" * bool(b))
     return out, idxs, vals, digs
 
 
 def query_chain(chain, f_evals, trace_digests, fri_values, fri_digests,
                 tb: QueryTables):
     """K5's query form: every query of the phase in one launch, the
-    pruned trees' siblings recomputed in it.  A CPU tensor runs
+    pruned trees' siblings recomputed in it.  Each source is a tensor or,
+    for a plan over a mesh, the list of its entries.  A CPU tensor runs
     :func:`query_chain_plain`; a CUDA tensor launches the kernel or
     raises."""
     if _build.plain_device(chain):
@@ -269,10 +327,13 @@ def query_chain(chain, f_evals, trace_digests, fri_values, fri_digests,
     res = _launch_query(tb, 0, chain, f_evals, trace_digests, fri_values,
                         fri_digests)
     query_chain.launches += 1
+    query_chain.sharded_launches += tb.shards > 1
     return res
 
 
+# launches: every launch; sharded_launches: those over a mesh's sources
 query_chain.launches = 0
+query_chain.sharded_launches = 0
 query_chain.plain = query_chain_plain
 
 
@@ -323,22 +384,54 @@ def _log2(n: int) -> int:
 
 
 class _Slots:
-    """Gather slots: slot s reads position
-    base[s] + ((((idx + add[s]) & mask[s]) ^ xr[s]) >> shift[s]) ^ flip[s]
-    of its source's buffer and writes its hex from stream word word[s]."""
+    """Gather slots: slot s reads element
+    base[s] + (lane & (2^shard[s] - 1)) of source entry
+    ptab[s] + (lane >> shard[s]), lane =
+    ((((idx + add[s]) & mask[s]) ^ xr[s]) >> shift[s]) ^ flip[s], and
+    writes its hex from stream word word[s]."""
 
     def __init__(self):
         self.cols = {k: [] for k in SLOT_COLUMNS}
 
-    def add(self, source, word, base, add, mask, xr, shift=0, flip=0):
-        for k, v in zip(SLOT_COLUMNS,
-                        (source, base, add, mask, xr, shift, flip, word)):
+    def add(self, source, word, base, add, mask, xr, shift=0, flip=0,
+            ptab=0, shard=NO_SHARD):
+        for k, v in zip(SLOT_COLUMNS, (source, ptab, base, add, mask, xr,
+                                       shift, flip, word, shard)):
             self.cols[k].append(v)
 
 
-def _positions(t: dict, idx: torch.Tensor) -> torch.Tensor:
+def _lanes(t: dict, idx: torch.Tensor) -> torch.Tensor:
     j = ((idx + t["add"]) & t["mask"]) ^ t["xr"]
-    return t["base"] + ((j >> t["shift"]) ^ t["flip"])
+    return (j >> t["shift"]) ^ t["flip"]
+
+
+def _positions(t: dict, idx: torch.Tensor) -> torch.Tensor:
+    """Each slot's element within its entry (for an unsharded plan, its
+    position in its source's one buffer)."""
+    return t["base"] + (_lanes(t, idx) & ((1 << t["shard"]) - 1))
+
+
+def _entries(t: dict, idx: torch.Tensor) -> torch.Tensor:
+    """Each slot's source entry."""
+    return t["ptab"] + (_lanes(t, idx) >> t["shard"])
+
+
+def _value_layout(n: int, planes: int, shards: int, sharded: bool):
+    """(entry sizes in words, block lanes or None) of `planes` planes of n
+    values: one entry a block on a mesh, else one entry."""
+    if sharded:
+        return [planes * (n // shards)] * shards, n // shards
+    return [planes * n], None
+
+
+def _tree_layout(n: int, prune: int, shards: int, sharded: bool):
+    """(entry sizes in digest rows, subtree leaves or None) of a tree of n
+    leaves: one entry a subtree plus the top levels' when it shards
+    (``dist/merkle.py``), else its stored levels as one entry."""
+    if sharded and shards_tree(n, shards):
+        k = n // shards
+        return [2 * k - 1] * shards + [2 * shards - 1], k
+    return [2 * (n >> prune) - 1], None
 
 
 class DeviceQueryPlan:
@@ -346,14 +439,18 @@ class DeviceQueryPlan:
     query count, trace offsets, trace length (of each column; None, with
     no offsets, for the standalone FRI query phase, which opens no
     trace), the FRI length ladder (all powers of two), the trace's column
-    count, the field's width in u32 words (1, or 2 for Goldilocks), and
-    the prune depths of the trace tree and of each FRI layer's tree
-    (default: none pruned)."""
+    count, the field's width in u32 words (1, or 2 for Goldilocks), the
+    prune depths of the trace tree and of each FRI layer's tree (default:
+    none pruned), and the shard count of a mesh prove's sources (trees
+    not pruned there): the trace LDE and tree sharded as ``dist/`` builds
+    them, the FRI layers and trees as ``dist.comm.sharded_layers`` says,
+    the rest one entry a layer."""
 
     def __init__(self, rng: int, num_queries: int, offsets: tuple,
                  trace_len: int | None, fri_lengths: tuple,
                  num_columns: int = 1, elem_width: int = 1,
-                 trace_prune: int = 0, fri_prune: tuple = ()):
+                 trace_prune: int = 0, fri_prune: tuple = (),
+                 shards: int = 1):
         if rng <= 0 or rng >= 1 << 32:
             raise ValueError(f"draw range {rng} not in [1, 2^32)")
         if elem_width not in (1, 2):
@@ -378,6 +475,11 @@ class DeviceQueryPlan:
             raise ValueError(f"prune depths {trace_prune}, {fri_prune} do "
                              f"not fit trees of {trace_len}, {fri_lengths} "
                              "leaves")
+        if shards < 1 or shards & (shards - 1) or (shards > 1 and (
+                trace_prune or any(fri_prune))):
+            raise ValueError(f"a plan over {shards} shards needs a "
+                             "power-of-two shard count and unpruned trees")
+        self.shards = int(shards)
         self.rng = rng
         self.num_queries = num_queries
         self.offsets = tuple(int(o) for o in offsets)
@@ -400,6 +502,7 @@ class DeviceQueryPlan:
         val_rows, dig_rows = [], []
         tv, fv, td, fd = _Slots(), _Slots(), _Slots(), _Slots()
         tasks, nodes = [], 0
+        val_src, tree_src = self._source_layout()
 
         def message(payload: np.ndarray, tail=None) -> int:
             """Append a message (state-hex row, payload rows, tail row);
@@ -428,45 +531,43 @@ class DeviceQueryPlan:
             mask = 0 if src[0] == "fri_q" else ln - 1
             if op[0] == "value":
                 # a trace opening: one row message of every column's value
-                # (plane k of column c at (c * width + k) * trace_len of
-                # the (C, M) or (C, 2, M) LDE); an FRI opening: one value
-                # (plane k at its layer's offset + k * length).  A u32
-                # value's hex starts after the 8 hex zeros of its message
-                # words; a Goldilocks value's hi word at 4c, lo at 4c + 2
-                ncols = self.num_columns if src[0] == "trace_v" else 1
+                # (plane k of column c at (c * width + k) * lanes of the
+                # (C, M) or (C, 2, M) LDE or of its block); an FRI opening:
+                # one value (plane k at its layer's offset + k * lanes).  A
+                # u32 value's hex starts after the 8 hex zeros of its
+                # message words; a Goldilocks value's hi word at 4c, lo at
+                # 4c + 2
+                trace_v = src[0] == "trace_v"
+                ncols = self.num_columns if trace_v else 1
                 row = message(value_rows(ncols, self.elem_width))
                 val_rows.append(row)
                 wd = self.elem_width
+                ptab, base, block = val_src[-1 if trace_v else src[1]]
+                shard = _log2(block) if block else NO_SHARD
+                sl, kind = (tv, TRACE_VALUE) if trace_v else (fv, FRI_VALUE)
                 for c in range(ncols):
                     for k in range(wd):
                         word = 16 * row + 4 * c + 2 * (k + 2 - wd)
-                        if src[0] == "trace_v":
-                            tv.add(TRACE_VALUE, word,
-                                   (c * wd + k) * self.trace_len, add, mask,
-                                   xr)
-                        else:
-                            fv.add(FRI_VALUE, word,
-                                   self.fri_layout[src[1]][1] + k * ln, add,
-                                   mask, xr)
+                        sl.add(kind, word, base + (c * wd + k) * (block or ln),
+                               add, mask, xr, ptab=ptab, shard=shard)
                 continue
             h = _log2(ln)
             row = message(np.zeros((h, 16), np.int64), pad_row(64 + 64 * h))
             dig_rows.extend(range(row, row + h))
+            k = -1 if src[0] == "trace_p" else src[1]
+            (vptab, vbase, _), (ptab, doff, block) = val_src[k], tree_src[k]
             if src[0] == "trace_p":
-                sl, prune, doff = td, self.trace_prune, 0
-                values, stored_src, recomputed_src = (
-                    TRACE_VALUE, TRACE_DIGEST, TRACE_SUBTREE)
-                vbase, cols = 0, self.num_columns
+                sl, prune = td, self.trace_prune
+                stored_src, recomputed_src = TRACE_DIGEST, TRACE_SUBTREE
+                cols = self.num_columns
             else:
                 sl, prune = fd, self.fri_prune[src[1]]
-                _, vbase, doff = self.fri_layout[src[1]]
-                values, stored_src, recomputed_src = (
-                    FRI_VALUE, FRI_DIGEST, FRI_SUBTREE)
+                stored_src, recomputed_src = FRI_DIGEST, FRI_SUBTREE
                 cols = 1
             if prune:
                 # levels 0 .. prune - 1: the in-block siblings among the
                 # task's nodes, at j's low `prune` bits
-                tasks.append((values, add, mask, xr, prune, vbase, ln, cols,
+                tasks.append((vptab, add, mask, xr, prune, vbase, ln, cols,
                               nodes))
                 low = (1 << prune) - 1
                 for l in range(prune):
@@ -474,10 +575,21 @@ class DeviceQueryPlan:
                            nodes + (2 << prune) - (2 << (prune - l)), add,
                            low, xr & low, l, 1)
                 nodes += (2 << prune) - 2
+            # a stored level's node (j >> l) ^ 1: in the one buffer, or on
+            # a mesh in the subtree of block node >> (log2 block - l) below
+            # the top levels and in the top buffer above them
             stored = level_offsets(ln >> prune)
+            lb = _log2(block) if block else h
             for l in range(prune, h):
-                sl.add(stored_src, 16 * (row + l),
-                       doff + stored[l - prune][0], add, mask, xr, l, 1)
+                if l < lb and block:
+                    at = (ptab, level_offsets(block)[l][0], lb - l)
+                elif block:
+                    at = (ptab + self.shards,
+                          level_offsets(self.shards)[l - lb][0], NO_SHARD)
+                else:
+                    at = (ptab, doff + stored[l - prune][0], NO_SHARD)
+                sl.add(stored_src, 16 * (row + l), at[1], add, mask, xr, l,
+                       1, ptab=at[0], shard=at[2])
         self._tasks = tasks
         self._subtree_rows = nodes
         self._template = np.stack(rows)
@@ -486,6 +598,48 @@ class DeviceQueryPlan:
         self._dig_rows = dig_rows
         self._slots = (tv, fv, td, fd)
         self._packed: dict = {}
+
+    def _source_layout(self):
+        """The sources' entries: sets their sizes (``QueryTables.entries``)
+        and returns, keyed by FRI layer (-1 the trace), each value array's
+        (first entry, base, block lanes or None) and each tree's (first
+        entry, digest-row offset, subtree leaves or None).  Unsharded:
+        one entry a source, the FRI layers at their ``layer_layout``
+        offsets; on a mesh one entry a block or subtree (plus a tree's
+        top levels), or one a layer for the FRI tail."""
+        s, wd, mesh = self.shards, self.elem_width, self.shards > 1
+        f_sizes, td_sizes = ([], []) if mesh else ([0], [0])
+        val_src, tree_src = {}, {}
+        if self.trace_len is not None:
+            f_sizes, fblk = _value_layout(self.trace_len,
+                                          self.num_columns * wd, s, mesh)
+            td_sizes, tblk = _tree_layout(self.trace_len, self.trace_prune,
+                                          s, mesh)
+            val_src[-1] = (0, 0, fblk)
+            tree_src[-1] = (len(f_sizes), 0, tblk)
+        fv0 = len(f_sizes) + len(td_sizes)
+        if mesh:
+            lengths = self.fri_lengths
+            sharded = sharded_layers(lengths[0], s, len(lengths) - 1)
+            fv_sizes, fd_sizes, trees = [], [], []
+            for k, (ln, sh) in enumerate(zip(lengths, sharded)):
+                sizes, blk = _value_layout(ln, wd, s, sh)
+                val_src[k] = (fv0 + len(fv_sizes), 0, blk)
+                fv_sizes += sizes
+                trees.append(_tree_layout(ln, 0, s, sh))
+            fd0 = fv0 + len(fv_sizes)
+            for k, (sizes, blk) in enumerate(trees):
+                tree_src[k] = (fd0 + len(fd_sizes), 0, blk)
+                fd_sizes += sizes
+        else:
+            layout, vt, dt = layer_layout(self.fri_lengths, wd,
+                                          self.fri_prune)
+            fv_sizes, fd_sizes = [vt], [dt]
+            for k, (_, voff, doff) in enumerate(layout):
+                val_src[k] = (fv0, voff, None)
+                tree_src[k] = (fv0 + 1, doff, None)
+        self._entry_sizes = (f_sizes, td_sizes, fv_sizes, fd_sizes)
+        return val_src, tree_src
 
     def pack(self, device) -> QueryTables:
         """The plan's tables in the layout the query kernel reads, on
@@ -497,8 +651,6 @@ class DeviceQueryPlan:
         if key not in self._packed:
             slots = [row for sl in self._slots
                      for row in zip(*sl.cols.values())]
-            _, vt, dt = layer_layout(self.fri_lengths, self.elem_width,
-                                     self.fri_prune)
             self._packed[key] = QueryTables(
                 template=torch.from_numpy(self._template.astype(
                     np.uint32).view(np.int32)).to(device),
@@ -507,7 +659,9 @@ class DeviceQueryPlan:
                 num_values=len(self._slots[0].cols["word"])
                 + len(self._slots[1].cols["word"]),
                 rng=self.rng, num_queries=self.num_queries,
-                sizes=self._trace_sizes() + (vt, dt),
+                sizes=tuple(sum(e) for e in self._entry_sizes),
+                entries=tuple(tuple(e) for e in self._entry_sizes),
+                shards=self.shards,
                 tasks=torch.tensor(self._tasks, dtype=torch.int64,
                                    device=device).reshape(
                                        -1, len(TASK_COLUMNS)),
@@ -515,14 +669,6 @@ class DeviceQueryPlan:
                 subtree_rows=self._subtree_rows,
                 elem_width=self.elem_width)
         return self._packed[key]
-
-    def _trace_sizes(self) -> tuple:
-        """(trace LDE words, stored trace digest rows); (0, 0) without a
-        trace."""
-        if self.trace_len is None:
-            return 0, 0
-        return (self.num_columns * self.elem_width * self.trace_len,
-                2 * (self.trace_len >> self.trace_prune) - 1)
 
     def stream(self, v: torch.Tensor, d: torch.Tensor):
         """(stream, flags) of one query for K5, from its opened values
@@ -539,26 +685,36 @@ class DeviceQueryPlan:
         `fri_digests`: the stored levels of the trees, pruned at the
         plan's depths, in the layout of ``merkle/tree.py`` /
         ``fri/commit.py``; `fri_values`: every FRI layer concatenated.
-        Returns (final_state (8,), idxs (Q,) int64, vals (Q, Nv), digs
+        On a mesh `f_evals` is the ``Sharded`` LDE and the others the
+        entry lists of ``DistMerkleTree.entries`` and of a mesh
+        ``fri_commit``, all read from the state's device.  Returns
+        (final_state (8,), idxs (Q,) int64, vals (Q, Nv), digs
         (Q, Nd, 8)) in script order, a trace opening's C values
         together, a Goldilocks value as its (hi, lo) words.  A plan
         without a trace takes None for `f_evals` and `trace_digests`."""
+        from stark_tpu_torch.dist.mesh import Sharded
+
         if self.trace_len is None:
             f_evals = torch.empty(0, dtype=torch.int32, device=state.device)
             trace_digests = torch.empty((0, 8), dtype=torch.int32,
                                         device=state.device)
-        return query_chain(state, f_evals.reshape(-1), trace_digests,
-                           fri_values, fri_digests, self.pack(state.device))
+        f_evals = ([b.reshape(-1) for b in f_evals.blocks]
+                   if isinstance(f_evals, Sharded) else f_evals.reshape(-1))
+        return query_chain(state, f_evals, trace_digests, fri_values,
+                           fri_digests, self.pack(state.device))
 
     def run(self, channel, f_evals, trace_digests, fri_values,
-            fri_digests) -> None:
-        """The query phase from the host channel's state: on the values'
-        device (:meth:`run_device`), one fetch, then the canonical
-        transcript replayed into `channel` (:meth:`replay`)."""
+            fri_digests, device=None) -> None:
+        """The query phase from the host channel's state: on `device`
+        (default the FRI values' device; a mesh's first) with
+        :meth:`run_device`, one fetch, then the canonical transcript
+        replayed into `channel` (:meth:`replay`)."""
         if not channel.state:
             raise ChannelError(
                 "query phase before any send (empty channel state)")
-        state = state_words(channel.state, fri_values.device)
+        if device is None:
+            device = fri_values.device
+        state = state_words(channel.state, device)
         final_h, idxs_h, vals_h, digs_h = fetch_packed(self.run_device(
             state, f_evals, trace_digests, fri_values, fri_digests))
         self.replay(channel, final_h, idxs_h, vals_h, digs_h)

@@ -46,8 +46,8 @@ def _add_config_args(ap: argparse.ArgumentParser) -> None:
                     help="prove on the CPU (plain kernel versions) instead "
                          "of the card")
     ap.add_argument("--mesh", type=int, default=None, metavar="N",
-                    help="shard over N devices (not ported: ROADMAP item "
-                         "15)")
+                    help="shard over the first N visible GPUs (with --cpu: "
+                         "N logical CPU shards)")
 
 
 def _make_config(args):
@@ -62,7 +62,6 @@ def _make_config(args):
         log2_trace=args.log2_trace,
         blowup=args.blowup,
         num_queries=args.num_queries,
-        mesh_shape=(args.mesh,) if args.mesh else None,
         **kw,
     )
 
@@ -78,6 +77,22 @@ def _device(args) -> str:
     return "cuda"
 
 
+def _mesh(args, device: str):
+    """The mesh of --mesh N (as the JAX CLI's ``_setup``): the first N
+    visible GPUs, or N logical shards on the CPU with --cpu; None
+    without --mesh.  Fewer devices than N raise."""
+    if not args.mesh:
+        return None
+    from stark_tpu_torch.dist import make_mesh
+
+    if device == "cpu":
+        return make_mesh(args.mesh, devices=["cpu"] * args.mesh)
+    try:
+        return make_mesh(args.mesh)
+    except ValueError as e:
+        raise NoDevice(str(e)) from None
+
+
 def cmd_prove(args) -> int:
     from stark_tpu_torch import serve
     from stark_tpu_torch.stark import prove
@@ -87,8 +102,9 @@ def cmd_prove(args) -> int:
     log = setup_logging()
     cfg = _make_config(args)
     cfg.validate()
-    log.info("proving %s: 2^%d-1 rows, blowup %d, %d queries",
-             args.air, args.log2_trace, args.blowup, args.num_queries)
+    log.info("proving %s: 2^%d-1 rows, blowup %d, %d queries%s",
+             args.air, args.log2_trace, args.blowup, args.num_queries,
+             f", {args.mesh}-shard mesh" if args.mesh else "")
     if args.daemon:
         # the daemon proves on its own device: this process stays off the
         # card, and checks that the daemon is where --cpu says
@@ -113,9 +129,10 @@ def cmd_prove(args) -> int:
                  dt, proof.size_bytes(), args.output)
         return 0
     device = _device(args)
+    mesh = _mesh(args, device)
     t0 = time.perf_counter()
     air = build_air(args.air, args.secret, mimc_key=args.mimc_key)
-    proof = prove(cfg, a1=args.secret, air=air, device=device)
+    proof = prove(cfg, a1=args.secret, air=air, device=device, mesh=mesh)
     dt = time.perf_counter() - t0
     blob = proof.serialize(compress=args.compress)
     with open(args.output, "wb") as fh:

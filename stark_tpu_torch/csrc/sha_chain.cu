@@ -66,6 +66,20 @@
 //   the plan's tables and reads proof b's values and trees at fixed
 //   strides, so the B query phases are one launch on B SMs, each as long
 //   as one proof's.  A single chain is the batch of one.
+// * Sources (the trace LDE, the trace tree, the FRI values, the FRI
+//   trees) are read through a table of entries, each a base address and
+//   a per-proof stride in bytes.  A slot names its first entry and the
+//   log2 of the lanes one entry holds: lane >> shard picks the entry,
+//   the low bits the element.  Unsharded, each source is one entry and
+//   the shard field is 62, so the address is today's base + lane.  On a
+//   mesh (stark_tpu_torch/dist/) a sharded array is one entry a block,
+//   and a sharded tree one entry a subtree plus one for its top levels:
+//   each level's slots carry that level's block size, so no slot
+//   searches for its level.  Blocks on other cards are read by their
+//   unified addresses, with peer access enabled (stark_enable_peer).
+//   The JAX package's mesh prove gave up its Pallas chain for the XLA
+//   scan here (stark_tpu/stark/prover.py:720-726); this one keeps the
+//   kernel.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -337,15 +351,23 @@ __global__ void __launch_bounds__(kThreads, 1)
 enum Source { kTraceValue = 0, kFriValue = 1, kTraceDigest = 2,
               kFriDigest = 3, kTraceSubtree = 4, kFriSubtree = 5 };
 
+// slot columns (int64): slot s reads element
+// base + (lane & (2^shard - 1)) of source entry ptab + (lane >> shard),
+// lane = ((((idx + add) & mask) ^ xr) >> shift) ^ flip, and writes its hex
+// from stream word `word`; a recomputed sibling reads node base + lane
+enum SlotColumn { kSlotSource = 0, kSlotPtab, kSlotBase, kSlotAdd, kSlotMask,
+                  kSlotXr, kSlotShift, kSlotFlip, kSlotWord, kSlotShard,
+                  kSlotColumns };
+
 // recompute task columns (int64), one task a pruned authentication path:
-// its leaf j = ((idx + add) & mask) ^ xr in the tree over the source's
-// values (kTraceValue: f_evals, kFriValue: fri_values); the task hashes
+// its leaf j = ((idx + add) & mask) ^ xr in the tree over the values of
+// source entry ptab (an unsharded trace LDE or FRI buffer); the task hashes
 // leaves ((j >> prune) << prune) + i, i < 2^prune, leaf i the row message
 // of `cols` values whose word planes start at base + plane * stride + leaf
 // (planes c, or 2c and 2c + 1 in the 64-bit mode), and keeps levels 0 ..
 // prune - 1 of that block in shared memory from digest row `node` on,
 // level l at node + 2^(prune + 1) - 2^(prune - l + 1)
-enum TaskColumn { kTaskSource = 0, kTaskAdd, kTaskMask, kTaskXr, kTaskPrune,
+enum TaskColumn { kTaskPtab = 0, kTaskAdd, kTaskMask, kTaskXr, kTaskPrune,
                   kTaskBase, kTaskStride, kTaskCols, kTaskNode,
                   kTaskColumns };
 
@@ -357,6 +379,13 @@ __host__ __device__ constexpr int query_smem_nodes(int nrows) {
 
 __host__ __device__ constexpr int query_smem(int nrows, int nodes) {
   return query_smem_nodes(nrows) + nodes * 32;
+}
+
+// Source entry e for proof b: rows (address, per-proof stride in bytes).
+__device__ __forceinline__ const unsigned char* entry(
+    const long long* __restrict__ ptrs, long long e, size_t b) {
+  return reinterpret_cast<const unsigned char*>(ptrs[2 * e] +
+                                                b * ptrs[2 * e + 1]);
 }
 
 // The 16 words of a leaf's message: `cols` values, each 8 big-endian
@@ -391,8 +420,7 @@ __device__ __forceinline__ void leaf_message(const uint32_t* v,
 // last level.
 __device__ void recompute_blocks(const long long* __restrict__ tasks,
                                  int ntasks, int max_prune, long long idx,
-                                 const uint32_t* __restrict__ f_evals,
-                                 const uint32_t* __restrict__ fri_values,
+                                 const long long* __restrict__ ptrs, size_t b,
                                  bool wide, uint4* nodes) {
   for (int l = 0; l < max_prune; ++l) {
     if (l > 0) __syncthreads();  // level l - 1 is complete
@@ -416,7 +444,7 @@ __device__ void recompute_blocks(const long long* __restrict__ tasks,
       if (l == 0) {
         const long long j = ((idx + t[kTaskAdd]) & t[kTaskMask]) ^ t[kTaskXr];
         const uint32_t* v =
-            (t[kTaskSource] == kTraceValue ? f_evals : fri_values) +
+            reinterpret_cast<const uint32_t*>(entry(ptrs, t[kTaskPtab], b)) +
             t[kTaskBase] + ((j >> p) << p) + k;
         leaf_message(v, t[kTaskStride], static_cast<int>(t[kTaskCols]), wide,
                      w);
@@ -442,10 +470,7 @@ __device__ void recompute_blocks(const long long* __restrict__ tasks,
 
 __global__ void __launch_bounds__(kThreads, 1)
     query_chain(const uint32_t* __restrict__ chain_in,
-                const uint32_t* __restrict__ f_evals,
-                const uint4* __restrict__ trace_digests,
-                const uint32_t* __restrict__ fri_values,
-                const uint4* __restrict__ fri_digests,
+                const long long* __restrict__ ptrs,
                 const uint4* __restrict__ tmpl,
                 const int2* __restrict__ flags,
                 const long long* __restrict__ slots,
@@ -454,18 +479,12 @@ __global__ void __launch_bounds__(kThreads, 1)
                 uint32_t rng, int nqueries,
                 uint32_t* __restrict__ chain_out,
                 long long* __restrict__ idxs, uint32_t* __restrict__ vals,
-                uint32_t* __restrict__ digs, long long f_stride,
-                long long td_stride, long long fv_stride,
-                long long fd_stride) {
+                uint32_t* __restrict__ digs) {
   extern __shared__ __align__(128) unsigned char smem[];
-  // proof blockIdx.x: its chain, values and trees (value words, digest
-  // rows) a fixed stride after proof 0's; its outputs after proof 0's
+  // proof blockIdx.x: its chain, its sources' entries (a fixed stride
+  // after proof 0's) and its outputs after proof 0's
   const size_t b = blockIdx.x;
   chain_in += 8 * b;
-  f_evals += b * f_stride;
-  trace_digests += b * td_stride * 2;
-  fri_values += b * fv_stride;
-  fri_digests += b * fd_stride * 2;
   chain_out += 8 * b;
   idxs += b * nqueries;
   vals += b * nqueries * nvalues;
@@ -501,27 +520,32 @@ __global__ void __launch_bounds__(kThreads, 1)
     __syncthreads();  // idx published; the last query's staging is done
     const long long idx = *s_idx;
     if (max_prune > 0) {
-      recompute_blocks(tasks, ntasks, max_prune, idx, f_evals, fri_values,
-                       wide != 0, nodes);
+      recompute_blocks(tasks, ntasks, max_prune, idx, ptrs, b, wide != 0,
+                       nodes);
       __syncthreads();  // every recomputed node is written
     }
     uint32_t* words = reinterpret_cast<uint32_t*>(stream);
     for (int s = threadIdx.x; s < nslots; s += kThreads) {
-      const long long* t = slots + 8 * static_cast<size_t>(s);
-      const long long j = ((idx + t[2]) & t[3]) ^ t[4];
-      const long long pos = t[1] + ((j >> t[5]) ^ t[6]);
-      uint32_t* dst = words + t[7];
-      if (t[0] == kTraceValue || t[0] == kFriValue) {
-        const uint32_t v = (t[0] == kTraceValue ? f_evals : fri_values)[pos];
+      const long long* t = slots + kSlotColumns * static_cast<size_t>(s);
+      const long long j = ((idx + t[kSlotAdd]) & t[kSlotMask]) ^ t[kSlotXr];
+      const long long lane = (j >> t[kSlotShift]) ^ t[kSlotFlip];
+      const long long shard = t[kSlotShard];
+      const long long pos = t[kSlotBase] + (lane & ((1LL << shard) - 1));
+      const unsigned char* src_entry =
+          t[kSlotSource] >= kTraceSubtree
+              ? nullptr
+              : entry(ptrs, t[kSlotPtab] + (lane >> shard), b);
+      uint32_t* dst = words + t[kSlotWord];
+      if (t[kSlotSource] == kTraceValue || t[kSlotSource] == kFriValue) {
+        const uint32_t v = reinterpret_cast<const uint32_t*>(src_entry)[pos];
         // 8 hex chars of the value's word: after 8 hex zeros of the
         // template for a u32 value, or one half of a 64-bit value
         hex_words(v, dst);
         vals[static_cast<size_t>(q) * nvalues + s] = v;
       } else {
-        const uint4* src = (t[0] >= kTraceSubtree  ? nodes
-                            : t[0] == kTraceDigest ? trace_digests
-                                                   : fri_digests) +
-                           2 * pos;
+        const uint4* src =
+            (src_entry ? reinterpret_cast<const uint4*>(src_entry) : nodes) +
+            2 * pos;
         const uint4 lo = src[0], hi = src[1];
         const uint32_t d[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
         uint32_t* out = digs + (static_cast<size_t>(q) * ndigests +
@@ -649,27 +673,24 @@ extern "C" int stark_sha_chain(const void* stream, const void* flags,
 }
 
 // The whole query phase: nqueries queries of nrows stream rows each.
-// template: (nrows, 16) words; flags: (nrows, 2); slots: (nslots, 8)
-// int64 (values first, then digests); tasks: (ntasks, kTaskColumns)
-// int64, whose nodes fill `nodes` digest rows, the deepest at max_prune;
-// wide: the values are 64-bit limb planes; trace_digests / fri_digests:
-// the trees' stored levels, (rows, 8) words.  Out: chain_out (8,), idxs
-// (nqueries,) int64, vals (nqueries, nvalues), digs (nqueries, nslots -
-// nvalues, 8).  For `batch` proofs of one plan, one block each, proof
-// b's chain state, values and trees lie f_stride / fv_stride words and
-// td_stride / fd_stride digest rows after proof 0's, its outputs right
-// after proof b - 1's.
+// ptrs: (entries, 2) int64 source table, each entry's address and its
+// per-proof stride in bytes (values: u32 words; digests: (rows, 8)
+// words, the trees' stored levels); template: (nrows, 16) words; flags:
+// (nrows, 2); slots: (nslots, kSlotColumns) int64 (values first, then
+// digests); tasks: (ntasks, kTaskColumns) int64, whose nodes fill `nodes`
+// digest rows, the deepest at max_prune; wide: the values are 64-bit limb
+// planes.  Out: chain_out (8,), idxs (nqueries,) int64, vals (nqueries,
+// nvalues), digs (nqueries, nslots - nvalues, 8).  For `batch` proofs of
+// one plan, one block each, proof b's chain state and sources lie a
+// fixed stride after proof 0's, its outputs right after proof b - 1's.
 extern "C" int stark_query_chain(
-    const void* chain_in, const void* f_evals, const void* trace_digests,
-    const void* fri_values, const void* fri_digests, const void* tmpl,
+    const void* chain_in, const void* ptrs, const void* tmpl,
     const void* flags, const void* slots, const void* tasks, int nrows,
     int nslots, int nvalues, int ntasks, int max_prune, int nodes, int wide,
     unsigned rng, int nqueries, void* chain_out, void* idxs, void* vals,
-    void* digs, long long f_stride, long long td_stride,
-    long long fv_stride, long long fd_stride, int batch, void* s) {
+    void* digs, int batch, void* s) {
   if (nodes < 0 || max_prune < 0 || (max_prune > 0) != (ntasks > 0) ||
-      batch < 0 || f_stride < 0 || td_stride < 0 || fv_stride < 0 ||
-      fd_stride < 0)
+      batch < 0)
     return (int)cudaErrorInvalidValue;
   const int bytes = query_smem(nrows, nodes);
   if (bytes > kMaxSmem) return (int)cudaErrorInvalidValue;
@@ -677,14 +698,24 @@ extern "C" int stark_query_chain(
   if (err != cudaSuccess) return (int)err;
   if (batch > 0)
     query_chain<<<batch, kThreads, bytes, (cudaStream_t)s>>>(
-        (const uint32_t*)chain_in, (const uint32_t*)f_evals,
-        (const uint4*)trace_digests, (const uint32_t*)fri_values,
-        (const uint4*)fri_digests, (const uint4*)tmpl, (const int2*)flags,
-        (const long long*)slots, (const long long*)tasks, nrows, nslots,
-        nvalues, ntasks, max_prune, wide, rng, nqueries,
-        (uint32_t*)chain_out, (long long*)idxs, (uint32_t*)vals,
-        (uint32_t*)digs, f_stride, td_stride, fv_stride, fd_stride);
+        (const uint32_t*)chain_in, (const long long*)ptrs,
+        (const uint4*)tmpl, (const int2*)flags, (const long long*)slots,
+        (const long long*)tasks, nrows, nslots, nvalues, ntasks, max_prune,
+        wide, rng, nqueries, (uint32_t*)chain_out, (long long*)idxs,
+        (uint32_t*)vals, (uint32_t*)digs);
   return (int)cudaGetLastError();
+}
+
+// Let the current device's kernels read `peer`'s memory (K5's query
+// form over a mesh of distinct cards); enabling it twice is not an
+// error.
+extern "C" int stark_enable_peer(int peer) {
+  const cudaError_t err = cudaDeviceEnablePeerAccess(peer, 0);
+  if (err == cudaErrorPeerAccessAlreadyEnabled) {
+    cudaGetLastError();  // reset the last-error state the call set
+    return 0;
+  }
+  return (int)err;
 }
 
 // The most stream rows a query of stark_query_chain may have beside

@@ -42,6 +42,9 @@ import torch
 
 from stark_tpu_torch.channel.channel import Channel
 from stark_tpu_torch.channel.device_channel import DeviceFS
+from stark_tpu_torch.dist.comm import fri_fold_schedule
+from stark_tpu_torch.dist.merkle import dist_merkle_tree
+from stark_tpu_torch.dist.mesh import Sharded, replicated, sharded
 from stark_tpu_torch.fields.fp import Fp
 from stark_tpu_torch.merkle.tree import (MerkleTree, prune_depths,
                                          tree_scratch)
@@ -49,28 +52,37 @@ from stark_tpu_torch.ntt.reference_ntt import root_of_unity
 from stark_tpu_torch.utils.gather import BatchGather
 
 
+def _fold_pair(p: int, v, s, beta, inv_dom):
+    """(v + s) / 2 + beta (v - s) / (2 x) lane by lane: v = E[i], s =
+    E[i + m/2], inv_dom = 1 / x_i (int64 values; limb planes for
+    Goldilocks)."""
+    f = Fp.get(p)
+    odd = f.mul(f.mul(f.sub(v, s), inv_dom), beta)
+    return f.mul(f.add(f.add(v, s), odd), f.const(pow(2, p - 2, p), v.device))
+
+
 def _fold_fn(p: int, m: int):
     """The fold for layer size m: (evals[m], beta, inv_half_domain[m/2])
     -> evals[m/2] (int64 values; limb planes for Goldilocks, whose halves
     are cut along the last axis)."""
-    f = Fp.get(p)
-    inv2 = pow(2, p - 2, p)
 
     def fold(evals, beta, inv_dom):
-        v, s = evals[..., : m // 2], evals[..., m // 2:]
-        odd = f.mul(f.mul(f.sub(v, s), inv_dom), beta)
-        return f.mul(f.add(f.add(v, s), odd), f.const(inv2, evals.device))
+        return _fold_pair(p, evals[..., : m // 2], evals[..., m // 2:], beta,
+                          inv_dom)
 
     return fold
 
 
 @functools.lru_cache(maxsize=None)
-def _inv_domain(p: int, m: int, offset: int, device: str) -> torch.Tensor:
-    """[1 / (offset * w^i)] for i < m/2, w the canonical order-m root."""
+def _inv_domain(p: int, m: int, offset: int, device: str, start: int = 0,
+                count: int | None = None) -> torch.Tensor:
+    """[1 / (offset * w^i)] for i < m/2 (or start <= i < start + count),
+    w the canonical order-m root."""
     f = Fp.get(p)
     w_inv = pow(root_of_unity(p, m), p - 2, p)
-    off_inv = pow(offset % p, p - 2, p)
-    return f.coset_domain(off_inv, w_inv, m // 2, torch.device(device))
+    off_inv = pow(offset % p, p - 2, p) * pow(w_inv, start, p) % p
+    return f.coset_domain(off_inv, w_inv, m // 2 if count is None else count,
+                          torch.device(device))
 
 
 def layer_layout(lengths, width: int = 1,
@@ -90,16 +102,28 @@ def layer_layout(lengths, width: int = 1,
 @dataclasses.dataclass
 class FRIProof:
     """All layers + trees (views into `values` / `digests`) and the final
-    constant, which stays None until :func:`finish_deferred`."""
+    constant, which stays None until :func:`finish_deferred`.  On a mesh
+    (:func:`fri_commit` with `mesh`) a layer is a ``Sharded`` or a tensor
+    on the first shard, a tree a ``DistMerkleTree`` or a ``MerkleTree``,
+    `values` / `digests` the lists of buffers K5's query form reads
+    (``DeviceQueryPlan`` with shards), `layout` None, and `last` the last
+    layer whole on the first shard."""
 
-    fri_layers: list[torch.Tensor]
-    fri_merkles: list[MerkleTree]
+    fri_layers: list
+    fri_merkles: list
     final_value: int | None
     offsets: list[int]  # coset offset per layer (o, o^2, o^4, ...)
-    values: torch.Tensor  # every layer's evaluations, concatenated
-    digests: torch.Tensor  # every layer's stored tree levels, concatenated
-    layout: list[tuple[int, int, int]]  # (length, value off, digest off)
+    values: torch.Tensor | list  # every layer's evaluations, concatenated
+    digests: torch.Tensor | list  # every layer's stored tree levels, too
+    layout: list[tuple[int, int, int]] | None  # (length, value off, dig off)
     prunes: tuple  # each layer's tree prune depth
+    last: torch.Tensor | None = None
+
+    @property
+    def final_layer(self) -> torch.Tensor:
+        """The last layer, whole, on one device (the final-constant send
+        reads it)."""
+        return self.fri_layers[-1] if self.last is None else self.last
 
 
 def finish_deferred(p: int, final_vals_host, channel: Channel,
@@ -126,9 +150,9 @@ def finish_deferred(p: int, final_vals_host, channel: Channel,
     return final_value
 
 
-def fri_commit(evals: torch.Tensor, p: int, offset: int, channel: Channel,
+def fri_commit(evals, p: int, offset: int, channel: Channel,
                num_folds: int | None = None, strict: bool = True, fs=None,
-               defer: bool = False) -> FRIProof:
+               defer: bool = False, mesh=None) -> FRIProof:
     """Commit phase (fri_commit.rs:72-122): Merkle each layer, absorb the
     root, draw beta, fold; finally send the constant.
 
@@ -146,12 +170,14 @@ def fri_commit(evals: torch.Tensor, p: int, offset: int, channel: Channel,
     calls :func:`finish_deferred`.
     Otherwise every tree is stored whole, and the log is replayed into
     `channel` from one fetch, then the constant is checked (`strict`)
-    and sent."""
+    and sent.
+
+    `mesh`: commit over a ``dist.mesh.Mesh`` (`evals` a ``Sharded`` or a
+    tensor to split): :func:`_commit_mesh`; trees are never pruned there
+    and the Fiat-Shamir state lives on the first shard."""
     n = int(evals.shape[-1])
     if n & (n - 1):
         raise ValueError("FRI domain size must be a power of two")
-    f = Fp.get(p)
-    wide = f.width == 2
     if num_folds is None:
         num_folds = max(n.bit_length() - 4, 0)  # log2(n) - 3
     if num_folds >= n.bit_length():
@@ -161,6 +187,28 @@ def fri_commit(evals: torch.Tensor, p: int, offset: int, channel: Channel,
             "defer=True needs the caller's DeviceFS (fs=...): a "
             "locally-created one would be dropped and its roots/betas "
             "never replayed into the transcript")
+    if fs is None:
+        channel.mark_phase("fri-commit")
+        fs = DeviceFS(p, channel.state, mesh=mesh,
+                      device=None if mesh is not None else evals.device)
+    else:
+        fs.mark("fri-commit")
+    if mesh is not None:
+        proof = _commit_mesh(evals, p, int(offset) % p, num_folds, fs, mesh)
+    else:
+        proof = _commit(evals, p, int(offset) % p, num_folds, fs, defer)
+    if not defer:
+        (last,) = fs.finalize(channel, extras=[proof.final_layer])
+        proof.final_value = finish_deferred(p, last, channel, strict)
+    return proof
+
+
+def _commit(evals: torch.Tensor, p: int, offset: int, num_folds: int, fs,
+            defer: bool) -> FRIProof:
+    """The commit on one device, into one value and one digest buffer."""
+    f = Fp.get(p)
+    wide = f.width == 2
+    n = int(evals.shape[-1])
     lengths = [n >> k for k in range(num_folds + 1)]
     prunes = prune_depths(lengths, defer)
     layout, vtotal, dtotal = layer_layout(lengths, f.width, prunes)
@@ -181,13 +229,7 @@ def fri_commit(evals: torch.Tensor, p: int, offset: int, channel: Channel,
                           wide=wide, prune=prunes[k], scratch=scratch)
 
     layer(0).copy_(evals)
-    offset = int(offset) % p
     offsets, trees = [offset], [tree(0)]
-    if fs is None:
-        channel.mark_phase("fri-commit")
-        fs = DeviceFS(p, channel.state, device=dev)
-    else:
-        fs.mark("fri-commit")
     fs.absorb_root(trees[0].root_digest)
     size, off = n, offset
     for k in range(1, num_folds + 1):
@@ -200,18 +242,99 @@ def fri_commit(evals: torch.Tensor, p: int, offset: int, channel: Channel,
         size //= 2
         off = off * off % p
         offsets.append(off)
-    proof = FRIProof([layer(k) for k in range(num_folds + 1)], trees, None,
-                     offsets, values, digests, layout, prunes)
-    if not defer:
-        (last,) = fs.finalize(channel, extras=[proof.fri_layers[-1]])
-        proof.final_value = finish_deferred(p, last, channel, strict)
-    return proof
+    return FRIProof([layer(k) for k in range(num_folds + 1)], trees, None,
+                    offsets, values, digests, layout, prunes)
 
 
-def open_layout(layer: torch.Tensor) -> torch.Tensor:
+def _fold_sharded(layer, beta, p: int, size: int, off: int):
+    """One fold of a layer sharded in S blocks of L: block d holds E[i],
+    block d + S/2 holds E[i + size/2] for the same i, so the two shards
+    swap halves (L/2 values each way) and each folds one half.  Output
+    block 2d (next[d L .. d L + L/2)) stays with block d's shard, 2d + 1
+    with block d + S/2's: the owners interleave."""
+    f, mesh = Fp.get(p), layer.mesh
+    s, k = mesh.size, layer.block_len
+    h = k // 2
+    betas = replicated(mesh, beta)
+    blocks, owners = [None] * s, [None] * s
+    for d in range(s // 2):
+        lo, hi = layer.blocks[d], layer.blocks[d + s // 2]
+        o_lo, o_hi = layer.owners[d], layer.owners[d + s // 2]
+        for out, own, v, w, start in (
+                (2 * d, o_lo, lo[..., :h],
+                 mesh.send(hi[..., :h], o_hi, o_lo, "fri"), d * k),
+                (2 * d + 1, o_hi, mesh.send(lo[..., h:], o_lo, o_hi, "fri"),
+                 hi[..., h:], d * k + h)):
+            inv = _inv_domain(p, size, off, str(mesh.devices[own]), start, h)
+            blocks[out] = f.storage(_fold_pair(p, v, w, betas[own], inv))
+            owners[out] = own
+    return Sharded(blocks, mesh, owners)
+
+
+def _gather(layer) -> torch.Tensor:
+    """A sharded layer whole on the first shard (the FRI tail gather)."""
+    mesh = layer.mesh
+    return torch.cat([mesh.send(b, o, 0, "fri")
+                      for b, o in zip(layer.blocks, layer.owners)], dim=-1)
+
+
+def _commit_mesh(evals, p: int, offset: int, num_folds: int, fs,
+                 mesh) -> FRIProof:
+    """The commit over a mesh, folding as ``dist.comm.fri_fold_schedule``
+    says: sharded folds (shard d with d + S/2), the tail gathered to the
+    first shard once a layer is below 8 S, local folds after that.  A
+    sharded layer's tree is a ``dist_merkle_tree``, a local one's a
+    ``MerkleTree`` on the first shard; a sharded last layer is gathered
+    for the final-constant send."""
+    f = Fp.get(p)
+    wide = f.width == 2
+    cur = evals if isinstance(evals, Sharded) else sharded(mesh, evals)
+    n = int(cur.shape[-1])
+    sched = fri_fold_schedule(n, mesh.size, num_folds, elem=4 * f.width)
+    gathers = {st["layer"] for st in sched if st["op"] == "gather_tail"}
+    if mesh.size == 1:
+        cur = cur.blocks[0]
+
+    def tree(layer):
+        if isinstance(layer, Sharded):
+            return dist_merkle_tree(layer, mesh, wide=wide)
+        return MerkleTree(layer, wide=wide)
+
+    layers, trees, offsets = [cur], [tree(cur)], [offset]
+    fs.absorb_root(trees[0].root_digest)
+    size, off = n, offset
+    for k in range(num_folds):
+        beta = fs.draw()
+        if k in gathers:
+            cur = _gather(cur)
+        if isinstance(cur, Sharded):
+            cur = _fold_sharded(cur, beta, p, size, off)
+        else:
+            cur = f.storage(_fold_fn(p, size)(
+                cur, beta, _inv_domain(p, size, off, str(cur.device))))
+        layers.append(cur)
+        trees.append(tree(cur))
+        fs.absorb_root(trees[-1].root_digest)
+        size //= 2
+        off = off * off % p
+        offsets.append(off)
+    values, digests = [], []
+    for layer, t in zip(layers, trees):
+        blocks = layer.blocks if isinstance(layer, Sharded) else (layer,)
+        values += [b.reshape(-1) for b in blocks]
+        digests += t.entries
+    last = _gather(cur) if isinstance(cur, Sharded) else None
+    return FRIProof(layers, trees, None, offsets, values, digests, None,
+                    (0,) * len(layers), last)
+
+
+def open_layout(layer):
     """A value tensor in BatchGather's row layout: (2, n) Goldilocks limb
     planes as an (n, 2) view, so a gathered row is one element (both
-    limbs); u32 values pass through."""
+    limbs); u32 values pass through; a ``Sharded`` layer as its row
+    view."""
+    if isinstance(layer, Sharded):
+        return layer.rows()
     return layer.T if layer.dim() == 2 else layer
 
 

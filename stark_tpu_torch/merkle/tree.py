@@ -154,6 +154,14 @@ def build_tree(values: torch.Tensor, out: torch.Tensor | None = None, *,
         _first_stored(values, out[:m], leaves, wide, prune, scratch)
     else:
         leaves(values, out=out[:n], wide=wide)
+    return hash_levels(out, m)
+
+
+def hash_levels(out: torch.Tensor, m: int) -> torch.Tensor:
+    """Every level above the first of a tree buffer whose first `m` rows
+    hold that level (:func:`level_offsets` layout): one K4 launch a level,
+    the promoted node of an odd level copied after its pairs.  Returns
+    `out`."""
     offs = level_offsets(m)
     for (off_c, size_c), (off_p, size_p) in zip(offs, offs[1:]):
         half = size_c // 2
@@ -256,6 +264,12 @@ class MerkleTree:
     def root_digest(self) -> torch.Tensor:
         """(8,) int32 root words, still on the device."""
         return self.buffer[-1]
+
+    @property
+    def entries(self) -> list[torch.Tensor]:
+        """The buffers K5's query form reads for this tree (its one
+        buffer; a ``DistMerkleTree`` has one a subtree)."""
+        return [self.buffer]
 
     def root(self) -> str:
         """Lowercase hex root (merkle/mod.rs:24-26)."""

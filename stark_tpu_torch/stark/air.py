@@ -34,9 +34,15 @@ from stark_tpu_torch.ntt.reference_ntt import root_of_unity
 
 
 class _BaseContext:
-    """Shared per-config tables: the LDE coset domain and its inverses."""
+    """Shared per-config tables: the LDE coset domain and its inverses.
 
-    def __init__(self, cfg: ProverConfig, device):
+    With `block` = (start, size) the tables cover only the LDE lanes
+    start .. start + size - 1 (a shard's block of a mesh prove,
+    ``dist/compose.py``), built directly, so S blocks cost one whole
+    build; ``compose`` then takes that block followed by a halo of the
+    lanes after it and reads row shifts as slices of it."""
+
+    def __init__(self, cfg: ProverConfig, device, block=None):
         cfg.validate()
         p = cfg.modulus
         self.cfg = cfg
@@ -46,8 +52,18 @@ class _BaseContext:
         self.M = cfg.eval_domain_size
         self.g = root_of_unity(p, self.N)
         self.w = root_of_unity(p, self.M)
-        self.domain = self.fp.coset_domain(cfg.offset, self.w, self.M,
-                                           self.device)
+        self.block = block
+        start, size = block or (0, self.M)
+        self.domain = self.fp.coset_domain(
+            cfg.offset * pow(self.w, start, p), self.w, size, self.device)
+
+    def shift(self, lde: torch.Tensor, k: int) -> torch.Tensor:
+        """The LDE at x * w^k for every lane x: rolled along the last axis
+        over the whole domain, or lanes k .. k + size - 1 of a block with
+        its halo."""
+        if self.block is not None:
+            return lde[..., k:k + self.block[1]]
+        return lde if k == 0 else torch.roll(lde, -k, -1)
 
     def _const(self, value) -> torch.Tensor:
         """A broadcastable constant: 0-dim, or a (2, 1) pair (JAX ``_bc``);
@@ -79,8 +95,8 @@ class _BaseContext:
 
 
 class _FibContext(_BaseContext):
-    def __init__(self, cfg: ProverConfig, device):
-        super().__init__(cfg, device)
+    def __init__(self, cfg: ProverConfig, device, block=None):
+        super().__init__(cfg, device, block)
         p, g, N = cfg.modulus, self.g, self.N
         self.inv_b0 = self.boundary_inv(1)
         self.inv_b1 = self.boundary_inv(pow(g, N - 2, p))
@@ -93,9 +109,7 @@ class _FibContext(_BaseContext):
         f = self.fp
         b = self.cfg.blowup
         al = [self._const(a) for a in alphas]
-        f_x = lde
-        f_gx = torch.roll(lde, -b, -1)
-        f_g2x = torch.roll(lde, -2 * b, -1)
+        f_x, f_gx, f_g2x = (self.shift(lde, k * b) for k in range(3))
         p0 = f.mul(f.sub(f_x, self._const(publics["a0"])), self.inv_b0)
         p1 = f.mul(f.sub(f_x, self._const(publics["a_last"])), self.inv_b1)
         num = f.sub(f.sub(f_g2x, f.mul(f_gx, f_gx)), f.mul(f_x, f_x))
@@ -151,8 +165,8 @@ class FibonacciSquareAIR:
     def num_folds(self, cfg: ProverConfig) -> int:
         return cfg.log2_trace  # CP degree < N
 
-    def context(self, cfg: ProverConfig, device) -> _FibContext:
-        return _FibContext(cfg, device)
+    def context(self, cfg: ProverConfig, device, block=None) -> _FibContext:
+        return _FibContext(cfg, device, block)
 
     def cp_at(self, cfg: ProverConfig, x: int, opened, alphas,
               publics: dict) -> int:
@@ -181,8 +195,8 @@ class _NextRowContext(_BaseContext):
     (MiMC³, FibMul): boundaries at g^0 and g^(N-2), the transition at
     g^0..g^(T-2)."""
 
-    def __init__(self, cfg: ProverConfig, device):
-        super().__init__(cfg, device)
+    def __init__(self, cfg: ProverConfig, device, block=None):
+        super().__init__(cfg, device, block)
         p, g, N = cfg.modulus, self.g, self.N
         self.inv_b0 = self.boundary_inv(1)
         self.inv_b1 = self.boundary_inv(pow(g, N - 2, p))
@@ -191,16 +205,15 @@ class _NextRowContext(_BaseContext):
 
 
 class _MimcContext(_NextRowContext):
-    def __init__(self, cfg: ProverConfig, k: int, device):
-        super().__init__(cfg, device)
+    def __init__(self, cfg: ProverConfig, k: int, device, block=None):
+        super().__init__(cfg, device, block)
         self.k = k
 
     def compose(self, lde: torch.Tensor, alphas, publics: dict):
         f = self.fp
         b = self.cfg.blowup
         al = [self._const(a) for a in alphas]
-        f_x = lde
-        f_gx = torch.roll(lde, -b, -1)
+        f_x, f_gx = self.shift(lde, 0), self.shift(lde, b)
         p0 = f.mul(f.sub(f_x, self._const(publics["input"])), self.inv_b0)
         p1 = f.mul(f.sub(f_x, self._const(publics["output"])), self.inv_b1)
         t = f.add(f_x, self._const(self.k))
@@ -242,8 +255,8 @@ class MimcAIR:
     def num_folds(self, cfg: ProverConfig) -> int:
         return cfg.log2_trace + 1  # CP degree < 2N
 
-    def context(self, cfg: ProverConfig, device) -> _MimcContext:
-        return _MimcContext(cfg, self.k, device)
+    def context(self, cfg: ProverConfig, device, block=None) -> _MimcContext:
+        return _MimcContext(cfg, self.k, device, block)
 
     def cp_at(self, cfg: ProverConfig, x: int, opened, alphas,
               publics: dict) -> int:
@@ -266,9 +279,9 @@ class _FibMulContext(_NextRowContext):
         f = self.fp
         b = self.cfg.blowup
         al = [self._const(a) for a in alphas]
-        a_x, b_x = self.column(lde, 0), self.column(lde, 1)
-        a_gx = torch.roll(a_x, -b, -1)
-        b_gx = torch.roll(b_x, -b, -1)
+        a_lde, b_lde = self.column(lde, 0), self.column(lde, 1)
+        a_x, b_x = self.shift(a_lde, 0), self.shift(b_lde, 0)
+        a_gx, b_gx = self.shift(a_lde, b), self.shift(b_lde, b)
         terms = (
             f.mul(f.sub(a_x, self._const(publics["input"])), self.inv_b0),
             f.mul(f.sub(b_x, self._const(publics["b0"])), self.inv_b0),
@@ -314,8 +327,9 @@ class FibMulAIR:
     def num_folds(self, cfg: ProverConfig) -> int:
         return cfg.log2_trace  # CP degree < N
 
-    def context(self, cfg: ProverConfig, device) -> _FibMulContext:
-        return _FibMulContext(cfg, device)
+    def context(self, cfg: ProverConfig, device,
+                block=None) -> _FibMulContext:
+        return _FibMulContext(cfg, device, block)
 
     def cp_at(self, cfg: ProverConfig, x: int, opened, alphas,
               publics: dict) -> int:

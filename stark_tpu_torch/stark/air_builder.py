@@ -376,8 +376,9 @@ class AirSpec:
         out.update(self._param_values)
         return out
 
-    def context(self, cfg: ProverConfig, device) -> "_SpecContext":
-        return _SpecContext(cfg, self, device)
+    def context(self, cfg: ProverConfig, device,
+                block=None) -> "_SpecContext":
+        return _SpecContext(cfg, self, device, block)
 
     def cp_at(self, cfg: ProverConfig, x: int, opened, alphas,
               publics: dict) -> int:
@@ -412,8 +413,9 @@ class _SpecContext(_BaseContext):
     """The composer of a spec: boundary and transition zerofier inverses
     and the periodic columns' evaluations on the LDE domain (device)."""
 
-    def __init__(self, cfg: ProverConfig, spec: AirSpec, device):
-        super().__init__(cfg, device)
+    def __init__(self, cfg: ProverConfig, spec: AirSpec, device,
+                 block=None):
+        super().__init__(cfg, device, block)
         p, g, N, T = cfg.modulus, self.g, self.N, cfg.trace_length
         self.spec = spec
         # one inverse table per boundary row (tribmul binds three publics
@@ -428,7 +430,9 @@ class _SpecContext(_BaseContext):
         # periodic columns: K(x) = K_hat(x^(N/L)).  Over the coset
         # {off·W^j} the argument x^(N/L) cycles with period blowup·L, so
         # K over the domain is blowup·L host-built points tiled
-        # M/(blowup·L) times along the lanes
+        # M/(blowup·L) times along the lanes (a block's lanes: the
+        # points from start mod blowup·L on, tiled over its size)
+        start, size = block or (0, self.M)
         self.periodic = {}
         for name, cyc in spec.periodic.items():
             coeffs = _periodic_coeffs(cyc, p)
@@ -438,7 +442,8 @@ class _SpecContext(_BaseContext):
             evals = [_horner(coeffs, off * pow(wb, j, p) % p, p)
                      for j in range(bl)]
             small = self.fp.array(evals, self.device)  # (bl,) or (2, bl)
-            self.periodic[name] = small.tile((self.M // bl,))
+            small = torch.roll(small, -(start % bl), -1)
+            self.periodic[name] = small.tile((-(-size // bl),))[..., :size]
 
     def compose(self, lde: torch.Tensor, alphas, publics: dict):
         """The composition polynomial on the LDE domain (int32 storage).
@@ -451,11 +456,8 @@ class _SpecContext(_BaseContext):
         al = [self._const(a) for a in alphas]
         cols = (tuple(self.column(lde, c) for c in range(spec.num_columns))
                 if spec.num_columns > 1 else (lde,))
-        rows = tuple(
-            tuple(col if s == 0 else torch.roll(col, -s * blw, -1)
-                  for col in cols)
-            for s in spec.shifts
-        )
+        rows = tuple(tuple(self.shift(col, s * blw) for col in cols)
+                     for s in spec.shifts)
         terms = [
             f.mul(f.sub(rows[0][b.column], self._const(publics[b.public])),
                   bi)

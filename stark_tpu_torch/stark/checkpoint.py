@@ -146,9 +146,11 @@ class ReplayChannel(Channel):
 def prove_resumable(cfg: ProverConfig, a1: int = 3141592,
                     resume: ProverCheckpoint | None = None,
                     stop_after: str | None = None, air=None,
-                    device="cuda"):
+                    device=None, mesh=None):
     """Prove with stop / resume support, any statement family, on
-    `device` (the card unless the caller asks for the CPU).
+    `device` (the card unless the caller asks for the CPU), or sharded
+    over `mesh` (a ``dist.mesh.Mesh``, as ``prove``: its per-phase mesh
+    path, the device state recomputed sharded on resume).
 
     Returns a StarkProof, or a ProverCheckpoint when `stop_after` names a
     phase ('trace-commit', 'composition', 'fri-commit', 'queries').  With
@@ -184,6 +186,6 @@ def prove_resumable(cfg: ProverConfig, a1: int = 3141592,
                             air_params)
     try:
         return _prover.prove(cfg, a1=a1, air=air, device=device,
-                             channel=channel)
+                             channel=channel, mesh=mesh)
     except ProverInterrupted as e:
         return e.checkpoint

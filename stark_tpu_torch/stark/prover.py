@@ -29,6 +29,16 @@ whole; the trace commit and the FRI commit each end in one fetch and a
 replay, and the queries run on the device plan (one fetch) or, when it
 does not take the configuration or under ``STARK_TPU_TORCH_HOST_QUERIES``,
 as one BatchGather a query.
+
+With `mesh` (a ``dist.mesh.Mesh``, one process driving every shard) the
+same two paths run sharded: the LDE through the four-step
+``dist_coset_evaluate``, the trees through ``dist_merkle_tree``, the
+composition shard by shard with a halo (``dist/compose.py``), the FRI
+commit folding as ``dist.comm.fri_fold_schedule`` says, and the query
+phase as one launch of K5's query form reading every shard from the
+first, where the Fiat-Shamir state lives; the single-fetch path still
+ends in one fetch.  The transcript is byte-identical to the
+single-device prove's.
 """
 
 from __future__ import annotations
@@ -45,6 +55,9 @@ from stark_tpu_torch.channel import device_query as _dq
 from stark_tpu_torch.channel.channel import Channel
 from stark_tpu_torch.channel.device_channel import DeviceFS, absorb_value
 from stark_tpu_torch.config import ProverConfig
+from stark_tpu_torch.dist.compose import compose_sharded
+from stark_tpu_torch.dist.merkle import dist_merkle_tree
+from stark_tpu_torch.dist.ntt import dist_coset_evaluate
 from stark_tpu_torch.fields.fp import Fp, upload_u32
 from stark_tpu_torch.fri.commit import (collect_query_arrays, emit_plan,
                                         finish_deferred, fri_commit,
@@ -57,7 +70,8 @@ from stark_tpu_torch.stark.trace import trace_polynomial
 from stark_tpu_torch.utils import metrics as _metrics
 from stark_tpu_torch.utils.gather import BatchGather, fetch_packed
 
-# which pipeline the last prove() took: "single-fetch" or "per-phase"
+# which pipeline the last prove() took: "single-fetch" or "per-phase",
+# with "-mesh" after it for a sharded prove
 LAST_PROVE_PATH: str | None = None
 
 
@@ -143,52 +157,81 @@ class StarkProof:
 _CTX_CACHE: dict = {}
 
 
-def get_air_context(air, cfg: ProverConfig, device):
-    """Per-(AIR, config, device) context cache (the inverse tables; MiMC's
-    round key and an AirSpec's structure are part of its context)."""
+def get_air_context(air, cfg: ProverConfig, device, block=None):
+    """Per-(AIR, config, device, block) context cache (the inverse tables;
+    MiMC's round key and an AirSpec's structure are part of its context;
+    `block` the (start, size) lanes of a mesh shard's tables)."""
     key = (air.name, getattr(air, "k", None),
-           getattr(air, "context_key", None), cfg, str(device))
+           getattr(air, "context_key", None), cfg, str(device), block)
     ctx = _CTX_CACHE.get(key)
     if ctx is None:
-        ctx = _CTX_CACHE[key] = air.context(cfg, device)
+        ctx = _CTX_CACHE[key] = air.context(cfg, device, block)
     return ctx
+
+
+def _compose(air, cfg, f_evals, alphas, publics, device, mesh):
+    """The composition on one device, or over the mesh shard by shard."""
+    if mesh is None:
+        return get_air_context(air, cfg, device).compose(f_evals, alphas,
+                                                         publics)
+    return compose_sharded(
+        air, cfg, f_evals, alphas, publics,
+        lambda block, dev: get_air_context(air, cfg, dev, block))
+
+
+def _trace_tree(f_evals, air, wide: bool, mesh, prune: int = 0):
+    """The trace commitment: a row-leaf tree for C > 1 columns; sharded
+    over the mesh (never pruned) or on one device."""
+    if mesh is not None:
+        return dist_merkle_tree(f_evals, mesh, columns=air.num_columns > 1,
+                                wide=wide)
+    tree = MerkleTree.from_columns if air.num_columns > 1 else MerkleTree
+    return tree(f_evals, wide=wide, prune=prune)
 
 
 @functools.lru_cache(maxsize=None)
 def _query_plan(cfg: ProverConfig, offsets: tuple, num_folds: int,
                 num_columns: int, elem_width: int, trace_prune: int,
-                fri_prune: tuple) -> _dq.DeviceQueryPlan:
+                fri_prune: tuple, shards: int) -> _dq.DeviceQueryPlan:
     M = cfg.eval_domain_size
     rng = M - max(offsets)
     fri_lengths = tuple(M >> k for k in range(num_folds + 1))
     return _dq.DeviceQueryPlan(rng, cfg.num_queries, offsets, M,
                                fri_lengths, num_columns, elem_width,
-                               trace_prune, fri_prune)
+                               trace_prune, fri_prune, shards)
 
 
-def query_plan(cfg: ProverConfig, air=None,
-               pruned: bool = True) -> _dq.DeviceQueryPlan:
+def query_plan(cfg: ProverConfig, air=None, pruned: bool = True,
+               shards: int = 1) -> _dq.DeviceQueryPlan:
     """The device query plan of `air`'s prove of `cfg` (Fibonacci-square
     by default), built once per (configuration, trace offsets, fold
-    count, column count, field width, tree prune depths); pruned as
-    ``merkle.tree.prune_depths`` says at the time of the call, or not
-    at all with `pruned` false (the per-phase path's whole trees).
-    Raises ValueError for a configuration the plan does not take."""
+    count, column count, field width, tree prune depths, shards); pruned
+    as ``merkle.tree.prune_depths`` says at the time of the call, or not
+    at all with `pruned` false (the per-phase path's whole trees) or
+    over a mesh of `shards` > 1 (whose trees are never pruned).  Raises
+    ValueError for a configuration the plan does not take."""
     air = air or FibonacciSquareAIR()
     M, num_folds = cfg.eval_domain_size, air.num_folds(cfg)
+    pruned = pruned and shards == 1
     (trace_prune,) = prune_depths((M,), pruned)
     return _query_plan(cfg, tuple(s * cfg.blowup for s in air.shifts),
                        num_folds, air.num_columns, Fp.get(cfg.modulus).width,
                        trace_prune, prune_depths(
-                           [M >> k for k in range(num_folds + 1)], pruned))
+                           [M >> k for k in range(num_folds + 1)], pruned),
+                       shards)
 
 
 def prove(cfg: ProverConfig, a1: int = 3141592, *, air=None,
-          device="cuda", metrics=None, channel: Channel | None = None,
-          trace=None, strict: bool = True) -> StarkProof:
+          device=None, metrics=None, channel: Channel | None = None,
+          trace=None, strict: bool = True, mesh=None) -> StarkProof:
     """Prove a statement of `air` on `device` (default: Fibonacci-square
     with secret a_1): the card by default, where the kernels run; a CPU
     device runs their plain versions.
+
+    `mesh`: prove sharded over a ``dist.mesh.Mesh`` (its devices; the
+    trace and the Fiat-Shamir state on its first, which `device`, if
+    given, must be); the transcript is the single-device prove's.  The
+    config's ``mesh_shape`` is not read (as in the JAX package).
 
     `channel`: the host transcript to continue (default a fresh one); a
     channel with ``phase_accurate`` set keeps the prove on the per-phase
@@ -202,20 +245,32 @@ def prove(cfg: ProverConfig, a1: int = 3141592, *, air=None,
     ``proof_bytes`` counters: in ``utils.metrics.GLOBAL`` without
     synchronising the device, or in `metrics`, a MetricsCollector, with
     each phase ending in ``torch.cuda.synchronize()`` on a CUDA device."""
-    if cfg.mesh_shape is not None:
-        raise NotImplementedError(
-            "sharded proving on several GPUs waits for ROADMAP Queue 1 "
-            "item 15")
-    device = torch.device(device)
+    if mesh is not None:
+        want = None if device is None else torch.device(device)
+        if want is not None and (want.type != mesh.first.type or (
+                want.index is not None and want.index != mesh.first.index)):
+            raise ValueError(f"device {device} is not the mesh's first "
+                             f"device {mesh.first}")
+        device = mesh.first
+        if cfg.eval_domain_size < 2 * mesh.size:
+            raise ValueError(f"an LDE of {cfg.eval_domain_size} points "
+                             f"does not shard over {mesh.size} shards")
+    # a mesh of one shard is the single-device prove on its device
+    tag = "" if mesh is None else "-mesh"
+    mesh = mesh if mesh is not None and mesh.size > 1 else None
+    device = torch.device("cuda" if device is None else device)
     if air is None:
         air = FibonacciSquareAIR(a1=a1)
     air.validate(cfg)
     p, M, h = cfg.modulus, cfg.eval_domain_size, cfg.offset
     mx = metrics if metrics is not None else _metrics.GLOBAL
+    devices = set(mesh.devices) if mesh is not None else {device}
 
     def sync():
-        if metrics is not None and device.type == "cuda":
-            torch.cuda.synchronize(device)
+        if metrics is not None:
+            for d in devices:
+                if d.type == "cuda":
+                    torch.cuda.synchronize(d)
 
     # -- trace + LDE: one upload of the host trace -------------------------
     # (T,), or (C, T) for C columns; (2, T) / (C, 2, T) for Goldilocks
@@ -224,7 +279,9 @@ def prove(cfg: ProverConfig, a1: int = 3141592, *, air=None,
             trace.cpu().numpy() if torch.is_tensor(trace) else trace)
         publics = air.publics_from_host(cfg, trace_host)
         trace_dev = upload_u32(trace_host, device)
-        f_evals = coset_evaluate(trace_polynomial(trace_dev, p), p, M, h)
+        coeffs = trace_polynomial(trace_dev, p)
+        f_evals = (coset_evaluate(coeffs, p, M, h) if mesh is None
+                   else dist_coset_evaluate(coeffs, p, M, h, mesh))
         sync()
 
     # the JAX gate (stark_tpu/stark/prover.py:234-240): phase-accurate
@@ -240,19 +297,20 @@ def prove(cfg: ProverConfig, a1: int = 3141592, *, air=None,
         and not host_queries()
         and not os.environ.get("STARK_TPU_TORCH_PHASE_SYNC")
         and _dq.supported(rng, M, fri_lengths, air.num_columns, width))
+    shards = 1 if mesh is None else mesh.size
     if single_fetch:
         return _prove_single_fetch(cfg, air, channel, f_evals, publics,
-                                   query_plan(cfg, air), mx, sync, strict)
+                                   query_plan(cfg, air, shards=shards), mx,
+                                   sync, strict, device, mesh, tag)
     return _prove_per_phase(cfg, air, channel, f_evals, publics, offsets,
-                            fri_lengths, mx, sync, strict)
+                            fri_lengths, mx, sync, strict, device, mesh, tag)
 
 
 def _prove_single_fetch(cfg, air, channel, f_evals, publics, plan, mx,
-                        sync, strict) -> StarkProof:
+                        sync, strict, device, mesh, tag) -> StarkProof:
     global LAST_PROVE_PATH
-    LAST_PROVE_PATH = "single-fetch"
+    LAST_PROVE_PATH = "single-fetch" + tag
     p, h = cfg.modulus, cfg.offset
-    device = f_evals.device
     wide = Fp.get(p).width == 2
     num_folds = len(plan.fri_lengths) - 1
 
@@ -262,8 +320,7 @@ def _prove_single_fetch(cfg, air, channel, f_evals, publics, plan, mx,
         # recomputes their siblings.  The dropped levels' scratch lives
         # for its phase only (the FRI trees share theirs), so the
         # composition, which sets the prove's peak, runs without it
-        tree = MerkleTree.from_columns if air.num_columns > 1 else MerkleTree
-        trace_tree = tree(f_evals, wide=wide, prune=plan.trace_prune)
+        trace_tree = _trace_tree(f_evals, air, wide, mesh, plan.trace_prune)
         fs = DeviceFS(p, channel.state, device=device)
         fs.mark("trace-commit")
         fs.absorb_root(trace_tree.root_digest)
@@ -272,22 +329,23 @@ def _prove_single_fetch(cfg, air, channel, f_evals, publics, plan, mx,
 
     fs.mark("composition")
     with mx.phase("composition"):
-        cp = get_air_context(air, cfg, device).compose(f_evals, alphas,
-                                                       publics)
+        cp = _compose(air, cfg, f_evals, alphas, publics, device, mesh)
         sync()
     with mx.phase("fri-commit", folds=num_folds):
         fri = fri_commit(cp, p, h, channel, num_folds=num_folds, fs=fs,
-                         defer=True)
+                         defer=True, mesh=mesh)
         sync()
 
     with mx.phase("queries", num_queries=cfg.num_queries):
         # the canonical transcript sends the final FRI constant before the
         # query draws: advance the device state over that send too
-        last = fri.fri_layers[-1]
+        last = fri.final_layer
         fs.state = absorb_value(fs.state, *final_words(last, wide))
 
-        dev = plan.run_device(fs.state, f_evals, trace_tree.buffer,
-                              fri.values, fri.digests)
+        dev = plan.run_device(
+            fs.state, f_evals,
+            trace_tree.buffer if mesh is None else trace_tree.entries,
+            fri.values, fri.digests)
 
         # THE one device->host copy: every payload, packed into one buffer
         n_pay = len(fs.payloads())
@@ -303,24 +361,23 @@ def _prove_single_fetch(cfg, air, channel, f_evals, publics, plan, mx,
 
 
 def _prove_per_phase(cfg, air, channel, f_evals, publics, offsets,
-                     fri_lengths, mx, sync, strict) -> StarkProof:
+                     fri_lengths, mx, sync, strict, device, mesh,
+                     tag) -> StarkProof:
     """The prove after the LDE with the host transcript complete at each
     phase boundary (stark_tpu/stark/prover.py:257-365): whole trees, one
     fetch and replay at the end of the trace commit and of the FRI
     commit, then the query phase on the device plan or the BatchGather
     loop."""
     global LAST_PROVE_PATH
-    LAST_PROVE_PATH = "per-phase"
+    LAST_PROVE_PATH = "per-phase" + tag
     p, M, h = cfg.modulus, cfg.eval_domain_size, cfg.offset
-    device = f_evals.device
     width = Fp.get(p).width
     ncols = air.num_columns
     num_folds = len(fri_lengths) - 1
 
     channel.mark_phase("trace-commit")
     with mx.phase("trace-commit", leaves=M):
-        tree = MerkleTree.from_columns if ncols > 1 else MerkleTree
-        trace_tree = tree(f_evals, wide=width == 2)
+        trace_tree = _trace_tree(f_evals, air, width == 2, mesh)
         fs = DeviceFS(p, channel.state, device=device)
         fs.absorb_root(trace_tree.root_digest)
         alphas = tuple(fs.draw() for _ in range(air.num_alphas))
@@ -329,12 +386,11 @@ def _prove_per_phase(cfg, air, channel, f_evals, publics, offsets,
 
     channel.mark_phase("composition")
     with mx.phase("composition"):
-        cp = get_air_context(air, cfg, device).compose(f_evals, alphas,
-                                                       publics)
+        cp = _compose(air, cfg, f_evals, alphas, publics, device, mesh)
         sync()
     with mx.phase("fri-commit", folds=num_folds):
         fri = fri_commit(cp, p, h, channel, num_folds=num_folds,
-                         strict=strict)
+                         strict=strict, mesh=mesh)
         sync()
 
     channel.mark_phase("queries")
@@ -342,9 +398,11 @@ def _prove_per_phase(cfg, air, channel, f_evals, publics, offsets,
         rng = M - max(offsets)
         if not host_queries() and _dq.supported(rng, M, fri_lengths, ncols,
                                                 width):
-            query_plan(cfg, air, pruned=False).run(
-                channel, f_evals, trace_tree.buffer, fri.values,
-                fri.digests)
+            shards = 1 if mesh is None else mesh.size
+            query_plan(cfg, air, pruned=False, shards=shards).run(
+                channel, f_evals,
+                trace_tree.buffer if mesh is None else trace_tree.entries,
+                fri.values, fri.digests, device=device)
         else:
             # one gather-row tensor a trace column (a Goldilocks column
             # as (M, 2) limb pairs); a "vrow" entry sends the row message
@@ -357,7 +415,7 @@ def _prove_per_phase(cfg, air, channel, f_evals, publics, offsets,
             tslot = slots[id(trace_tree.buffer)]
             for _ in range(cfg.num_queries):
                 idx = channel.receive_random_int(0, rng - 1, True)
-                bg = BatchGather(arrays)
+                bg = BatchGather(arrays, mesh=mesh)
                 plan = []
                 for off in offsets:
                     plan.append(("vrow", [bg.want(slots[id(c)], idx + off)

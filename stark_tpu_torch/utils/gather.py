@@ -46,18 +46,25 @@ class BatchGather:
 
     A row is one element along axis 0: of a 1-D value tensor, an (n, 2)
     limb-pair view, an (n, 8) digest buffer.  (The JAX package's `axes`
-    served its plane-form tree levels; the port's trees store rows.)"""
+    served its plane-form tree levels; the port's trees store rows.)
 
-    def __init__(self, arrays: tuple):
+    With `mesh` (a ``dist.mesh.Mesh``) an array may also be sharded: an
+    object whose ``locate(row)`` names the tensor and local row holding a
+    global row (``Sharded.rows()``, a ``DistMerkleTree``); each tensor's
+    rows are gathered on its own device and the packed result goes to the
+    mesh's first device for the one fetch, so no array is gathered
+    whole."""
+
+    def __init__(self, arrays: tuple, mesh=None):
         self.arrays = tuple(arrays)
+        self.mesh = mesh
         self._reqs: list[list[int]] = [[] for _ in self.arrays]
         self._handles: list[tuple[int, int]] = []
         self._result: np.ndarray | None = None
         self._offsets: list[int] | None = None
 
     def _row_elems(self, i: int) -> int:
-        arr = self.arrays[i]
-        return arr.numel() // int(arr.shape[0]) if arr.dim() > 1 else 1
+        return int(np.prod(self.arrays[i].shape[1:], dtype=np.int64))
 
     def want(self, array_i: int, row: int) -> int:
         """Request a row; returns a handle resolved after run()."""
@@ -68,6 +75,8 @@ class BatchGather:
     def run(self) -> None:
         """One upload of every requested row index, one gather a tensor,
         one fetch of the packed rows."""
+        if self.mesh is not None:
+            return self._run_mesh()
         flat = [r for reqs in self._reqs for r in reqs]
         dev = self.arrays[0].device
         idx = torch.tensor(flat, dtype=torch.int64, device=dev)
@@ -79,6 +88,35 @@ class BatchGather:
                 parts.append(rows.reshape(-1))
             pos += len(reqs)
             acc += len(reqs) * self._row_elems(i)
+        self._result = (fetch_packed([torch.cat(parts)])[0].view(np.uint32)
+                        if parts else np.zeros(0, np.uint32))
+        self._offsets = offs
+
+    def _run_mesh(self) -> None:
+        """The gather over a mesh: the rows of each tensor (a sharded
+        array's block, a tree's subtree or top buffer) gathered on its
+        device, moved to the first shard, one fetch."""
+        first = self.mesh.first
+        parts, offs, acc = [], [], 0
+        for i, (arr, reqs) in enumerate(zip(self.arrays, self._reqs)):
+            offs.append(acc)
+            acc += len(reqs) * self._row_elems(i)
+            if not reqs:
+                continue
+            located = ([arr.locate(r) for r in reqs]
+                       if hasattr(arr, "locate") else [(arr, r) for r in reqs])
+            groups: dict[int, tuple] = {}
+            for k, (t, row) in enumerate(located):
+                groups.setdefault(id(t), (t, [], []))
+                groups[id(t)][1].append(k)
+                groups[id(t)][2].append(row)
+            rows = torch.empty((len(reqs), self._row_elems(i)),
+                               dtype=torch.int32, device=first)
+            for t, ks, locs in groups.values():
+                got = t.index_select(0, torch.tensor(locs, device=t.device))
+                rows[torch.tensor(ks, device=first)] = got.reshape(
+                    len(ks), -1).to(first)
+            parts.append(rows.reshape(-1))
         self._result = (fetch_packed([torch.cat(parts)])[0].view(np.uint32)
                         if parts else np.zeros(0, np.uint32))
         self._offsets = offs

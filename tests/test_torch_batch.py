@@ -106,8 +106,11 @@ def test_batch_and_resume_run_on_the_card_by_default():
 
     from stark_tpu_torch.stark import prove_resumable
 
-    for fn in (prove_batch, prove_resumable):
-        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    assert inspect.signature(prove_batch).parameters["device"].default == (
+        "cuda")
+    # None: the card, or the mesh's first device when a mesh is given
+    assert inspect.signature(prove_resumable).parameters[
+        "device"].default is None
     if not torch.cuda.is_available():
         with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
             prove_batch(CFG, [FibonacciSquareAIR()])

@@ -86,7 +86,8 @@ def test_prove_through_the_daemon(tmp_path):
 
 def test_the_card_is_the_default(tmp_path):
     """Without --cpu, prove and serve need a CUDA device and exit non-zero
-    with a message where there is none; --mesh is not ported."""
+    with a message where there is none, --mesh too; with --cpu, --mesh 2
+    proves over two logical CPU shards."""
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device")
     for args in (["prove", *SMALL, "-o", "p.json"],
@@ -95,9 +96,14 @@ def test_the_card_is_the_default(tmp_path):
         assert res.returncode == 2, res.stderr
         assert "no CUDA device: pass --cpu" in res.stderr
     assert not (tmp_path / "p.json").exists()
-    mesh = run("stark_tpu_torch", "prove", "--cpu", "--mesh", "2", *SMALL,
+    mesh = run("stark_tpu_torch", "prove", "--mesh", "2", *SMALL,
                cwd=tmp_path)
-    assert mesh.returncode == 2 and "item 15" in mesh.stderr
+    assert mesh.returncode == 2 and "no CUDA device" in mesh.stderr
+    mesh = run("stark_tpu_torch", "prove", "--cpu", "--mesh", "2", *SMALL,
+               "-o", "m.json", cwd=tmp_path)
+    assert mesh.returncode == 0, mesh.stderr
+    assert "2-shard mesh" in mesh.stderr
+    assert StarkProof.deserialize((tmp_path / "m.json").read_bytes()).proof
 
 
 def test_info(tmp_path):

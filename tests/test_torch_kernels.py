@@ -475,3 +475,47 @@ def test_prove_batch_on_card_equals_proves(dev):
     got = prove_batch(cfg, airs, device=dev)
     assert [g.proof for g in got] == [prove(cfg, air=a, device=dev).proof
                                       for a in airs]
+
+
+@pytest.mark.parametrize("shards", [2, 4])
+@pytest.mark.parametrize("modulus", [P, 2**64 - 2**32 + 1])
+def test_k5_sharded_query_form_matches_plain(dev, shards, modulus):
+    """K5's query form over a mesh plan's sharded sources (one entry a
+    block, a subtree, a tree's top levels, a tail layer) against its
+    plain version, seeded entries; one launch, counted as sharded."""
+    from stark_tpu_torch.channel.device_query import (query_chain,
+                                                      query_chain_plain)
+    from stark_tpu_torch.config import ProverConfig
+    from stark_tpu_torch.stark import FibMulAIR
+    from stark_tpu_torch.stark.prover import query_plan
+
+    kw = {} if modulus == P else {"modulus": modulus, "generator": 7}
+    cfg = ProverConfig(log2_trace=8, blowup=4, num_queries=4, **kw)
+    tb = query_plan(cfg, FibMulAIR(), shards=shards).pack(dev)
+    srcs = [[_u32((size, 8) if k % 2 else (size,), 2**32, 60 + k + e, dev)
+             for e, size in enumerate(sizes)]
+            for k, sizes in enumerate(tb.entries)]
+    chain = _u32(8, 2**32, 59, dev)
+    before = (query_chain.launches, query_chain.sharded_launches)
+    got = query_chain(chain, *srcs, tb)
+    torch.cuda.synchronize()
+    assert (query_chain.launches, query_chain.sharded_launches) == (
+        before[0] + 1, before[1] + 1)
+    for g, w in zip(got, query_chain_plain(chain, *srcs, tb)):
+        assert torch.equal(g, w)
+
+
+def test_mesh_prove_on_card_equals_single_device(dev):
+    """fib-sq and FibMul on 4 logical shards of the card: the
+    single-device transcripts, on the single-fetch mesh path."""
+    from stark_tpu_torch.config import ProverConfig
+    from stark_tpu_torch.dist import make_mesh
+    from stark_tpu_torch.stark import FibMulAIR, prove
+    from stark_tpu_torch.stark import prover as tprover
+
+    cfg = ProverConfig(log2_trace=8, blowup=4, num_queries=4)
+    mesh = make_mesh(devices=[dev] * 4)
+    for air in (None, FibMulAIR()):
+        got = prove(cfg, air=air, mesh=mesh)
+        assert tprover.LAST_PROVE_PATH == "single-fetch-mesh"
+        assert got.proof == prove(cfg, air=air, device=dev).proof

@@ -125,8 +125,16 @@ def test_serialize_round_trip_and_config_interop(vectors):
 
 
 def test_unported_paths_raise():
-    with pytest.raises(NotImplementedError, match="item 15"):
-        prove(ProverConfig(log2_trace=4, mesh_shape=(2,)), device="cpu")
+    # the config's mesh_shape is not read (as in the JAX package): a
+    # sharded prove takes a mesh, and gives the same transcript
+    from stark_tpu_torch.dist import make_mesh
+
+    cfg = ProverConfig(log2_trace=4, mesh_shape=(2,))
+    single = prove(cfg, device="cpu")
+    assert tprover.LAST_PROVE_PATH == "single-fetch"
+    assert prove(cfg, mesh=make_mesh(devices=["cpu"] * 2)).proof == (
+        single.proof)
+    assert tprover.LAST_PROVE_PATH == "single-fetch-mesh"
     # above 2^32 only the Goldilocks prime has a path (as in JAX): the
     # 2-adic prime 18 * 2^32 + 1 is refused
     with pytest.raises(ValueError, match="Goldilocks"):
@@ -147,8 +155,9 @@ def test_unported_paths_raise():
 
 def test_prove_runs_on_the_card_by_default():
     """prove(cfg) without a device targets CUDA; the CPU runs only when
-    the caller asks for it."""
-    assert inspect.signature(prove).parameters["device"].default == "cuda"
+    the caller asks for it.  (The default is None: the card, or a mesh's
+    first device when a mesh is given.)"""
+    assert inspect.signature(prove).parameters["device"].default is None
     if not torch.cuda.is_available():
         # here the default reaches the trace upload and fails there
         with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
