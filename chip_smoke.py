@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``stark_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py [--profile] [--phase multiproc]
 
 Builds the port's CUDA kernels from ``stark_tpu_torch/csrc`` (and its
 native host trace from ``stark_tpu_torch/native``), holds each kernel
@@ -116,6 +116,25 @@ warm walls and phases' peaks; FibMul and fib-sq-GL 2^20 on two shards
 and a per-phase mesh prove of fib-sq 2^20, each to its pinned digest.
 With several cards the 2^24 prove runs again over them; with one, a
 line says it was not run.
+
+``multiproc``: the sharded prove across processes
+(``stark_tpu_torch/dist/multihost.py``): two spawned processes on the
+one card under gloo, two logical shards each, after the kernels are
+built here.  On each rank K5's query form cut at the query boundary (17
+launches, 16 all-reduces through pinned host memory) on the fib-sq 2^24
+mesh plan with seeded sources against its plain version, exact, timed
+beside the one-launch sharded form over every entry and beside its
+all-reduces alone, and the four-step NTT at 2^26 across the processes
+against K2's transform, timed; then fib-sq 2^24
+over the global mesh of four through ``multihost_prove``: the pinned
+single-device digest on both ranks, verified and tamper-rejected on
+each, agreement checked, K1/K2, K3, K4, the K5 chain and the cut query
+form launched on each rank, the bytes that crossed processes summed
+over the ranks equal to ``dist.comm``'s model, cold and warm walls and
+each rank's phases' peaks.  With two or more cards the prove runs again
+under NCCL, one rank a card; with one, a probe of two NCCL ranks on the
+card prints what NCCL answers.  ``--phase multiproc`` runs only the
+build, the latency probe and this phase.
 
 ``--profile`` then adds where a warm prove spends its time, for the
 Fibonacci-square proves at 2^20 and 2^24 rows, MiMC³ at 2^20, FibMul at
@@ -293,6 +312,14 @@ MESH_OTHER_SHARDS = 2
 MESH_PER_PHASE = "2^20"
 MESH_PATHS = 16  # authentication paths compared
 MESH_WARM = 3
+# the sharded prove across processes (stark_tpu_torch/dist/multihost.py):
+# MULTIPROC_RANKS processes on the one card under gloo, MULTIPROC_SHARDS
+# logical shards each (a global mesh of MESH_SHARDS), proving MESH_PROVE;
+# K5's cut query form on that mesh plan against its plain version and
+# the one-launch sharded form; each child's result within this many
+# seconds; the NCCL probe of two ranks on one card within its own
+MULTIPROC_RANKS, MULTIPROC_SHARDS = 2, 2
+MULTIPROC_TIMEOUT, NCCL_PROBE_TIMEOUT = 600, 120
 # the prove whose launch counts fill each row of the kernels line (rows
 # not named here: the 2^24 Fibonacci-square prove)
 ROW_PATH = {"K1": "2^20", "K1 batched": "FibMul 2^20",
@@ -542,7 +569,8 @@ class Results:
     def add(self, name: str, source: str, replaces: str) -> None:
         self.rows[name] = {
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": 0, "max_abs_err": 0,
+            # None until a main path counts it / a check compares it
+            "replaces": replaces, "launches": None, "max_abs_err": None,
             "ms": None, "plain_ms": None, "bound_ms": None, "bound_by": None,
             # no PyTorch call computes an NTT over GF(p) or SHA-256
             "library_ms": None, "shape": None, "launches_by_prove": {}}
@@ -553,7 +581,7 @@ class Results:
         if err != 0:
             raise AssertionError(f"{kernel} {what}: kernel != plain version")
         row = self.rows[kernel]
-        row["max_abs_err"] = max(row["max_abs_err"], err)
+        row["max_abs_err"] = max(row["max_abs_err"] or 0, err)
 
     def time(self, kernel: str, shape: str, kernel_fn, plain_fn, bound,
              row: bool = True, plain_reps: int = REPS,
@@ -1166,7 +1194,8 @@ def counters() -> dict:
     attribute) pairs (K5 has two entry points, both counted; the batched
     NTT rows count the same wrappers' (C, n) launches)."""
     from stark_tpu_torch.channel.device_query import (query_chain,
-                                                      query_chain_batch)
+                                                      query_chain_batch,
+                                                      query_chain_cut)
     from stark_tpu_torch.hash.cuda_chain import sha_chain, sha_chain_batch
     from stark_tpu_torch.hash.cuda_sha import (sha_leaves, sha_leaves_batch,
                                                sha_nodes, sha_nodes_batch,
@@ -1181,7 +1210,8 @@ def counters() -> dict:
             "K3 wide": ((sha_leaves, "wide_launches"),),
             "K3 wide row form": ((sha_row_leaves, "wide_launches"),),
             "K4": ((sha_nodes, "launches"),),
-            "K5": ((sha_chain, "launches"), (query_chain, "launches")),
+            "K5": ((sha_chain, "launches"), (query_chain, "launches"),
+                   (query_chain_cut, "launches")),
             "K5 row messages": ((query_chain, "launches"),),
             "K5 pruned recompute": ((query_chain, "launches"),),
             "K3 tree batch": ((sha_leaves_batch, "launches"),
@@ -1189,7 +1219,8 @@ def counters() -> dict:
             "K4 tree batch": ((sha_nodes_batch, "launches"),),
             "K5 chain batch": ((sha_chain_batch, "launches"),),
             "K5 query batch": ((query_chain_batch, "launches"),),
-            "K5 sharded query": ((query_chain, "sharded_launches"),)}
+            "K5 sharded query": ((query_chain, "sharded_launches"),),
+            "K5 cut query": ((query_chain_cut, "launches"),)}
 
 
 def read_counts() -> dict:
@@ -2092,6 +2123,359 @@ def phase_mesh(res: Results, dev, profile: bool) -> dict:
     return out
 
 
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def _spawn(target, nprocs: int, args: tuple, timeout: float,
+           strict: bool = True) -> list:
+    """Run target(rank, queue, *args) in `nprocs` spawned processes and
+    return their results in rank order; a child that fails (its
+    traceback is what it puts) or is not done within `timeout` seconds
+    fails the run (without `strict`, for a probe whose answer may be a
+    hang: None for each child that did not report), and every child is
+    stopped before this returns."""
+    import multiprocessing as mp
+    import queue as queue_mod
+
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    procs = [ctx.Process(target=target, args=(r, q) + args)
+             for r in range(nprocs)]
+    for pr in procs:
+        pr.start()
+    got, deadline = {}, time.monotonic() + timeout
+    try:
+        while len(got) < nprocs:
+            try:
+                rank, ok, value = q.get(
+                    timeout=max(1.0, deadline - time.monotonic()))
+            except queue_mod.Empty:
+                if not strict:
+                    break
+                raise AssertionError(
+                    f"{len(got)} of {nprocs} processes reported within "
+                    f"{timeout} s") from None
+            if not ok:
+                raise AssertionError(f"rank {rank} failed:\n{value}")
+            got[rank] = value
+    finally:
+        for pr in procs:
+            pr.join(timeout=30)
+            if pr.is_alive():
+                pr.kill()
+                pr.join()
+    return [got.get(r) for r in range(nprocs)]
+
+
+def _child(rank: int, q, fn, *args) -> None:
+    """A spawned child: fn(rank, *args) -> q, or its traceback."""
+    import traceback
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    try:
+        q.put((rank, True, fn(rank, *args)))
+    except BaseException:  # reported to the parent, which fails the run
+        q.put((rank, False, traceback.format_exc()))
+
+
+def _cut_sources(tb, rank: int, ranks: int, full: bool, dev):
+    """Seeded entries of the query sources of `tb` (one generator seed an
+    entry, so every rank makes the same words): the block entries this
+    rank would hold (the blocks and subtrees of a source run in shard
+    order, MULTIPROC_SHARDS a rank) and the replicated ones, the rest
+    None; with `full` every entry too (the one-launch form's sources)."""
+    gen = torch.Generator(device=dev)
+    mine, whole, run, e = [], [], 0, 0
+    per = tb.shards // ranks
+    for k, sizes in enumerate(tb.entries):
+        m, w = [], []
+        for size in sizes:
+            rep = tb.replicated[e]
+            own = rep or run // per == rank
+            run = 0 if rep else (run + 1) % tb.shards
+            t = None
+            if own or full:
+                gen.manual_seed(SEED + 300 + e)
+                t = rand_words_dev(gen, (size, 8) if k % 2 else (size,), dev)
+            m.append(t if own else None)
+            w.append(t)
+            e += 1
+        mine.append(m)
+        whole.append(w)
+    return mine, whole
+
+
+def _multiproc_rank(rank: int, port: int, backend: str) -> dict:
+    """One rank of the process mesh on the card: K5's cut query form on
+    the MESH_PROVE plan against its plain version (and, on rank 0, the
+    one-launch form over every entry), then MESH_PROVE over the global
+    mesh (cold with its phases' peaks, warm MESH_WARM times), checked,
+    verified, counted.  Returns its numbers."""
+    from stark_tpu_torch.channel.device_query import (
+        query_chain, query_chain_cut, query_chain_cut_plain)
+    from stark_tpu_torch.dist import (dist_ntt, distributed_initialize,
+                                      make_mesh, multihost_prove)
+    from stark_tpu_torch.dist.multihost import check_transcript_agreement
+    from stark_tpu_torch.ntt.cuda_ntt import ntt_k2
+    from stark_tpu_torch.stark import prover as tprover
+    from stark_tpu_torch.stark.prover import query_plan
+
+    dev = torch.device("cuda", 0 if backend == "gloo" else rank)
+    torch.cuda.set_device(dev)
+    distributed_initialize(f"127.0.0.1:{port}", MULTIPROC_RANKS, rank,
+                           backend=backend)
+    shards = MULTIPROC_SHARDS if backend == "gloo" else 1
+    mesh = make_mesh(devices=[dev] * shards, backend=backend)
+    out = {"rank": rank, "mesh": repr(mesh)}
+    cfg, air = prove_setup(MESH_PROVE)
+
+    if backend == "gloo":
+        # the four-step NTT at the LDE's size across the processes: this
+        # rank's blocks of the single-device K2 transform, timed
+        n = cfg.eval_domain_size
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED + 310)
+        x = rand_u32_dev(gen, (n,), P, dev)
+        want, k = ntt_k2(x, P, False), n // mesh.size
+        mesh.reset_stats()
+        got = dist_ntt(x, P, mesh)
+        out["dist_ntt_bytes"] = mesh.copied_bytes()
+        out["dist_ntt_err"] = max(max_abs_err(got.blocks[i],
+                                              want[i * k:(i + 1) * k])
+                                  for i in mesh.local)
+        if out["dist_ntt_err"]:
+            raise AssertionError("dist NTT across processes != K2's")
+        out["dist_ntt_ms"] = cuda_ms(lambda: dist_ntt(x, P, mesh))
+        del x, want, got
+        # K5's cut query form against its plain version, exact
+        tb = query_plan(cfg, air, shards=mesh.size).pack(dev)
+        mine, whole = _cut_sources(tb, rank, MULTIPROC_RANKS, rank == 0,
+                                   dev)
+        chain = rand_u32(np.random.RandomState(SEED + 299), 8, 1 << 32, dev)
+        got = query_chain_cut(chain, *mine, tb, mesh)
+        want = query_chain_cut_plain(chain, *mine, tb, mesh)
+        errs = [max_abs_err(a, b) for a, b in zip(got, want)]
+        if any(errs):
+            raise AssertionError(f"cut query form != plain version: {errs}")
+        out["cut_err"] = max(errs)
+        out["cut_blocks"] = tb.num_queries * int(tb.template.shape[0])
+        if rank == 0:
+            one = query_chain(chain, *whole, tb)
+            errs = [max_abs_err(a, b) for a, b in zip(got, one)]
+            if any(errs):
+                raise AssertionError(f"cut form != one-launch form: {errs}")
+        out["cut_ms"] = cuda_ms(
+            lambda: query_chain_cut(chain, *mine, tb, mesh))
+        t0 = time.perf_counter()
+        query_chain_cut_plain(chain, *mine, tb, mesh)
+        torch.cuda.synchronize()
+        out["cut_plain_ms"] = (time.perf_counter() - t0) * 1e3
+        if rank == 0:
+            out["one_launch_ms"] = cuda_ms(
+                lambda: query_chain(chain, *whole, tb))
+        # its all-reduces alone: a query's slot words, summed Q times
+        row = torch.zeros(tb.num_values + 8 * (int(tb.slots.shape[0])
+                                               - tb.num_values),
+                          dtype=torch.int32, device=dev)
+        out["allreduce_ms"] = cuda_ms(lambda: [
+            mesh.all_reduce_(row, None) for _ in range(tb.num_queries)])
+        del mine, whole, got, want, chain, row
+        torch.cuda.empty_cache()
+        torch.distributed.barrier()
+
+    # the main path: MESH_PROVE over the global mesh, counted
+    base = torch.cuda.memory_allocated()
+    mx = phase_peaks()
+    mesh.reset_stats()
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pr = multihost_prove(cfg, air=air, devices=[dev] * shards, metrics=mx,
+                         check_agreement=True)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    out["launches"] = read_counts()
+    out["path"] = tprover.LAST_PROVE_PATH
+    out["digest"] = hashlib.sha256(b"".join(pr.proof)).hexdigest()
+    if out["digest"] != TRANSCRIPT_SHA256[MESH_PROVE]:
+        raise AssertionError(f"rank {rank}: sha256 {out['digest']} != the "
+                             f"pinned {TRANSCRIPT_SHA256[MESH_PROVE]}")
+    check_verifies(f"{MESH_PROVE} on rank {rank}", cfg, pr)
+    check_transcript_agreement(pr.proof)
+    # the counted prove of the model's check runs on this rank's mesh
+    mesh.reset_stats()
+    walls = []
+    for _ in range(MESH_WARM):
+        torch.distributed.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = tprover.prove(cfg, air=air, mesh=mesh)
+        torch.cuda.synchronize()
+        walls.append(round(time.perf_counter() - t0, 3))
+        if again.proof != pr.proof:
+            raise AssertionError(f"rank {rank}: warm prove differs")
+        if len(walls) == 1:
+            out["stats"] = {k: list(v) for k, v in mesh.stats.items()}
+    split = phase_peaks()  # one more warm prove, synced a phase at a time
+    tprover.prove(cfg, air=air, mesh=mesh, metrics=split)
+    out["warm_phase_ms"] = {ph.name: round(ph.wall_s * 1e3, 3)
+                            for ph in split.phases}
+    plan = query_plan(cfg, air, shards=mesh.size).pack(dev)
+    out.update(
+        cold_s=round(cold_s, 3), warm_s=walls,
+        allocated_before_mib=round(base / 2**20, 1),
+        phase_peak_mib=mx.peaks,
+        cold_phase_ms={ph.name: round(ph.wall_s * 1e3, 3)
+                       for ph in mx.phases},
+        query_words=plan.num_values + 8 * (int(plan.slots.shape[0])
+                                           - plan.num_values))
+    torch.distributed.destroy_process_group()
+    return out
+
+
+def _nccl_probe_rank(rank: int, port: int) -> str:
+    """One all-reduce under NCCL with both ranks on card 0: the message
+    NCCL answers with (it refuses two ranks on one card)."""
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=2, rank=rank)
+    try:
+        t = torch.ones(1, device="cuda:0")
+        dist.all_reduce(t)
+        torch.cuda.synchronize()
+        return f"no error: all_reduce gave {float(t)}"
+    except Exception as e:  # the answer is what the probe reports
+        return f"{type(e).__name__}: {' '.join(str(e).split())[:400]}"
+
+
+def phase_multiproc(res: Results, dev) -> dict:
+    """The sharded prove across processes: MULTIPROC_RANKS spawned
+    processes on the one card under gloo, MULTIPROC_SHARDS logical shards
+    each (the kernels built here before they start): K5's cut query form
+    on the MESH_PROVE mesh plan against its plain version and the
+    one-launch sharded form (exact, timed), then MESH_PROVE over the
+    global mesh on every rank: the pinned single-device digest, verified
+    and tamper-rejected on each rank, agreement checked, every kernel of
+    the path launched on each rank (the cut form Q + 1 times, the
+    one-launch form not at all), the bytes that crossed processes summed
+    over the ranks against dist.comm's model, cold and warm walls and
+    each rank's phases' peaks.  Then NCCL with two ranks on the one card
+    (a probe of what it answers) or, with several cards, MESH_PROVE again
+    under NCCL one rank a card."""
+    from stark_tpu_torch.dist.comm import prove_collectives, stats_bytes
+    from stark_tpu_torch.fields.fp import Fp
+    from stark_tpu_torch.stark import FibonacciSquareAIR
+
+    t_phase = time.perf_counter()
+    got = _spawn(_child, MULTIPROC_RANKS,
+                 (_multiproc_rank, _free_port(), "gloo"), MULTIPROC_TIMEOUT)
+    cfg, air = prove_setup(MESH_PROVE)
+    use = air or FibonacciSquareAIR()
+    tag = (f"{MESH_PROVE} multiproc ({MULTIPROC_RANKS} ranks x "
+           f"{MULTIPROC_SHARDS} shards)")
+    for r in got:
+        log(f"multiproc rank {r['rank']}: {r['mesh']}; cold {r['cold_s']} "
+            f"s, warm {r['warm_s']} s ({r['path']}, pinned digest, "
+            f"verified, agreement checked); phases' peaks (MiB) "
+            f"{json.dumps(r['phase_peak_mib'])} ({r['allocated_before_mib']} "
+            f"MiB allocated before), walls (ms) "
+            f"{json.dumps(r['cold_phase_ms'])}, warm walls (ms, synced) "
+            f"{json.dumps(r['warm_phase_ms'])}; launches {r['launches']}; "
+            f"crossed processes {json.dumps(r['stats'])}")
+        launches = r["launches"]
+        for k in ("K3", "K4", "K5 cut query"):
+            if launches[k] == 0:
+                raise AssertionError(f"{k} never launched on rank {r['rank']}")
+        if launches["K1"] + launches["K2"] == 0:
+            raise AssertionError(f"no NTT kernel on rank {r['rank']}")
+        # "K5" counts every K5 form; the chain form is what the query
+        # forms leave (the one-launch form, "K5 row messages", is 0 here)
+        chain = (launches["K5"] - launches["K5 cut query"]
+                 - launches["K5 row messages"])
+        if chain == 0:
+            raise AssertionError(f"K5's chain form never launched on rank "
+                                 f"{r['rank']}")
+        if (launches["K5 cut query"], launches["K5 row messages"]) != (
+                cfg.num_queries + 1, 0):
+            raise AssertionError(f"rank {r['rank']} launched the cut query "
+                                 f"form {launches['K5 cut query']} times, "
+                                 f"the one-launch form "
+                                 f"{launches['K5 row messages']}")
+        log(f"multiproc rank {r['rank']}: K5's chain form launched {chain} "
+            f"times")
+        if r["path"] != "single-fetch-mesh":
+            raise AssertionError(f"rank {r['rank']} took {r['path']}")
+    summed: dict = {}
+    for r in got:
+        for k, (_, b) in r["stats"].items():
+            summed[k] = summed.get(k, 0) + b
+    model = stats_bytes(prove_collectives(
+        cfg.log2_trace, cfg.blowup, MESH_SHARDS, use.num_folds(cfg),
+        max(use.shifts) * cfg.blowup, use.num_columns,
+        4 * Fp.get(cfg.modulus).width, ranks=MULTIPROC_RANKS,
+        query_words=got[0]["query_words"], num_queries=cfg.num_queries))
+    if summed != model:
+        raise AssertionError(f"bytes across processes {summed}, the model "
+                             f"says {model}")
+    log(f"multiproc: bytes that crossed processes by kind, summed over the "
+        f"ranks: {json.dumps(summed)} (= dist.comm's model)")
+    log(f"multiproc: dist NTT 2^{cfg.eval_domain_size.bit_length() - 1} "
+        f"across the processes, each rank's blocks equal to K2's (max_abs_err "
+        f"{max(r['dist_ntt_err'] for r in got)}): "
+        f"{[round(r['dist_ntt_ms'], 4) for r in got]} ms on each rank, "
+        f"{[r['dist_ntt_bytes'] for r in got]} bytes sent by each")
+    row = res.rows["K5 cut query"]
+    row["launches"] = got[0]["launches"]["K5 cut query"]
+    for k in res.rows:
+        res.rows[k]["launches_by_prove"][tag] = [r["launches"][k]
+                                                for r in got]
+    row["max_abs_err"] = max(r["cut_err"] for r in got)
+    blocks = got[0]["cut_blocks"]
+    bound = res.card.chain_bound(blocks)
+    row.update(ms=got[0]["cut_ms"], plain_ms=got[0]["cut_plain_ms"],
+               bound_ms=bound[0], bound_by=bound[1],
+               shape=f"{MESH_PROVE} mesh plan on {MESH_SHARDS} shards over "
+                     f"{MULTIPROC_RANKS} processes, {cfg.num_queries} "
+                     f"queries ({blocks} blocks)")
+    log(f"K5 cut query form: kernel on each rank "
+        f"{[round(r['cut_ms'], 4) for r in got]} ms (median of {REPS}, "
+        f"{cfg.num_queries + 1} launches and {cfg.num_queries} gloo "
+        f"all-reduces through pinned host memory), plain "
+        f"{[round(r['cut_plain_ms'], 1) for r in got]} ms, the one-launch "
+        f"sharded form over every entry {got[0]['one_launch_ms']:.4f} ms, "
+        f"its {cfg.num_queries} all-reduces alone "
+        f"{[round(r['allreduce_ms'], 4) for r in got]} ms; "
+        f"{res.card.chain_bounds_text(blocks, got[0]['cut_ms'])}")
+    out = {"ranks": got, "bytes_across_processes": summed}
+
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        nccl = _spawn(_child, MULTIPROC_RANKS,
+                      (_multiproc_rank, _free_port(), "nccl"),
+                      MULTIPROC_TIMEOUT)
+        out["nccl"] = [{k: r[k] for k in ("cold_s", "warm_s",
+                                          "phase_peak_mib", "stats")}
+                       for r in nccl]
+        log(f"multiproc under NCCL, one rank a card: pinned digest on every "
+            f"rank; {json.dumps(out['nccl'])}")
+    else:
+        probe = _spawn(_child, 2, (_nccl_probe_rank, _free_port()),
+                       NCCL_PROBE_TIMEOUT, strict=False)
+        out["nccl_two_ranks_one_card"] = probe
+        log(f"multiproc: one card visible, the NCCL prove (one rank a card) "
+            f"was not run; NCCL with two ranks on the one card answers: "
+            f"{probe}")
+    log(f"multiproc phase: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def phase_gl_memory(dev, at_2e20: dict) -> None:
     """FibMul-GL's cold and warm walls and the cold prove's peak device
     memory at GL_MEMORY_LOGS rows and, from its prove above, 2^20: each
@@ -2496,6 +2880,9 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also profile warm proves (" + ", ".join(PROFILED)
                     + ")")
+    ap.add_argument("--phase", choices=("all", "multiproc"), default="all",
+                    help="multiproc: the build, the latency probe and the "
+                         "multi-process phase only")
     args = ap.parse_args()
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2564,9 +2951,17 @@ def main() -> int:
              "stark_tpu/hash/pallas_chain.py:80 in the lax.scan of "
              "stark_tpu/channel/device_query.py:314 over a mesh's sharded "
              "sources (the JAX mesh prove ran that scan in XLA, "
-             "stark_tpu/stark/prover.py:720-726)")):
+             "stark_tpu/stark/prover.py:720-726)"),
+            ("K5 cut query", "stark_tpu_torch/csrc/sha_chain.cu",
+             "stark_tpu/hash/pallas_chain.py:80 in the lax.scan of "
+             "stark_tpu/channel/device_query.py:314, cut at the query "
+             "boundary for a process mesh (the JAX multi-host prove runs "
+             "that scan under GSPMD, stark_tpu/dist/multihost.py:79)")):
         res.add(name, source, replaces)
     phase_latency(card, dev)
+    if args.phase == "multiproc":
+        phase_multiproc(res, dev)
+        return finish(res, kind, t_start, partial=True)
     phase_ntt(res, dev)
     phase_tree(res, dev)
     phase_tree_wide(res, dev)
@@ -2585,6 +2980,7 @@ def main() -> int:
     phase_resume(dev)
     phase_fri(dev)
     phase_mesh(res, dev, args.profile)
+    phase_multiproc(res, dev)
     phase_gl_memory(dev, {k: v for k, v in walls["FibMul-GL 2^20"].items()
                           if k != "sha256"})
     phase_anchors(dev)
@@ -2593,8 +2989,25 @@ def main() -> int:
     if args.profile:
         for name in PROFILED:
             phase_profile(dev, name)
+    return finish(res, kind, t_start)
+
+
+def finish(res: Results, kind: str, t_start: float,
+           partial: bool = False) -> int:
+    """The kernels line and the result line.  Every row must have been
+    counted on a main path and compared with its plain version in this
+    run; a `partial` run (one phase) prints only the rows it measured."""
     log(f"whole run: {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": list(res.rows.values())}))
+    rows = [r for r in res.rows.values()
+            if r["launches"] is not None and r["max_abs_err"] is not None]
+    left = [r["name"] for r in res.rows.values() if r not in rows]
+    if left and not partial:
+        raise AssertionError(f"rows neither counted on a main path nor "
+                             f"compared in this run: {left}")
+    if left:
+        log(f"rows this phase did not measure, left out of the kernels "
+            f"line: {left}")
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -40,7 +40,8 @@ SIGNATURES = {
                     "stark_sha_nodes": [_P, _P, _I, _LL, _LL, _I, _P]},
     "sha_chain": {"stark_sha_chain": [_P] * 4 + [_I, _LL, _LL, _I, _P],
                   "stark_query_chain": [_P] * 6 + [_I] * 7 + [_U, _I]
-                                       + [_P] * 4 + [_I, _P],
+                                       + [_P] * 4 + [_I] * 4 + [_LL] * 2
+                                       + [_I, _P],
                   "stark_enable_peer": [_I],
                   "stark_query_chain_max_rows": [_I],
                   "stark_dep_latency": [_P, _I, _I, _P]},

@@ -137,6 +137,10 @@ class QueryTables:
     # words, digest rows); one entry each when unsharded
     entries: tuple
     shards: int  # the mesh's shard count (1: unsharded sources)
+    # per entry (in entry order): whether every process of a process mesh
+    # holds it (a tree's top levels, an unsharded FRI layer and its tree)
+    # or only its block's owner (a block, a subtree)
+    replicated: tuple
     tasks: torch.Tensor  # (T, 9) int64 rows of TASK_COLUMNS
     max_prune: int  # the deepest task's prune (0: no task)
     subtree_rows: int  # digest rows of a query's recomputed nodes
@@ -215,6 +219,35 @@ def source_entries(tb: QueryTables, sources) -> list:
 _SOURCE_NAMES = ("f_evals", "trace_digests", "fri_values", "fri_digests")
 
 
+def _slot_columns(tb: QueryTables, dev):
+    """The slot table's columns on `dev`, and each source kind's slots."""
+    cols = dict(zip(SLOT_COLUMNS, tb.slots.to(dev).unbind(1)))
+    src = tb.slots[:, 0].cpu()
+    sel = [torch.nonzero(src == k).flatten().to(dev) for k in range(6)]
+    return cols, sel
+
+
+def _gather_plain(tb: QueryTables, cols, sel, idx, ents, v, d) -> None:
+    """One query's opened values into `v` (Nv,) and digests into `d`
+    (Nd, 8) at idx, through the slot table: each slot from its entry (a
+    None entry left as it is: zero in the cut form), a pruned path's
+    siblings from the recompute."""
+    nv = tb.num_values
+    pos, ent = _positions(cols, idx), _entries(cols, idx)
+    for k in (TRACE_VALUE, FRI_VALUE, TRACE_DIGEST, FRI_DIGEST):
+        out, first = (v, 0) if k in (TRACE_VALUE, FRI_VALUE) else (d, nv)
+        for e in torch.unique(ent[sel[k]]).tolist():
+            buf = ents[e]
+            if buf is None:
+                continue
+            m = sel[k][ent[sel[k]] == e]
+            out[m - first] = buf[pos[m].to(buf.device)].to(v.device)
+    if tb.max_prune:
+        sub = _subtrees_plain(tb, idx, ents)
+        for k in (TRACE_SUBTREE, FRI_SUBTREE):
+            d[sel[k] - nv] = sub[pos[sel[k]]]
+
+
 def query_chain_plain(chain, f_evals, trace_digests, fri_values,
                       fri_digests, tb: QueryTables):
     """Plain version of K5's query form, with the kernel's inputs: the
@@ -229,38 +262,59 @@ def query_chain_plain(chain, f_evals, trace_digests, fri_values,
                                fri_digests))
     nv = tb.num_values
     nd = int(tb.slots.shape[0]) - nv
-    cols = dict(zip(SLOT_COLUMNS, tb.slots.to(dev).unbind(1)))
-    src = tb.slots[:, 0].cpu()
-    sel = [torch.nonzero(src == k).flatten().to(dev) for k in range(6)]
+    cols, sel = _slot_columns(tb, dev)
     idxs = torch.empty(tb.num_queries, dtype=torch.int64, device=dev)
     vals = torch.empty((tb.num_queries, nv), dtype=torch.int32, device=dev)
     digs = torch.empty((tb.num_queries, nd, 8), dtype=torch.int32,
                        device=dev)
     for q in range(tb.num_queries):
         idx = mod_state(chain, tb.rng)
-        pos, ent = _positions(cols, idx), _entries(cols, idx)
-        v, d = vals[q], digs[q]
-        for k in (TRACE_VALUE, FRI_VALUE, TRACE_DIGEST, FRI_DIGEST):
-            out, first = (v, 0) if k in (TRACE_VALUE, FRI_VALUE) else (d, nv)
-            for e in torch.unique(ent[sel[k]]).tolist():
-                m = sel[k][ent[sel[k]] == e]
-                buf = ents[e]
-                out[m - first] = buf[pos[m].to(buf.device)].to(dev)
-        if tb.max_prune:
-            sub = _subtrees_plain(tb, idx, ents)
-            for k in (TRACE_SUBTREE, FRI_SUBTREE):
-                d[sel[k] - nv] = sub[pos[sel[k]]]
-        chain = sha_chain_plain(_assemble(tb, v, d), tb.flags, chain)
+        _gather_plain(tb, cols, sel, idx, ents, vals[q], digs[q])
+        chain = sha_chain_plain(_assemble(tb, vals[q], digs[q]), tb.flags,
+                                chain)
         idxs[q] = idx
     return chain, idxs, vals, digs
 
 
-def _launch_query(tb: QueryTables, b: int, chain, f_evals, trace_digests,
-                  fri_values, fri_digests):
+def _query_ptrs(tb: QueryTables, b: int, dev, ents) -> torch.Tensor:
+    """The source table of K5's query form on `dev`: each entry's address
+    and per-proof stride (b proofs; 0: one, no batch axis), after
+    checking it; a None entry (another process's) is address 0, which the
+    kernel reads as zeros.  Entries on another card than `dev` are read
+    through peer access, enabled here; a pair without it raises."""
+    lib = _build.lib("sha_chain")
+    lead = (b,) if b else ()
+    sizes = [(name, k, size) for name, sz in zip(_SOURCE_NAMES, tb.entries)
+             for k, size in enumerate(sz)]
+    rows = []
+    for t, (name, k, size) in zip(ents, sizes):
+        if t is None:
+            rows.append([0, 0])
+            continue
+        if name.endswith("digests"):
+            _build.require(t, f"{name}[{k}]", lead + (size, 8), align=16)
+        else:
+            _build.require(t, f"{name}[{k}]", lead + (size,))
+        if t.device != dev:
+            if not torch.cuda.can_device_access_peer(dev, t.device):
+                raise ValueError(f"{name}[{k}] lies on {t.device}, which "
+                                 f"{dev} cannot access")
+            with torch.cuda.device(dev):
+                _build.check(lib.stark_enable_peer(t.device.index),
+                             f"peer access {dev} -> {t.device}")
+        rows.append([t.data_ptr(), t[0].numel() * 4 if b else 0])
+    return torch.tensor(rows, dtype=torch.int64).to(dev)
+
+
+def _launch_query(tb: QueryTables, b: int, chain, ptrs, idxs, vals, digs,
+                  vstride: int, dstride: int, absorb: int = -1,
+                  queries: tuple | None = None, chain_drawn: bool = True):
     """One launch of K5's query form: one proof (b = 0, no batch axis) or
     b proofs of the plan, one block each, every operand with a leading
-    proof axis.  Entries on another card than the chain's are read
-    through peer access, enabled here; a pair without it raises."""
+    proof axis; `ptrs` from :func:`_query_ptrs`.  Runs `queries` (lo, hi;
+    default all), chained when `chain_drawn`, after chaining query
+    `absorb` (>= 0) from `vals` / `digs` (the cut form).  Returns the
+    chain state after it."""
     lib = _build.lib("sha_chain")
     nrows, nslots = int(tb.template.shape[0]), int(tb.slots.shape[0])
     ntasks = int(tb.tasks.shape[0])
@@ -273,44 +327,43 @@ def _launch_query(tb: QueryTables, b: int, chain, f_evals, trace_digests,
     lead = (b,) if b else ()
     dev = chain.device
     _build.require(chain, "chain", lead + (8,))
-    ents = source_entries(tb, (f_evals, trace_digests, fri_values,
-                               fri_digests))
-    sizes = [(name, k, size) for name, sz in zip(_SOURCE_NAMES, tb.entries)
-             for k, size in enumerate(sz)]
-    for t, (name, k, size) in zip(ents, sizes):
-        if name.endswith("digests"):
-            _build.require(t, f"{name}[{k}]", lead + (size, 8), align=16)
-        else:
-            _build.require(t, f"{name}[{k}]", lead + (size,))
-        if t.device != dev:
-            if not torch.cuda.can_device_access_peer(dev, t.device):
-                raise ValueError(f"{name}[{k}] lies on {t.device}, which "
-                                 f"{dev} cannot access")
-            with torch.cuda.device(dev):
-                _build.check(lib.stark_enable_peer(t.device.index),
-                             f"peer access {dev} -> {t.device}")
-    ptrs = torch.tensor(
-        [[t.data_ptr(), t[0].numel() * 4 if b else 0] for t in ents],
-        dtype=torch.int64).to(dev)
     _build.require(tb.template, "template", (nrows, 16), align=16)
     _build.require(tb.flags, "flags", (nrows, 2), align=8)
     _build.require(tb.slots, "slots", (nslots, len(SLOT_COLUMNS)),
                    dtype=torch.int64, align=8)
     _build.require(tb.tasks, "tasks", (ntasks, len(TASK_COLUMNS)),
                    dtype=torch.int64, align=8)
-    q_n, nv = tb.num_queries, tb.num_values
+    q_n = tb.num_queries
+    lo, hi = queries or (0, q_n)
     out = torch.empty(lead + (8,), dtype=torch.int32, device=dev)
-    idxs = torch.empty(lead + (q_n,), dtype=torch.int64, device=dev)
-    vals = torch.empty(lead + (q_n, nv), dtype=torch.int32, device=dev)
-    digs = torch.empty(lead + (q_n, nslots - nv, 8), dtype=torch.int32,
-                       device=dev)
     _build.check(lib.stark_query_chain(
         chain.data_ptr(), ptrs.data_ptr(), tb.template.data_ptr(),
         tb.flags.data_ptr(), tb.slots.data_ptr(), tb.tasks.data_ptr(), nrows,
-        nslots, nv, ntasks, tb.max_prune, tb.subtree_rows,
+        nslots, tb.num_values, ntasks, tb.max_prune, tb.subtree_rows,
         int(tb.elem_width == 2), tb.rng, q_n, out.data_ptr(),
-        idxs.data_ptr(), vals.data_ptr(), digs.data_ptr(), max(b, 1),
+        idxs.data_ptr(), vals.data_ptr(), digs.data_ptr(), absorb, lo, hi,
+        int(chain_drawn), vstride, dstride, max(b, 1),
         _build.stream_ptr(dev)), "K5 query_chain" + "_batch" * bool(b))
+    return out
+
+
+def _query_outputs(tb: QueryTables, b: int, dev):
+    """(idxs, vals, digs) of the one-launch form, (b,) leading."""
+    lead = (b,) if b else ()
+    q_n, nv = tb.num_queries, tb.num_values
+    return (torch.empty(lead + (q_n,), dtype=torch.int64, device=dev),
+            torch.empty(lead + (q_n, nv), dtype=torch.int32, device=dev),
+            torch.empty(lead + (q_n, int(tb.slots.shape[0]) - nv, 8),
+                        dtype=torch.int32, device=dev))
+
+
+def _one_launch(tb: QueryTables, b: int, chain, sources):
+    ents = source_entries(tb, sources)
+    ptrs = _query_ptrs(tb, b, chain.device, ents)
+    idxs, vals, digs = _query_outputs(tb, b, chain.device)
+    nv = tb.num_values
+    out = _launch_query(tb, b, chain, ptrs, idxs, vals, digs, nv,
+                        8 * (int(tb.slots.shape[0]) - nv))
     return out, idxs, vals, digs
 
 
@@ -324,8 +377,8 @@ def query_chain(chain, f_evals, trace_digests, fri_values, fri_digests,
     if _build.plain_device(chain):
         return query_chain_plain(chain, f_evals, trace_digests, fri_values,
                                  fri_digests, tb)
-    res = _launch_query(tb, 0, chain, f_evals, trace_digests, fri_values,
-                        fri_digests)
+    res = _one_launch(tb, 0, chain, (f_evals, trace_digests, fri_values,
+                                     fri_digests))
     query_chain.launches += 1
     query_chain.sharded_launches += tb.shards > 1
     return res
@@ -351,14 +404,102 @@ def query_chain_batch(chain, f_evals, trace_digests, fri_values,
                                   fri_values[k], fri_digests[k], tb)
                 for k in range(b)]
         return tuple(torch.stack(x) for x in zip(*outs))
-    res = _launch_query(tb, b, chain, f_evals, trace_digests, fri_values,
-                        fri_digests)
+    res = _one_launch(tb, b, chain, (f_evals, trace_digests, fri_values,
+                                     fri_digests))
     query_chain_batch.launches += 1
     return res
 
 
 query_chain_batch.launches = 0
 query_chain_batch.plain = query_chain_plain
+
+
+def _cut_step_plain(tb: QueryTables, cols, sel, ents, chain, words, idxs,
+                    k: int):
+    """Step k of the cut form, plain: chain query k - 1 from row k - 1 of
+    `words`, then draw query k and gather its slots into row k."""
+    nv = tb.num_values
+    if k > 0:
+        row = words[k - 1]
+        chain = sha_chain_plain(_assemble(tb, row[:nv], row[nv:].view(-1, 8)),
+                                tb.flags, chain)
+    if k < tb.num_queries:
+        idx = mod_state(chain, tb.rng)
+        idxs[k] = idx
+        row = words[k]
+        _gather_plain(tb, cols, sel, idx, ents, row[:nv],
+                      row[nv:].view(-1, 8))
+    return chain
+
+
+def _cut(chain, sources, tb: QueryTables, mesh, plain: bool) -> tuple:
+    """The query phase cut at the query boundary: step k (k = 0 .. Q)
+    chains query k - 1 from its summed slot words and draws and gathers
+    query k into row k of one (Q, Nv + 8 Nd) word buffer, which the
+    process group then sums (`mesh` a process mesh; else nothing to
+    sum).  On a process mesh a process reads only the entries it holds,
+    and the replicated ones on rank 0 alone, so each word is summed
+    once.  Each step is one launch of K5's query form, or with `plain`
+    its plain version."""
+    if tb.max_prune:
+        raise ValueError("the cut query form reads unpruned trees (a mesh "
+                         "plan)")
+    process = mesh is not None and mesh.process
+    ents = [None if t is None or (process and rep and mesh.rank != 0)
+            else t for t, rep in zip(source_entries(tb, sources),
+                                     tb.replicated)]
+    q_n, nv = tb.num_queries, tb.num_values
+    stride = nv + 8 * (int(tb.slots.shape[0]) - nv)
+    dev = chain.device
+    words = torch.zeros((q_n, stride), dtype=torch.int32, device=dev)
+    idxs = torch.empty(q_n, dtype=torch.int64, device=dev)
+    if plain:
+        cols, sel = _slot_columns(tb, dev)
+    else:
+        ptrs = _query_ptrs(tb, 0, dev, ents)
+    for k in range(q_n + 1):
+        if plain:
+            chain = _cut_step_plain(tb, cols, sel, ents, chain, words, idxs,
+                                    k)
+        else:
+            chain = _launch_query(
+                tb, 0, chain, ptrs, idxs, words, words[:, nv:], stride,
+                stride, absorb=k - 1, queries=(k, min(k + 1, q_n)),
+                chain_drawn=False)
+            query_chain_cut.launches += 1
+        if k < q_n and process:
+            mesh.all_reduce_(words[k], "query")
+    return chain, idxs, words[:, :nv], words[:, nv:].reshape(q_n, -1, 8)
+
+
+def query_chain_cut_plain(chain, f_evals, trace_digests, fri_values,
+                          fri_digests, tb: QueryTables, mesh=None):
+    """Plain version of K5's cut query form (:func:`query_chain_cut`), on
+    any device: each step through the plain gather and
+    :func:`sha_chain_plain`."""
+    return _cut(chain, (f_evals, trace_digests, fri_values, fri_digests),
+                tb, mesh, plain=True)
+
+
+def query_chain_cut(chain, f_evals, trace_digests, fri_values, fri_digests,
+                    tb: QueryTables, mesh=None):
+    """K5's query form cut at the query boundary, for a process mesh
+    (`mesh`; None: one process, nothing summed): Q + 1 launches, launch k
+    chaining query k - 1 from the slot words the processes summed and
+    drawing and gathering query k, this process's entries only (another
+    process's blocks are None), with one all-reduce of the query's words
+    between launches.  Every process runs the same chain and gets the
+    same (final chain (8,), idxs (Q,), vals (Q, Nv), digs (Q, Nd, 8)) as
+    the one-launch form over the whole sources.  A CPU tensor runs
+    :func:`query_chain_cut_plain`; a CUDA tensor launches the kernel or
+    raises."""
+    return _cut(chain, (f_evals, trace_digests, fri_values, fri_digests),
+                tb, mesh, plain=_build.plain_device(chain))
+
+
+# one a launch: Q + 1 a query phase
+query_chain_cut.launches = 0
+query_chain_cut.plain = query_chain_cut_plain
 
 
 def build_script(num_offsets: int, fri_lengths: tuple) -> list:
@@ -432,6 +573,13 @@ def _tree_layout(n: int, prune: int, shards: int, sharded: bool):
         k = n // shards
         return [2 * k - 1] * shards + [2 * shards - 1], k
     return [2 * (n >> prune) - 1], None
+
+
+def _tree_replicated(sizes, sharded: bool) -> list:
+    """Per entry of a tree's layout: its subtrees (sharded) are their
+    owners', the top levels, or a whole tree, every process's."""
+    return [False] * (len(sizes) - 1) + [True] if sharded else \
+        [True] * len(sizes)
 
 
 class DeviceQueryPlan:
@@ -610,6 +758,9 @@ class DeviceQueryPlan:
         s, wd, mesh = self.shards, self.elem_width, self.shards > 1
         f_sizes, td_sizes = ([], []) if mesh else ([0], [0])
         val_src, tree_src = {}, {}
+        # per entry: blocks and subtrees are their owners', the rest every
+        # process's
+        rep = [True] * (len(f_sizes) + len(td_sizes))
         if self.trace_len is not None:
             f_sizes, fblk = _value_layout(self.trace_len,
                                           self.num_columns * wd, s, mesh)
@@ -617,6 +768,8 @@ class DeviceQueryPlan:
                                           s, mesh)
             val_src[-1] = (0, 0, fblk)
             tree_src[-1] = (len(f_sizes), 0, tblk)
+            rep = [fblk is None] * len(f_sizes) + _tree_replicated(
+                td_sizes, tblk is not None)
         fv0 = len(f_sizes) + len(td_sizes)
         if mesh:
             lengths = self.fri_lengths
@@ -626,19 +779,23 @@ class DeviceQueryPlan:
                 sizes, blk = _value_layout(ln, wd, s, sh)
                 val_src[k] = (fv0 + len(fv_sizes), 0, blk)
                 fv_sizes += sizes
+                rep += [not sh] * len(sizes)
                 trees.append(_tree_layout(ln, 0, s, sh))
             fd0 = fv0 + len(fv_sizes)
             for k, (sizes, blk) in enumerate(trees):
                 tree_src[k] = (fd0 + len(fd_sizes), 0, blk)
                 fd_sizes += sizes
+                rep += _tree_replicated(sizes, blk is not None)
         else:
             layout, vt, dt = layer_layout(self.fri_lengths, wd,
                                           self.fri_prune)
             fv_sizes, fd_sizes = [vt], [dt]
+            rep += [True, True]
             for k, (_, voff, doff) in enumerate(layout):
                 val_src[k] = (fv0, voff, None)
                 tree_src[k] = (fv0 + 1, doff, None)
         self._entry_sizes = (f_sizes, td_sizes, fv_sizes, fd_sizes)
+        self._replicated = tuple(rep)
         return val_src, tree_src
 
     def pack(self, device) -> QueryTables:
@@ -661,7 +818,7 @@ class DeviceQueryPlan:
                 rng=self.rng, num_queries=self.num_queries,
                 sizes=tuple(sum(e) for e in self._entry_sizes),
                 entries=tuple(tuple(e) for e in self._entry_sizes),
-                shards=self.shards,
+                shards=self.shards, replicated=self._replicated,
                 tasks=torch.tensor(self._tasks, dtype=torch.int64,
                                    device=device).reshape(
                                        -1, len(TASK_COLUMNS)),
@@ -687,7 +844,9 @@ class DeviceQueryPlan:
         ``fri/commit.py``; `fri_values`: every FRI layer concatenated.
         On a mesh `f_evals` is the ``Sharded`` LDE and the others the
         entry lists of ``DistMerkleTree.entries`` and of a mesh
-        ``fri_commit``, all read from the state's device.  Returns
+        ``fri_commit``, all read from the state's device; on a process
+        mesh (None for another process's blocks) K5's query form cut at
+        the query boundary (:func:`query_chain_cut`).  Returns
         (final_state (8,), idxs (Q,) int64, vals (Q, Nv), digs
         (Q, Nd, 8)) in script order, a trace opening's C values
         together, a Goldilocks value as its (hi, lo) words.  A plan
@@ -698,10 +857,18 @@ class DeviceQueryPlan:
             f_evals = torch.empty(0, dtype=torch.int32, device=state.device)
             trace_digests = torch.empty((0, 8), dtype=torch.int32,
                                         device=state.device)
-        f_evals = ([b.reshape(-1) for b in f_evals.blocks]
-                   if isinstance(f_evals, Sharded) else f_evals.reshape(-1))
+        tb = self.pack(state.device)
+        if isinstance(f_evals, Sharded):
+            mesh = f_evals.mesh
+            f_evals = [None if b is None else b.reshape(-1)
+                       for b in f_evals.blocks]
+            if mesh.process:
+                return query_chain_cut(state, f_evals, trace_digests,
+                                       fri_values, fri_digests, tb, mesh)
+        else:
+            f_evals = f_evals.reshape(-1)
         return query_chain(state, f_evals, trace_digests, fri_values,
-                           fri_digests, self.pack(state.device))
+                           fri_digests, tb)
 
     def run(self, channel, f_evals, trace_digests, fri_values,
             fri_digests, device=None) -> None:

@@ -1,9 +1,11 @@
-"""CLI — ``python -m stark_tpu_torch <prove|verify|serve|info>``
+"""CLI — ``python -m stark_tpu_torch <prove|verify|serve|bench|info>``
 (counterpart of ``stark_tpu/cli.py``).
 
 ``prove`` and ``serve`` run on the card unless given ``--cpu``; on a
 machine with no CUDA device they exit non-zero without ``--cpu`` and
-never carry on on the CPU.  ``verify`` is host code.
+never carry on on the CPU.  ``verify`` is host code (it takes ``--cpu``,
+as the JAX CLI's does, and ignores it).  ``bench`` takes the JAX CLI's
+arguments and exits non-zero: the port has no benchmark yet.
 """
 
 from __future__ import annotations
@@ -168,6 +170,14 @@ def cmd_verify(args) -> int:
     return 0
 
 
+def cmd_bench(args) -> int:
+    """The JAX CLI runs ``bench.py``, which imports JAX: the port has no
+    benchmark of its own yet (ROADMAP.md item 10)."""
+    print("stark_tpu_torch bench: the port has no benchmark yet (ROADMAP.md "
+          "item 10)", file=sys.stderr)
+    return 2
+
+
 def cmd_serve(args) -> int:
     from stark_tpu_torch import serve
     from stark_tpu_torch.config import ProverConfig
@@ -253,7 +263,15 @@ def main(argv=None) -> int:
 
     p = sub.add_parser("verify", help="verify a proof file (host code)")
     p.add_argument("proof")
+    p.add_argument("--cpu", action="store_true",
+                   help="accepted for the JAX CLI's sake: verifying is host "
+                        "code")
     p.set_defaults(fn=cmd_verify)
+
+    p = sub.add_parser("bench", help="the benchmark suite (not ported yet)")
+    p.add_argument("--quick", action="store_true")
+    p.add_argument("--cpu", action="store_true")
+    p.set_defaults(fn=cmd_bench)
 
     p = sub.add_parser("info", help="environment info")
     p.set_defaults(fn=cmd_info)

@@ -80,6 +80,14 @@
 //   The JAX package's mesh prove gave up its Pallas chain for the XLA
 //   scan here (stark_tpu/stark/prover.py:720-726); this one keeps the
 //   kernel.
+// * Over a process mesh (one process a card or a few shards, under
+//   torch.distributed) no process can address another's blocks, so the
+//   query form is cut at the query boundary: launch k chains query k - 1
+//   from the slot words the processes summed, then draws query k and
+//   gathers the slots this process holds, zeros elsewhere (an entry of
+//   address 0); between launches the process group sums query k's words
+//   (a few KB).  Every process runs the same chain, so Q queries are Q + 1
+//   launches and Q all-reduces, and the chain itself is unchanged.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -468,6 +476,39 @@ __device__ void recompute_blocks(const long long* __restrict__ tasks,
   }
 }
 
+// One query's stream through the chain: thread 0 runs its rows from the
+// ring, the staging threads fill the ring with them; `g0` is the number of
+// rows this launch has chained before them (each staging thread's use
+// count of its slot).
+__device__ __forceinline__ void chain_stream(const Ring& r, Cursor& cur,
+                                             uint32_t st[8], uint32_t chain[8],
+                                             const uint4* stream,
+                                             const int2* sflags, int nrows,
+                                             long long g0) {
+  if (threadIdx.x < 32) {
+    if (threadIdx.x == 0) chain_rows(r, nrows, cur, st, chain);
+    __syncwarp();
+  } else {
+    // rows of this query whose global row number g0 + i maps to my slot
+    const int p = threadIdx.x - 32;
+    int i = static_cast<int>(((p - g0) % kRing + kRing) % kRing);
+    for (; i < nrows; i += kRing) {
+      const uint32_t use = static_cast<uint32_t>((g0 + i) / kRing);
+      stage_row(r, p, use, stream + 4 * i, sflags[i]);
+    }
+  }
+}
+
+// Queries q_lo .. q_hi - 1: draw, gather and (with chain_drawn) chain
+// each.  Query q's values lie at vals + q * vstride, its digests (8 words
+// each) at digs + q * dstride.  The cut form (one launch a step of a
+// process mesh's query phase, chain_drawn 0) first chains query `absorb`
+// (>= 0) from the words an earlier launch gathered and the process group
+// summed, then draws and gathers the next query only; an entry whose
+// address is 0 (a block another process holds, or replicated data that
+// another process writes) reads as zero words, so the sum over the
+// processes is each word once.  The one-launch form is absorb -1, queries
+// 0 .. nqueries - 1, chain_drawn 1.
 __global__ void __launch_bounds__(kThreads, 1)
     query_chain(const uint32_t* __restrict__ chain_in,
                 const long long* __restrict__ ptrs,
@@ -478,8 +519,9 @@ __global__ void __launch_bounds__(kThreads, 1)
                 int nvalues, int ntasks, int max_prune, int wide,
                 uint32_t rng, int nqueries,
                 uint32_t* __restrict__ chain_out,
-                long long* __restrict__ idxs, uint32_t* __restrict__ vals,
-                uint32_t* __restrict__ digs) {
+                long long* __restrict__ idxs, uint32_t* vals, uint32_t* digs,
+                int absorb, int q_lo, int q_hi, int chain_drawn,
+                long long vstride, long long dstride) {
   extern __shared__ __align__(128) unsigned char smem[];
   // proof blockIdx.x: its chain, its sources' entries (a fixed stride
   // after proof 0's) and its outputs after proof 0's
@@ -487,8 +529,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   chain_in += 8 * b;
   chain_out += 8 * b;
   idxs += b * nqueries;
-  vals += b * nqueries * nvalues;
-  digs += b * nqueries * (nslots - nvalues) * 8;
+  vals += b * nqueries * vstride;
+  digs += b * nqueries * dstride;
   const Ring r = ring_at(smem);
   uint4* stream = reinterpret_cast<uint4*>(smem + kRingBytes + kRingBarBytes);
   int2* sflags = reinterpret_cast<int2*>(stream + 4 * nrows);
@@ -500,14 +542,31 @@ __global__ void __launch_bounds__(kThreads, 1)
   mbar_init_fence();
   __syncthreads();
 
-  const int ndigests = nslots - nvalues;
   uint32_t chain[8], st[8];
   Cursor cur{0, 0u};
   if (threadIdx.x == 0) {
 #pragma unroll
     for (int k = 0; k < 8; ++k) { chain[k] = chain_in[k]; st[k] = 0u; }
   }
-  for (int q = 0; q < nqueries; ++q) {
+  uint32_t* words = reinterpret_cast<uint32_t*>(stream);
+  long long chained = 0;  // queries this launch has chained
+  if (absorb >= 0) {
+    for (int s = threadIdx.x; s < nslots; s += kThreads) {
+      uint32_t* dst = words + slots[kSlotColumns * static_cast<size_t>(s) +
+                                   kSlotWord];
+      if (s < nvalues) {
+        hex_words(vals[absorb * vstride + s], dst);
+      } else {
+        const uint32_t* d = digs + absorb * dstride + (s - nvalues) * 8;
+#pragma unroll
+        for (int k = 0; k < 8; ++k) hex_words(d[k], dst + 2 * k);
+      }
+    }
+    __syncthreads();  // the query's stream is complete
+    chain_stream(r, cur, st, chain, stream, sflags, nrows, chained * nrows);
+    ++chained;
+  }
+  for (int q = q_lo; q < q_hi; ++q) {
     if (threadIdx.x == 0) {
       // idx = int(state_hex, 16) mod rng, Horner over the big-endian
       // words; exact in 64 bits because rng < 2^32
@@ -524,32 +583,35 @@ __global__ void __launch_bounds__(kThreads, 1)
                        nodes);
       __syncthreads();  // every recomputed node is written
     }
-    uint32_t* words = reinterpret_cast<uint32_t*>(stream);
     for (int s = threadIdx.x; s < nslots; s += kThreads) {
       const long long* t = slots + kSlotColumns * static_cast<size_t>(s);
       const long long j = ((idx + t[kSlotAdd]) & t[kSlotMask]) ^ t[kSlotXr];
       const long long lane = (j >> t[kSlotShift]) ^ t[kSlotFlip];
       const long long shard = t[kSlotShard];
       const long long pos = t[kSlotBase] + (lane & ((1LL << shard) - 1));
-      const unsigned char* src_entry =
-          t[kSlotSource] >= kTraceSubtree
-              ? nullptr
-              : entry(ptrs, t[kSlotPtab] + (lane >> shard), b);
+      const long long e = t[kSlotPtab] + (lane >> shard);
+      const bool stored = t[kSlotSource] < kTraceSubtree;
+      const bool absent = stored && ptrs[2 * e] == 0;
+      const unsigned char* src_entry = stored ? entry(ptrs, e, b) : nullptr;
       uint32_t* dst = words + t[kSlotWord];
       if (t[kSlotSource] == kTraceValue || t[kSlotSource] == kFriValue) {
-        const uint32_t v = reinterpret_cast<const uint32_t*>(src_entry)[pos];
+        const uint32_t v =
+            absent ? 0u : reinterpret_cast<const uint32_t*>(src_entry)[pos];
         // 8 hex chars of the value's word: after 8 hex zeros of the
         // template for a u32 value, or one half of a 64-bit value
         hex_words(v, dst);
-        vals[static_cast<size_t>(q) * nvalues + s] = v;
+        vals[q * vstride + s] = v;
       } else {
-        const uint4* src =
-            (src_entry ? reinterpret_cast<const uint4*>(src_entry) : nodes) +
-            2 * pos;
-        const uint4 lo = src[0], hi = src[1];
+        uint4 lo = make_uint4(0u, 0u, 0u, 0u), hi = lo;
+        if (!absent) {
+          const uint4* src =
+              (src_entry ? reinterpret_cast<const uint4*>(src_entry) : nodes) +
+              2 * pos;
+          lo = src[0];
+          hi = src[1];
+        }
         const uint32_t d[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
-        uint32_t* out = digs + (static_cast<size_t>(q) * ndigests +
-                                (s - nvalues)) * 8;
+        uint32_t* out = digs + q * dstride + (s - nvalues) * 8;
 #pragma unroll
         for (int k = 0; k < 8; ++k) {
           hex_words(d[k], dst + 2 * k);
@@ -558,18 +620,9 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
     }
     __syncthreads();  // the query's stream is complete
-    if (threadIdx.x < 32) {
-      if (threadIdx.x == 0) chain_rows(r, nrows, cur, st, chain);
-      __syncwarp();
-    } else {
-      // rows of this query whose global row number g0 + i maps to my slot
-      const int p = threadIdx.x - 32;
-      const long long g0 = static_cast<long long>(q) * nrows;
-      int i = static_cast<int>(((p - g0) % kRing + kRing) % kRing);
-      for (; i < nrows; i += kRing) {
-        const uint32_t use = static_cast<uint32_t>((g0 + i) / kRing);
-        stage_row(r, p, use, stream + 4 * i, sflags[i]);
-      }
+    if (chain_drawn) {
+      chain_stream(r, cur, st, chain, stream, sflags, nrows, chained * nrows);
+      ++chained;
     }
   }
   if (threadIdx.x == 0) {
@@ -679,18 +732,24 @@ extern "C" int stark_sha_chain(const void* stream, const void* flags,
 // (nrows, 2); slots: (nslots, kSlotColumns) int64 (values first, then
 // digests); tasks: (ntasks, kTaskColumns) int64, whose nodes fill `nodes`
 // digest rows, the deepest at max_prune; wide: the values are 64-bit limb
-// planes.  Out: chain_out (8,), idxs (nqueries,) int64, vals (nqueries,
-// nvalues), digs (nqueries, nslots - nvalues, 8).  For `batch` proofs of
-// one plan, one block each, proof b's chain state and sources lie a
-// fixed stride after proof 0's, its outputs right after proof b - 1's.
+// planes.  Out: chain_out (8,), idxs (nqueries,) int64, vals and digs:
+// query q's nvalues words at vals + q * vstride and its nslots - nvalues
+// digests of 8 words at digs + q * dstride.  The launch runs queries
+// q_lo .. q_hi - 1, chained when chain_drawn, after chaining query
+// `absorb` from vals / digs when absorb >= 0 (the cut form, query_chain
+// above).  For `batch` proofs of one plan, one block each, proof b's
+// chain state and sources lie a fixed stride after proof 0's, its
+// outputs right after proof b - 1's.
 extern "C" int stark_query_chain(
     const void* chain_in, const void* ptrs, const void* tmpl,
     const void* flags, const void* slots, const void* tasks, int nrows,
     int nslots, int nvalues, int ntasks, int max_prune, int nodes, int wide,
     unsigned rng, int nqueries, void* chain_out, void* idxs, void* vals,
-    void* digs, int batch, void* s) {
+    void* digs, int absorb, int q_lo, int q_hi, int chain_drawn,
+    long long vstride, long long dstride, int batch, void* s) {
   if (nodes < 0 || max_prune < 0 || (max_prune > 0) != (ntasks > 0) ||
-      batch < 0)
+      batch < 0 || absorb >= nqueries || q_lo < 0 || q_hi > nqueries ||
+      vstride < 0 || dstride < 0)
     return (int)cudaErrorInvalidValue;
   const int bytes = query_smem(nrows, nodes);
   if (bytes > kMaxSmem) return (int)cudaErrorInvalidValue;
@@ -702,7 +761,8 @@ extern "C" int stark_query_chain(
         (const uint4*)tmpl, (const int2*)flags, (const long long*)slots,
         (const long long*)tasks, nrows, nslots, nvalues, ntasks, max_prune,
         wide, rng, nqueries, (uint32_t*)chain_out, (long long*)idxs,
-        (uint32_t*)vals, (uint32_t*)digs);
+        (uint32_t*)vals, (uint32_t*)digs, absorb, q_lo, q_hi, chain_drawn,
+        vstride, dstride);
   return (int)cudaGetLastError();
 }
 

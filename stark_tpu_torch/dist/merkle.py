@@ -4,7 +4,9 @@ Leaves are sharded in contiguous blocks, so each shard owns a complete
 subtree: its leaf digests (K3, in its u32, 64-bit or row form) and every
 level up to its subtree root (K4) build on its own device with no
 communication.  The S subtree roots, 32 bytes each, are copied to the
-first shard, where K4 builds the top log2(S) levels.
+first shard, where K4 builds the top log2(S) levels; on a process mesh
+they are all-gathered and every rank builds the top levels (replicated,
+on its first shard), so every rank holds the root.
 
 Because subtrees are contiguous, the concatenated subtree levels are the
 global tree's levels, so roots and authentication paths equal those of
@@ -12,7 +14,8 @@ the single-device ``MerkleTree`` / ``from_columns``.  Storage: each
 subtree is a ``MerkleTree`` buffer on its shard, the top levels one
 (2S - 1, 8) buffer (the roots, then the levels above them) on the first
 shard.  Mesh trees store every level, never pruned, as the JAX
-package's dist trees.
+package's dist trees.  On a process mesh a rank holds the subtrees of
+its blocks only (None for the others).
 """
 
 from __future__ import annotations
@@ -47,9 +50,12 @@ class DistMerkleTree:
         self.num_leaves = self.block_leaves * s
         self.offsets = level_offsets(self.num_leaves)
         build = MerkleTree.from_columns if columns else MerkleTree
-        self.subtrees = [build(b, wide=wide) for b in values.blocks]
-        roots = [mesh.send(t.root_digest[None], o, 0, "merkle")
-                 for t, o in zip(self.subtrees, values.owners)]
+        self.subtrees = [None if b is None else build(b, wide=wide)
+                         for b in values.blocks]
+        roots = mesh.exchange([(o, None, None if t is None
+                                else t.root_digest[None], (1, 8))
+                               for t, o in zip(self.subtrees, values.owners)],
+                              "merkle")
         top = torch.empty((2 * s - 1, 8), dtype=torch.int32,
                           device=mesh.first)
         top[:s] = torch.cat(roots)
@@ -59,8 +65,10 @@ class DistMerkleTree:
 
     @property
     def entries(self) -> list[torch.Tensor]:
-        """The subtree buffers in block order, then the top buffer."""
-        return [t.buffer for t in self.subtrees] + [self.top]
+        """The subtree buffers in block order (None for another
+        process's), then the top buffer."""
+        return [None if t is None else t.buffer
+                for t in self.subtrees] + [self.top]
 
     @property
     def root_digest(self) -> torch.Tensor:
@@ -71,7 +79,8 @@ class DistMerkleTree:
 
     def locate(self, row: int):
         """Global buffer row (the ``level_offsets(n)`` layout of a whole
-        tree) -> (buffer, local row)."""
+        tree) -> (buffer, local row); a row of another process's subtree
+        raises."""
         for l, (off, size) in enumerate(self.offsets):
             if row < off + size:
                 node = row - off
@@ -81,7 +90,11 @@ class DistMerkleTree:
         log_l = self.block_leaves.bit_length() - 1
         if l < log_l:
             shift = log_l - l
-            return (self.subtrees[node >> shift].buffer,
+            sub = self.subtrees[node >> shift]
+            if sub is None:
+                raise ValueError(f"row {row} lies in another process's "
+                                 "subtree")
+            return (sub.buffer,
                     self._sub_offsets[l][0] + (node & ((1 << shift) - 1)))
         return self.top, self._top_offsets[l - log_l][0] + node
 

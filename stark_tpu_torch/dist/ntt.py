@@ -9,7 +9,7 @@ w the order-n root):
 where A = x.reshape(n1, n2).  Shard i holds rows i*n1/S .. of A (its
 contiguous block of x).  Each axis transform is local after a transpose,
 and a transpose over the mesh is an all-to-all (block (i, j) of shard i
-goes to shard j, :meth:`Mesh.send`) then a local transpose.  Three of
+goes to shard j, :meth:`Mesh.exchange`) then a local transpose.  Three of
 them give natural order in and out, so the result equals the
 single-device transform bit for bit.
 
@@ -25,6 +25,11 @@ sqrt(n) powers and kept, n words over the mesh.
 
 Domains below S^2 points do not split (S^2 | n); they run the
 single-device transform on the first shard and are re-sharded.
+
+On a process mesh each rank transforms and twiddles only the blocks it
+holds, and each transpose is one all-to-all of the process group
+(:meth:`Mesh.exchange`): a rank's pieces for another rank's shards go in
+one message whatever the number of its shards.
 """
 
 from __future__ import annotations
@@ -81,15 +86,18 @@ def _twiddle(p: int, n: int, s: int, inverse: bool, j: int,
 def _all_to_all(mesh: Mesh, x: Sharded) -> Sharded:
     """Blocks (*lead, R, S*W) -> (*lead, W, S*R): block (i, j), columns
     j*W .. of shard i, goes to shard j, which stacks the S it receives
-    along the rows and transposes its (S*R, W) matrix."""
+    along the rows and transposes its (S*R, W) matrix (one exchange: on
+    a process mesh one all-to-all)."""
     s = mesh.size
-    w = int(x.blocks[0].shape[-1]) // s
-    out = []
-    for j in range(s):
-        parts = [mesh.send(x.blocks[i][..., j * w:(j + 1) * w], x.owners[i],
-                           x.owners[j], "ntt") for i in range(s)]
-        out.append(torch.cat(parts, dim=-2).transpose(-1, -2).contiguous())
-    return Sharded(out, mesh, x.owners)
+    shape = tuple(x._any().shape)
+    w = shape[-1] // s
+    items = [(x.owners[i], x.owners[j],
+              None if x.blocks[i] is None
+              else x.blocks[i][..., j * w:(j + 1) * w], shape[:-1] + (w,))
+             for j in range(s) for i in range(s)]
+    got = mesh.exchange(items, "ntt")
+    return x.map(lambda _, j: torch.cat(got[j * s:(j + 1) * s], dim=-2)
+                 .transpose(-1, -2).contiguous())
 
 
 def _rows_transform(x: torch.Tensor, p: int, inverse: bool) -> torch.Tensor:
@@ -125,20 +133,16 @@ def _transform(x, p: int, mesh: Mesh, inverse: bool) -> Sharded:
         return sharded(mesh, (intt if inverse else ntt)(whole, p))
     xs = x if isinstance(x, Sharded) else sharded(mesh, x)
     n1, n2 = _split(n, s)
-    lead = tuple(xs.blocks[0].shape[:-1])
-    a = Sharded([b.reshape(lead + (n1 // s, n2)) for b in xs.blocks], mesh,
-                xs.owners)
+    lead = tuple(xs._any().shape[:-1])
+    a = xs.map(lambda b, _: b.reshape(lead + (n1 // s, n2)))
     a = _all_to_all(mesh, a)  # (n2/s, n1): A's columns as rows
-    a = Sharded([_times_twiddle(_rows_transform(b, p, inverse),
-                                _twiddle(p, n, s, inverse, j, str(b.device)),
-                                p)
-                 for j, b in enumerate(a.blocks)], mesh, a.owners)
+    a = a.map(lambda b, j: _times_twiddle(
+        _rows_transform(b, p, inverse),
+        _twiddle(p, n, s, inverse, j, str(b.device)), p))
     a = _all_to_all(mesh, a)  # (n1/s, n2)
-    a = Sharded([_rows_transform(b, p, inverse) for b in a.blocks], mesh,
-                a.owners)
+    a = a.map(lambda b, _: _rows_transform(b, p, inverse))
     a = _all_to_all(mesh, a)  # (n2/s, n1): X.reshape(n2, n1), natural
-    return Sharded([b.reshape(lead + (n // s,)) for b in a.blocks], mesh,
-                   a.owners)
+    return a.map(lambda b, _: b.reshape(lead + (n // s,)))
 
 
 def dist_ntt(x, p: int, mesh: Mesh) -> Sharded:
@@ -159,7 +163,8 @@ def dist_coset_evaluate(coeffs: torch.Tensor, p: int, big_n: int,
     """``ntt.coset_evaluate`` over the mesh: the (…, n) coefficients on
     {offset * W^i : i < big_n}.  The scaled coefficients stay on their
     device; each shard's block of the zero-padded vector is built where
-    it lives, from the coefficients in its range."""
+    it lives, from the coefficients in its range (on a process mesh every
+    rank holds the coefficients whole and builds its own blocks)."""
     s = mesh.size
     if _effective_shards(big_n, s) == 1:
         return sharded(mesh, coset_evaluate(coeffs, p, big_n, offset))
@@ -167,16 +172,16 @@ def dist_coset_evaluate(coeffs: torch.Tensor, p: int, big_n: int,
     n = int(coeffs.shape[-1])
     scaled = f.storage(f.mul(f.arith(coeffs),
                              f.powers(int(offset) % p, n, coeffs.device)))
-    src = next((i for i, d in enumerate(mesh.devices)
-                if d == coeffs.device), 0)
     k = big_n // s
     blocks = []
     for i, dev in enumerate(mesh.devices):
+        if not mesh.owns(i):
+            blocks.append(None)
+            continue
         blk = torch.zeros(coeffs.shape[:-1] + (k,), dtype=torch.int32,
                           device=dev)
         lo, hi = i * k, min((i + 1) * k, n)
         if lo < hi:
-            blk[..., :hi - lo] = mesh.send(scaled[..., lo:hi], src, i,
-                                           "scatter")
+            blk[..., :hi - lo] = mesh.take(scaled[..., lo:hi], i, "scatter")
         blocks.append(blk)
     return dist_ntt(Sharded(blocks, mesh), p, mesh)

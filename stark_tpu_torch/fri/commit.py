@@ -249,40 +249,55 @@ def _commit(evals: torch.Tensor, p: int, offset: int, num_folds: int, fs,
 def _fold_sharded(layer, beta, p: int, size: int, off: int):
     """One fold of a layer sharded in S blocks of L: block d holds E[i],
     block d + S/2 holds E[i + size/2] for the same i, so the two shards
-    swap halves (L/2 values each way) and each folds one half.  Output
-    block 2d (next[d L .. d L + L/2)) stays with block d's shard, 2d + 1
-    with block d + S/2's: the owners interleave."""
+    swap halves (L/2 values each way; on a process mesh the pairs on two
+    ranks are the messages of one all-to-all) and each folds one half.  Output block 2d
+    (next[d L .. d L + L/2)) stays with block d's shard, 2d + 1 with
+    block d + S/2's: the owners interleave."""
     f, mesh = Fp.get(p), layer.mesh
     s, k = mesh.size, layer.block_len
     h = k // 2
+    shape = tuple(layer._any().shape[:-1]) + (h,)
     betas = replicated(mesh, beta)
+    items = []
+    for d in range(s // 2):
+        lo, hi = layer.blocks[d], layer.blocks[d + s // 2]
+        o_lo, o_hi = layer.owners[d], layer.owners[d + s // 2]
+        items += [(o_hi, o_lo, None if hi is None else hi[..., :h], shape),
+                  (o_lo, o_hi, None if lo is None else lo[..., h:], shape)]
+    got = mesh.exchange(items, "fri")
+
+    def fold(v, w, own, start):
+        inv = _inv_domain(p, size, off, str(mesh.devices[own]), start, h)
+        return f.storage(_fold_pair(p, v, w, betas[own], inv))
+
     blocks, owners = [None] * s, [None] * s
     for d in range(s // 2):
         lo, hi = layer.blocks[d], layer.blocks[d + s // 2]
         o_lo, o_hi = layer.owners[d], layer.owners[d + s // 2]
-        for out, own, v, w, start in (
-                (2 * d, o_lo, lo[..., :h],
-                 mesh.send(hi[..., :h], o_hi, o_lo, "fri"), d * k),
-                (2 * d + 1, o_hi, mesh.send(lo[..., h:], o_lo, o_hi, "fri"),
-                 hi[..., h:], d * k + h)):
-            inv = _inv_domain(p, size, off, str(mesh.devices[own]), start, h)
-            blocks[out] = f.storage(_fold_pair(p, v, w, betas[own], inv))
-            owners[out] = own
+        owners[2 * d], owners[2 * d + 1] = o_lo, o_hi
+        if mesh.owns(o_lo):
+            blocks[2 * d] = fold(lo[..., :h], got[2 * d], o_lo, d * k)
+        if mesh.owns(o_hi):
+            blocks[2 * d + 1] = fold(got[2 * d + 1], hi[..., h:], o_hi,
+                                     d * k + h)
     return Sharded(blocks, mesh, owners)
 
 
 def _gather(layer) -> torch.Tensor:
-    """A sharded layer whole on the first shard (the FRI tail gather)."""
-    mesh = layer.mesh
-    return torch.cat([mesh.send(b, o, 0, "fri")
-                      for b, o in zip(layer.blocks, layer.owners)], dim=-1)
+    """A sharded layer whole on the first shard (the FRI tail gather; on
+    a process mesh an all-gather, the layer replicated on every rank)."""
+    shape = tuple(layer._any().shape)
+    got = layer.mesh.exchange([(o, None, b, shape) for b, o in
+                               zip(layer.blocks, layer.owners)], "fri")
+    return torch.cat(got, dim=-1)
 
 
 def _commit_mesh(evals, p: int, offset: int, num_folds: int, fs,
                  mesh) -> FRIProof:
     """The commit over a mesh, folding as ``dist.comm.fri_fold_schedule``
     says: sharded folds (shard d with d + S/2), the tail gathered to the
-    first shard once a layer is below 8 S, local folds after that.  A
+    first shard once a layer is below 8 S (on a process mesh to every
+    rank, which then folds it alike), local folds after that.  A
     sharded layer's tree is a ``dist_merkle_tree``, a local one's a
     ``MerkleTree`` on the first shard; a sharded last layer is gathered
     for the final-constant send."""
@@ -321,7 +336,7 @@ def _commit_mesh(evals, p: int, offset: int, num_folds: int, fs,
     values, digests = [], []
     for layer, t in zip(layers, trees):
         blocks = layer.blocks if isinstance(layer, Sharded) else (layer,)
-        values += [b.reshape(-1) for b in blocks]
+        values += [None if b is None else b.reshape(-1) for b in blocks]
         digests += t.entries
     last = _gather(cur) if isinstance(cur, Sharded) else None
     return FRIProof(layers, trees, None, offsets, values, digests, None,

@@ -30,15 +30,26 @@ replay, and the queries run on the device plan (one fetch) or, when it
 does not take the configuration or under ``STARK_TPU_TORCH_HOST_QUERIES``,
 as one BatchGather a query.
 
-With `mesh` (a ``dist.mesh.Mesh``, one process driving every shard) the
-same two paths run sharded: the LDE through the four-step
-``dist_coset_evaluate``, the trees through ``dist_merkle_tree``, the
-composition shard by shard with a halo (``dist/compose.py``), the FRI
-commit folding as ``dist.comm.fri_fold_schedule`` says, and the query
+With `mesh` (a ``dist.mesh.Mesh``) the same two paths run sharded: the
+LDE through the four-step ``dist_coset_evaluate``, the trees through
+``dist_merkle_tree``, the composition shard by shard with a halo
+(``dist/compose.py``), the FRI commit folding as
+``dist.comm.fri_fold_schedule`` says, and, in one process, the query
 phase as one launch of K5's query form reading every shard from the
 first, where the Fiat-Shamir state lives; the single-fetch path still
 ends in one fetch.  The transcript is byte-identical to the
 single-device prove's.
+
+Over a process mesh (``dist/multihost.py``) every rank runs this same
+prove, as the JAX package's rank-0-transcript convention has it: the
+host trace and its INTT whole, its own blocks of everything sharded,
+each exchange a collective of the process group, and its own Fiat-Shamir
+state on its first shard, which absorbs the same replicated roots and so
+draws the same challenges.  The query phase is K5's query form cut at
+the query boundary (``channel/device_query.py`` ``query_chain_cut``);
+each rank ends in its one fetch and replay, with a ``StarkProof`` on
+every rank.  The per-phase path runs there too on the device query
+plan; the per-query BatchGather loop, which reads every shard, does not.
 """
 
 from __future__ import annotations
@@ -229,8 +240,9 @@ def prove(cfg: ProverConfig, a1: int = 3141592, *, air=None,
     device runs their plain versions.
 
     `mesh`: prove sharded over a ``dist.mesh.Mesh`` (its devices; the
-    trace and the Fiat-Shamir state on its first, which `device`, if
-    given, must be); the transcript is the single-device prove's.  The
+    trace and the Fiat-Shamir state on this process's first, which
+    `device`, if given, must be; on a process mesh every rank calls
+    this alike); the transcript is the single-device prove's.  The
     config's ``mesh_shape`` is not read (as in the JAX package).
 
     `channel`: the host transcript to continue (default a fresh one); a
@@ -264,7 +276,7 @@ def prove(cfg: ProverConfig, a1: int = 3141592, *, air=None,
     air.validate(cfg)
     p, M, h = cfg.modulus, cfg.eval_domain_size, cfg.offset
     mx = metrics if metrics is not None else _metrics.GLOBAL
-    devices = set(mesh.devices) if mesh is not None else {device}
+    devices = mesh.local_devices if mesh is not None else {device}
 
     def sync():
         if metrics is not None:
@@ -404,6 +416,11 @@ def _prove_per_phase(cfg, air, channel, f_evals, publics, offsets,
                 trace_tree.buffer if mesh is None else trace_tree.entries,
                 fri.values, fri.digests, device=device)
         else:
+            if mesh is not None and mesh.process:
+                raise ValueError(
+                    "the per-query BatchGather loop reads every shard: a "
+                    "process mesh takes the device query plan only (unset "
+                    "STARK_TPU_TORCH_HOST_QUERIES)")
             # one gather-row tensor a trace column (a Goldilocks column
             # as (M, 2) limb pairs); a "vrow" entry sends the row message
             # of all C values

@@ -130,3 +130,30 @@ def test_entry_points_import_no_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_verify_takes_cpu(tmp_path):
+    """``verify --cpu`` (the JAX CLI's flag) verifies as ``verify`` does:
+    the verifier is host code."""
+    from stark_tpu_torch.config import ProverConfig
+    from stark_tpu_torch.stark import prove
+
+    pr = prove(ProverConfig(log2_trace=5, blowup=4, num_queries=3),
+               device="cpu")
+    (tmp_path / "p.json").write_bytes(pr.serialize())
+    res = run("stark_tpu_torch", "verify", "p.json", "--cpu", cwd=tmp_path)
+    assert res.returncode == 0, res.stderr
+    assert "verified" in res.stderr
+
+
+@pytest.mark.parametrize("flags", [[], ["--quick", "--cpu"]])
+def test_bench_says_it_is_not_ported(flags, capsys):
+    """``bench`` takes the JAX CLI's flags and exits non-zero with one
+    line naming the roadmap item, without running ``bench.py`` (which
+    imports JAX)."""
+    from stark_tpu_torch import cli
+
+    assert cli.main(["bench", *flags]) == 2
+    err = capsys.readouterr().err.strip()
+    assert len(err.splitlines()) == 1
+    assert "no benchmark yet" in err and "ROADMAP.md item 10" in err

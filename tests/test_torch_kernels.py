@@ -519,3 +519,40 @@ def test_mesh_prove_on_card_equals_single_device(dev):
         got = prove(cfg, air=air, mesh=mesh)
         assert tprover.LAST_PROVE_PATH == "single-fetch-mesh"
         assert got.proof == prove(cfg, air=air, device=dev).proof
+
+
+@pytest.mark.parametrize("shards,modulus", [(2, P), (4, P),
+                                            (4, 2**64 - 2**32 + 1)])
+def test_k5_cut_query_form_matches_plain(dev, shards, modulus):
+    """K5's query form cut at the query boundary (a process mesh's, here
+    in one process: nothing to sum) against its plain version and the
+    one-launch form on the same seeded sharded sources: Q + 1 launches;
+    then with the sources of every other shard absent (None, address 0),
+    whose slot words must read as zeros."""
+    from stark_tpu_torch.channel.device_query import (query_chain,
+                                                      query_chain_cut,
+                                                      query_chain_cut_plain)
+    from stark_tpu_torch.config import ProverConfig
+    from stark_tpu_torch.stark import FibMulAIR
+    from stark_tpu_torch.stark.prover import query_plan
+
+    kw = {} if modulus == P else {"modulus": modulus, "generator": 7}
+    cfg = ProverConfig(log2_trace=8, blowup=4, num_queries=4, **kw)
+    tb = query_plan(cfg, FibMulAIR(), shards=shards).pack(dev)
+    srcs = [[_u32((size, 8) if k % 2 else (size,), 2**32, 70 + k + e, dev)
+             for e, size in enumerate(sizes)]
+            for k, sizes in enumerate(tb.entries)]
+    chain = _u32(8, 2**32, 69, dev)
+    before = query_chain_cut.launches
+    got = query_chain_cut(chain, *srcs, tb)
+    torch.cuda.synchronize()
+    assert query_chain_cut.launches == before + tb.num_queries + 1
+    for g, w, o in zip(got, query_chain_cut_plain(chain, *srcs, tb),
+                       query_chain(chain, *srcs, tb)):
+        assert torch.equal(g, w) and torch.equal(g, o)
+    half = [[t if e % 2 else None for e, t in enumerate(src)]
+            for src in srcs]
+    got = query_chain_cut(chain, *half, tb)
+    torch.cuda.synchronize()
+    for g, w in zip(got, query_chain_cut_plain(chain, *half, tb)):
+        assert torch.equal(g, w)
