@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``stark_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py [--profile] [--phase multiproc]
+    python3 chip_smoke.py [--profile] [--phase multiproc|api]
 
 Builds the port's CUDA kernels from ``stark_tpu_torch/csrc`` (and its
 native host trace from ``stark_tpu_torch/native``), holds each kernel
@@ -136,6 +136,22 @@ under NCCL, one rank a card; with one, a probe of two NCCL ranks on the
 card prints what NCCL answers.  ``--phase multiproc`` runs only the
 build, the latency probe and this phase.
 
+``api`` (after the proves above): the rest of the public API on the
+card.  ``ntt.lde`` of seeded values at 2^20 -> 2^22 (K1) and 2^24 ->
+2^26 (K2) against its plain version (the kernels' plain passes around
+the same scale and pad), exact, two launches of its route each, timed;
+``CosetFri`` at 2^26 points and its next domain against the host's
+powers; ``Fp.inv`` over 2^20 values against ``Fp.pow(x, p - 2)``; the
+fib-sq 2^24 prove under ``STARK_TPU_TORCH_DEBUG=1`` (the pinned digest,
+verified, tamper-rejected, launches as a plain prove's), its warm walls
+with the flag off and on in turns, and a 2^20 trace holding p refused
+("non-canonical"); ``utils.profile_trace`` around a warm 2^24 prove,
+whose Chrome trace must name the six kernels of K1-K5; the native host
+hash against hashlib (``sha256``, ``channel_absorb``, the root of
+``merkle_build_host`` at 2^16 against the port's tree), with the 2^24
+proof's host replay and ``verify`` timed through each.  ``--phase api``
+runs only the build and this phase.
+
 ``--profile`` then adds where a warm prove spends its time, for the
 Fibonacci-square proves at 2^20 and 2^24 rows, MiMC³ at 2^20, FibMul at
 2^24, FibMul-GL and tribmul at 2^20: a phase split synced after each phase (and
@@ -152,6 +168,7 @@ JAX.  The last line of standard output is the result object.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import hashlib
 import json
 import os
@@ -385,6 +402,66 @@ MONT_OPS, ADDSUB_OPS, FROM_MONT_OPS = 6, 2, 4
 SHA_ROUND_OPS, SHA_SCHED_OPS = 14, 10
 SHA_OPS = 64 * SHA_ROUND_OPS + 48 * SHA_SCHED_OPS + 8
 SHA_PAD_OPS = 64 * SHA_ROUND_OPS + 8
+
+
+def sha_leaf_ops(c: int, wide: bool) -> int:
+    """The operations of one leaf of sha_leaves<c, wide> once the compiler
+    has folded its constant message words (the u32 mode's zero high
+    words, the zeros past the values, the padding word, the bit length):
+    SHA_OPS's count with every Sigma, sigma, Ch, Maj and add of constant
+    inputs left out, an add of n data-dependent terms and a constant that
+    is not zero costing n // 2 3-input adds.  A leaf has at most 12 data
+    words, so each form counts below SHA_OPS (scripts/sass_round_count.py
+    holds the count against the compiled code)."""
+    from stark_tpu_torch.hash.sha256 import H0, K
+
+    data, mask = None, 0xFFFFFFFF  # a word that depends on the leaf
+
+    def rotr(x, n):
+        return (x >> n | x << 32 - n) & mask
+
+    def op(cost, f, *args):
+        if any(a is data for a in args):
+            return data, cost
+        return f(*args) & mask, 0
+
+    def add(*terms):
+        n = sum(t is data for t in terms)
+        k = sum(t for t in terms if t is not data) & mask
+        return (k, 0) if n == 0 else (data, (n + (k != 0)) // 2)
+
+    def big_sigma(*r):
+        return lambda x: rotr(x, r[0]) ^ rotr(x, r[1]) ^ rotr(x, r[2])
+
+    def small_sigma(r1, r2, s):
+        return lambda x: rotr(x, r1) ^ rotr(x, r2) ^ x >> s
+
+    w = [0] * 16
+    for k in range(c):
+        if wide:
+            w[2 * k] = data
+        w[2 * k + 1] = data
+    w[2 * c], w[15] = 0x80000000, 64 * c
+    ops = 0
+    for t in range(16, 64):
+        s1, o1 = op(4, small_sigma(17, 19, 10), w[t - 2])
+        s0, o2 = op(4, small_sigma(7, 18, 3), w[t - 15])
+        word, o3 = add(s1, w[t - 7], s0, w[t - 16])
+        w.append(word)
+        ops += o1 + o2 + o3
+    a, b, cc, d, e, f, g, h = H0
+    for t in range(64):
+        s1, o1 = op(4, big_sigma(6, 11, 25), e)
+        ch, o2 = op(1, lambda x, y, z: x & y ^ ~x & z, e, f, g)
+        t1, o3 = add(h, s1, ch, K[t], w[t])
+        s0, o4 = op(4, big_sigma(2, 13, 22), a)
+        maj, o5 = op(1, lambda x, y, z: x & y ^ x & z ^ y & z, a, b, cc)
+        new_a, o6 = add(t1, s0, maj)
+        new_e, o7 = add(d, t1)
+        ops += o1 + o2 + o3 + o4 + o5 + o6 + o7
+        a, b, cc, d, e, f, g, h = new_a, a, b, cc, new_e, e, f, g
+    return ops + sum(add(x, iv)[1] for x, iv in zip(
+        (a, b, cc, d, e, f, g, h), H0))
 # K5's latency bound: per round the new e is at least 3 dependent
 # operations after the last (a funnel shift and the xor3 of Sigma1, then
 # one 3-input add of Sigma1, Ch and d + h + K + W, which is formed rounds
@@ -416,6 +493,18 @@ RESUME = "2^24"
 # at offset 5, 18 folds, 16 queries; commit and decommit walls over runs
 FRI_LOG_DEG, FRI_BLOWUP, FRI_OFFSET, FRI_QUERIES, FRI_RUNS = 18, 8, 5, 16, 5
 
+# the api phase: lde of seeded values at 2^20 and 2^24 points (blowup 4,
+# offset 3; the K1 and K2 routes, the rows their launches go into), the
+# coset domain and the inverses it checks, the debug-flag walls (turns of
+# off, on, on, off), the native tree and the replay / verify turns
+API_LDE = ((20, "K1"), (24, "K2"))
+API_LDE_BLOWUP, API_LDE_OFFSET = 4, 3
+API_COSET_LOG, API_INV_LOG = 26, 20
+API_DEBUG_TURNS, API_HOST_TURNS = 2, 3
+API_NATIVE_TREE_LOG = 16
+# the kernels a profiled 2^24 prove's trace must name
+API_TRACE_KERNELS = ("ntt_pass1", "ntt_pass2", "sha_leaves", "sha_nodes",
+                     "sha_chain", "query_chain")
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -606,15 +695,19 @@ class Results:
         return got
 
 
-def phase_device() -> str:
-    name = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
+def card_smi() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
+
+
+def phase_device() -> str:
+    name = torch.cuda.get_device_name(0)
     log(f"device: {name}; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
-    log(smi)
+    log(card_smi())
     return name
 
 
@@ -784,7 +877,7 @@ def phase_tree(res: Results, dev) -> None:
               "slices)", sha_leaves(vals), sliced(sha256_u64_leaves, vals, sl))
     res.time("K3", f"leaves n=2^{TREE_TIME_LOG}", lambda: sha_leaves(vals),
              lambda: sliced(sha256_u64_leaves, vals, sl),
-             res.card.bound(36 * big, SHA_OPS * big))
+             res.card.bound(36 * big, sha_leaf_ops(1, False) * big))
     del vals
     kids = rand_u32_dev(gen, (big, 8), 1 << 32, dev)
     m = big // 2
@@ -816,7 +909,8 @@ def phase_tree(res: Results, dev) -> None:
               sha256_row_leaves(fcols))
     res.time("K3 row form", what, lambda: sha_row_leaves(fcols),
              lambda: sha256_row_leaves(fcols),
-             res.card.bound((4 * fc + 32) << flog, SHA_OPS << flog),
+             res.card.bound((4 * fc + 32) << flog,
+                            sha_leaf_ops(fc, False) << flog),
              row=False, other=True)
     del fcols
     res.check("K3 row form", f"row leaves C={c} n=2^{log} (plain in "
@@ -824,7 +918,8 @@ def phase_tree(res: Results, dev) -> None:
     # the columns read once (4 bytes a value), the digests written once
     res.time("K3 row form", f"row leaves C={c} n=2^{log}",
              lambda: sha_row_leaves(cols), rows_sliced,
-             res.card.bound((4 * c + 32) << log, SHA_OPS << log))
+             res.card.bound((4 * c + 32) << log,
+                            sha_leaf_ops(c, False) << log))
 
 
 def phase_tree_wide(res: Results, dev) -> None:
@@ -854,7 +949,7 @@ def phase_tree_wide(res: Results, dev) -> None:
                   sha_leaves(vals, wide=True), plain())
         # each limb pair read once (8 bytes), each digest written once
         res.time("K3 wide", what, lambda: sha_leaves(vals, wide=True), plain,
-                 res.card.bound(40 * n, SHA_OPS * n),
+                 res.card.bound(40 * n, sha_leaf_ops(1, True) * n),
                  row=log_n == WIDE_LEAVES_LOGS[0], other=True,
                  plain_reps=REPS if log_n == TREE_LOG else 1,
                  reps=SMALL_REPS if log_n == TREE_LOG else REPS)
@@ -868,7 +963,7 @@ def phase_tree_wide(res: Results, dev) -> None:
                  lambda: sha_row_leaves(cols, wide=True),
                  lambda: sha256_row_leaves(cols, wide=True),
                  res.card.bound((8 * c + 32) << WIDE_ROW_LOG,
-                                SHA_OPS << WIDE_ROW_LOG),
+                                sha_leaf_ops(c, True) << WIDE_ROW_LOG),
                  row=False, other=True, reps=SMALL_REPS)
     c, log_n = ROW_FAMILY  # tribmul-GL's trace tree
     cols = rand_words_dev(gen, (c, 2, 1 << log_n), dev)
@@ -878,7 +973,8 @@ def phase_tree_wide(res: Results, dev) -> None:
     res.time("K3 wide row form", what,
              lambda: sha_row_leaves(cols, wide=True),
              lambda: sha256_row_leaves(cols, wide=True),
-             res.card.bound((8 * c + 32) << log_n, SHA_OPS << log_n),
+             res.card.bound((8 * c + 32) << log_n,
+                            sha_leaf_ops(c, True) << log_n),
              row=False, other=True)
     c, log_n = WIDE_ROW_TIME
     cols = rand_words_dev(gen, (c, 2, 1 << log_n), dev)
@@ -888,7 +984,8 @@ def phase_tree_wide(res: Results, dev) -> None:
     res.time("K3 wide row form", what,
              lambda: sha_row_leaves(cols, wide=True),
              lambda: sha256_row_leaves(cols, wide=True),
-             res.card.bound((8 * c + 32) << log_n, SHA_OPS << log_n))
+             res.card.bound((8 * c + 32) << log_n,
+                            sha_leaf_ops(c, True) << log_n))
     del cols
     torch.cuda.empty_cache()
 
@@ -1552,7 +1649,7 @@ def phase_kernel_batches(res: Results, dev) -> None:
     res.time("K3 tree batch", f"leaves B={b} x n=2^{BATCH_TREE_LOG}",
              lambda: sha_leaves_batch(vals, leaves),
              lambda: [sha256_u64_leaves(vals[k]) for k in range(b)],
-             res.card.bound(36 * b * n, SHA_OPS * b * n))
+             res.card.bound(36 * b * n, sha_leaf_ops(1, False) * b * n))
     single = cuda_ms(lambda: [sha_leaves(vals[k], out=leaves[k])
                               for k in range(b)])
     log(f"K3 tree batch: {b} single launches {single:.4f} ms")
@@ -2476,6 +2573,242 @@ def phase_multiproc(res: Results, dev) -> dict:
     return out
 
 
+def _api_launches(res: Results, run: str, counts: dict,
+                  path: str | None = None) -> None:
+    """A run's launch counts in the rows' launches_by_prove.  A prove of
+    `path` also gives its counts as the launches of the rows whose main
+    path that is (ROW_PATH), where no prove has yet: in a run of the api
+    phase alone."""
+    for row, n in counts.items():
+        if n:
+            res.rows[row]["launches_by_prove"][run] = n
+            if path is not None and ROW_PATH.get(row, PATH) == path and \
+                    res.rows[row]["launches"] is None:
+                res.rows[row]["launches"] = n
+
+
+@contextlib.contextmanager
+def native_host_hash():
+    """The JAX package's wiring of its native host hash
+    (stark_tpu/channel/channel.py:47-54, stark_tpu/merkle/tree.py:444-450)
+    patched into the port for a measurement: the channel's absorb and the
+    path check of an 8-byte leaf in C."""
+    from stark_tpu_torch import native
+    from stark_tpu_torch.channel import channel as chmod
+    from stark_tpu_torch.merkle.tree import MerkleTree
+
+    absorb, validate = chmod._absorb, MerkleTree.validate
+
+    def native_validate(root_hex, proof, index, leaf_bytes, num_leaves):
+        if len(leaf_bytes) == 8:
+            return native.merkle_validate(root_hex.lower(), proof, index,
+                                          leaf_bytes, num_leaves)
+        return validate(root_hex, proof, index, leaf_bytes, num_leaves)
+
+    chmod._absorb = native.channel_absorb
+    MerkleTree.validate = staticmethod(native_validate)
+    try:
+        yield
+    finally:
+        chmod._absorb = absorb
+        MerkleTree.validate = staticmethod(validate)
+
+
+def phase_api(res: Results, dev) -> None:
+    """The rest of the public API on the card: ``lde`` on both NTT routes
+    against its plain version, ``CosetFri`` and ``Fp.inv``, the debug
+    checks on the pinned 2^24 prove (its walls with the flag off and on,
+    a planted non-canonical trace refused), ``profile_trace`` around a
+    warm 2^24 prove, and the native host hash against hashlib with the
+    2^24 proof's replay and verify timed both ways."""
+    from stark_tpu_torch import native
+    from stark_tpu_torch.channel import channel as chmod
+    from stark_tpu_torch.fields.fp import Fp, upload_u32
+    from stark_tpu_torch.fri import CosetFri
+    from stark_tpu_torch.merkle import MerkleTree
+    from stark_tpu_torch.ntt import lde
+    from stark_tpu_torch.ntt.cuda_ntt import ntt_passes_plain
+    from stark_tpu_torch.ntt.ntt import scale_pad
+    from stark_tpu_torch.ntt.reference_ntt import root_of_unity
+    from stark_tpu_torch.stark import FibonacciSquareAIR, prove, verify
+    from stark_tpu_torch.utils import profile_trace
+
+    t_phase = time.perf_counter()
+
+    def at() -> str:
+        return f"[api +{time.perf_counter() - t_phase:.1f} s]"
+
+    card = card_smi()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    blowup, offset = API_LDE_BLOWUP, API_LDE_OFFSET
+    for log_n, row in API_LDE:
+        n = 1 << log_n
+        x = rand_u32_dev(gen, (n,), P, dev)
+        reset_counts()
+        got = lde(x, P, blowup, offset)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        if {k: v for k, v in counts.items() if v} != {row: 2}:
+            raise AssertionError(f"lde 2^{log_n} launched {counts}, "
+                                 f"expected {row} twice")
+        _api_launches(res, f"lde 2^{log_n}", counts)
+
+        def plain(x=x, n=n):
+            coeffs = ntt_passes_plain(x, P, True)
+            return ntt_passes_plain(scale_pad(coeffs, P, blowup * n, offset),
+                                    P, False)
+
+        what = f"lde 2^{log_n} -> 2^{log_n + 2}"
+        res.check(row, f"{what} (blowup {blowup}, offset {offset})", got,
+                  plain())
+        b_inv = res.card.ntt_bound(n, True)
+        b_fwd = res.card.ntt_bound(blowup * n, False)
+        res.time(row, what, lambda x=x: lde(x, P, blowup, offset), plain,
+                 (b_inv[0] + b_fwd[0], b_fwd[1]), row=False, other=True,
+                 plain_reps=1)
+        del x, got
+
+    f = Fp.get(P)
+    n = 1 << API_COSET_LOG
+    w = root_of_unity(P, n)
+    cf = CosetFri(P, offset, w, n, device=dev)
+    dom = cf.generate_coset_domain()
+    host = f.host_powers(w, n).astype(np.uint64) * np.uint64(offset) % \
+        np.uint64(P)
+    if not torch.equal(dom, upload_u32(host, dev)):
+        raise AssertionError("CosetFri 2^26 domain != offset * w^i")
+    half = host[: n // 2]
+    if not torch.equal(cf.next_coset_domain(dom),
+                       upload_u32(half * half % np.uint64(P), dev)):
+        raise AssertionError("next_coset_domain != the first half squared")
+    del dom, host, half
+    x = rand_u32_dev(gen, (1 << API_INV_LOG,), P, dev)
+    inv = f.inv(x)
+    if not torch.equal(inv, f.pow(x, torch.full_like(inv, P - 2))) or \
+            not bool((f.mul(inv, x) == (x != 0).to(torch.int64)).all()):
+        raise AssertionError("Fp.inv != x^(p-2) over 2^20 values")
+    log(f"{at()} CosetFri 2^{API_COSET_LOG} domain and its next domain equal "
+        f"the host's; Fp.inv over 2^{API_INV_LOG} values equals "
+        f"pow(x, p - 2) on the card")
+
+    cfg, _ = prove_setup(PATH)
+    was = os.environ.pop("STARK_TPU_TORCH_DEBUG", None)
+    try:
+        os.environ["STARK_TPU_TORCH_DEBUG"] = "1"
+        reset_counts()
+        t0 = time.perf_counter()
+        pr = prove(cfg, device=dev)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        counts = read_counts()
+        for k, want in expected_launches(cfg, None).items():
+            if counts[k] != want:
+                raise AssertionError(f"{k} launched {counts[k]} times in the "
+                                     f"debug {PATH} prove, expected {want}")
+        _api_launches(res, f"debug {PATH}", counts, PATH)
+        digest = hashlib.sha256(b"".join(pr.proof)).hexdigest()
+        if digest != TRANSCRIPT_SHA256[PATH]:
+            raise AssertionError(f"debug {PATH} prove: transcript sha256 "
+                                 f"{digest} != {TRANSCRIPT_SHA256[PATH]}")
+        check_verifies(f"debug {PATH}", cfg, pr)
+        walls = {"off": [], "on": []}
+        for _ in range(API_DEBUG_TURNS):
+            for flag in ("off", "on", "on", "off"):
+                if flag == "on":
+                    os.environ["STARK_TPU_TORCH_DEBUG"] = "1"
+                else:
+                    os.environ.pop("STARK_TPU_TORCH_DEBUG", None)
+                t0 = time.perf_counter()
+                prove(cfg, device=dev)
+                torch.cuda.synchronize()
+                walls[flag].append(round(time.perf_counter() - t0, 4))
+        os.environ["STARK_TPU_TORCH_DEBUG"] = "1"
+        cfg20, _ = prove_setup("2^20")
+        bad = FibonacciSquareAIR().build_trace(cfg20, device=dev)
+        bad[5] = P - (1 << 32)  # the int32 storage word of p
+        try:
+            prove(cfg20, trace=bad, strict=False, device=dev)
+        except AssertionError as e:
+            if "non-canonical" not in str(e):
+                raise
+            log(f"{at()} planted p in the 2^20 trace refused: {e}")
+        else:
+            raise AssertionError("a trace holding p proved under the flag")
+    finally:
+        os.environ.pop("STARK_TPU_TORCH_DEBUG", None)
+        if was is not None:
+            os.environ["STARK_TPU_TORCH_DEBUG"] = was
+    log(f"{at()} debug {PATH} prove (first, cold contexts) {first_s:.3f} s, "
+        f"pinned digest, verified; launches {counts}; warm walls (s) "
+        f"STARK_TPU_TORCH_DEBUG off {walls['off']} median "
+        f"{statistics.median(walls['off']):.4f}, on {walls['on']} median "
+        f"{statistics.median(walls['on']):.4f} ({card})")
+
+    with profile_trace() as path:
+        prove(cfg, device=dev)
+        torch.cuda.synchronize()
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    names = {e.get("name", "") for e in events}
+    missing = [k for k in API_TRACE_KERNELS
+               if not any(k in name for name in names)]
+    if missing:
+        raise AssertionError(f"the profile trace names no {missing}")
+    log(f"{at()} profile_trace of a warm {PATH} prove: {path}, "
+        f"{len(events)} events, naming {', '.join(API_TRACE_KERNELS)}")
+
+    for msg in (b"", b"abc", bytes(range(256)) * 3):
+        if native.sha256(msg) != hashlib.sha256(msg).digest():
+            raise AssertionError(f"native sha256 of {len(msg)} bytes")
+    state = ""
+    for msg in pr.proof[:64]:
+        nxt = native.channel_absorb(state, msg)
+        if nxt != hashlib.sha256((state + msg.hex()).encode()).hexdigest():
+            raise AssertionError("native channel_absorb != hashlib")
+        state = nxt
+    vals = np.random.RandomState(SEED).randint(
+        0, P, size=1 << API_NATIVE_TREE_LOG, dtype=np.int64)
+    tree = MerkleTree(upload_u32(vals, dev))
+    if native.merkle_build_host(vals)[-1].hex() != tree.root():
+        raise AssertionError("native merkle_build_host root != the tree's")
+
+    def replay(absorb):
+        state = ""
+        for msg in pr.proof:
+            state = absorb(state, msg)
+        return state
+
+    def verified():
+        if not verify(pr, expected_config=cfg):
+            raise AssertionError("verify rejected the proof")
+
+    if replay(chmod._absorb) != replay(native.channel_absorb):
+        raise AssertionError("native replay != hashlib replay")
+    times = {"replay hashlib": [], "replay native": [],
+             "verify hashlib": [], "verify native": []}
+    for _ in range(API_HOST_TURNS):
+        for route in ("hashlib", "native", "native", "hashlib"):
+            t0 = time.perf_counter()
+            replay(chmod._absorb if route == "hashlib"
+                   else native.channel_absorb)
+            times[f"replay {route}"].append(
+                (time.perf_counter() - t0) * 1e3)
+            ctx = native_host_hash() if route == "native" else \
+                contextlib.nullcontext()
+            with ctx:
+                t0 = time.perf_counter()
+                verified()
+                times[f"verify {route}"].append(
+                    (time.perf_counter() - t0) * 1e3)
+    log(f"{at()} native host hash equals hashlib (sha256, channel_absorb; "
+        f"merkle_build_host at 2^{API_NATIVE_TREE_LOG} = the tree's root); "
+        f"the {PATH} proof ({len(pr.proof)} messages) on the card's host, "
+        f"ms medians: " + ", ".join(
+            f"{k} {statistics.median(v):.3f}" for k, v in times.items())
+        + f" ({card})")
+    log(f"api phase: {time.perf_counter() - t_phase:.1f} s")
+
+
 def phase_gl_memory(dev, at_2e20: dict) -> None:
     """FibMul-GL's cold and warm walls and the cold prove's peak device
     memory at GL_MEMORY_LOGS rows and, from its prove above, 2^20: each
@@ -2880,9 +3213,11 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also profile warm proves (" + ", ".join(PROFILED)
                     + ")")
-    ap.add_argument("--phase", choices=("all", "multiproc"), default="all",
+    ap.add_argument("--phase", choices=("all", "multiproc", "api"),
+                    default="all",
                     help="multiproc: the build, the latency probe and the "
-                         "multi-process phase only")
+                         "multi-process phase only; api: the build and the "
+                         "api phase only")
     args = ap.parse_args()
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2958,6 +3293,9 @@ def main() -> int:
              "boundary for a process mesh (the JAX multi-host prove runs "
              "that scan under GSPMD, stark_tpu/dist/multihost.py:79)")):
         res.add(name, source, replaces)
+    if args.phase == "api":
+        phase_api(res, dev)
+        return finish(res, kind, t_start, partial=True)
     phase_latency(card, dev)
     if args.phase == "multiproc":
         phase_multiproc(res, dev)
@@ -2975,6 +3313,7 @@ def main() -> int:
         "cold prove's phases' peaks): " + json.dumps(
             {name: {k: v for k, v in walls[name].items() if k != "sha256"}
              for name in LARGE}))
+    phase_api(res, dev)
     families = phase_families(res, dev)
     phase_batch(res, dev)
     phase_resume(dev)

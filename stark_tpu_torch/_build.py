@@ -48,10 +48,17 @@ SIGNATURES = {
     "host_trace": {fn: [_U64, _U64, _U64, _SZ, _P]
                    for fn in ("stark_fib_trace", "stark_mimc_trace",
                               "stark_fibmul_trace")},
+    "host_hash": {"stark_sha256": [_P, _SZ, _P],
+                  "stark_merkle_build": [_P, _SZ, _P],
+                  "stark_merkle_validate": [_P, _P, _SZ, _SZ, _P, _SZ],
+                  "stark_channel_absorb": [_P, _SZ, _P, _SZ, _P]},
 }
-# host libraries (C++ for the CPU, functions return void): name -> source
-# under the package; every other library is csrc/<name>.cu
-HOST_SOURCES = {"host_trace": os.path.join("native", "host_trace.cpp")}
+# host libraries (C++ for the CPU, functions return void unless RESTYPES
+# names them): name -> source under the package; every other library is
+# csrc/<name>.cu
+HOST_SOURCES = {"host_trace": os.path.join("native", "host_trace.cpp"),
+                "host_hash": os.path.join("native", "host_hash.cpp")}
+RESTYPES = {"stark_merkle_build": _SZ, "stark_merkle_validate": _I}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -105,7 +112,8 @@ def _load(name: str, path: str) -> ctypes.CDLL:
     for fn, argtypes in SIGNATURES[name].items():
         f = getattr(lib, fn)
         f.argtypes = argtypes
-        f.restype = None if name in HOST_SOURCES else ctypes.c_int
+        f.restype = RESTYPES.get(
+            fn, None if name in HOST_SOURCES else ctypes.c_int)
     return lib
 
 

@@ -58,6 +58,7 @@ checks that the device-derived chain equals the host derivation.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -928,6 +929,17 @@ class DeviceQueryPlan:
 
 def _prunes_fit(lengths, prunes) -> bool:
     return all(0 <= p and 1 << p <= ln for ln, p in zip(lengths, prunes))
+
+
+@functools.lru_cache(maxsize=None)
+def get_plan(rng: int, num_queries: int, offsets: tuple,
+             trace_len: int | None, fri_lengths: tuple,
+             num_columns: int = 1, elem_width: int = 1, trace_prune: int = 0,
+             fri_prune: tuple = (), shards: int = 1) -> "DeviceQueryPlan":
+    """The :class:`DeviceQueryPlan` of these arguments, built once."""
+    return DeviceQueryPlan(rng, num_queries, offsets, trace_len, fri_lengths,
+                           num_columns, elem_width, trace_prune, fri_prune,
+                           shards)
 
 
 def supported(rng: int, trace_len: int | None, fri_lengths,

@@ -216,8 +216,8 @@ def cmd_info(args) -> int:
     else:
         print("devices: no CUDA device (prove/serve need --cpu)")
     for name in _build.SIGNATURES:
-        kind = ("native host trace" if name in _build.HOST_SOURCES
-                else "CUDA kernels")
+        kind = ("native " + name.replace("_", " ")
+                if name in _build.HOST_SOURCES else "CUDA kernels")
         built = os.path.exists(_build._lib_path(name))
         print(f"{kind} {name}: {'built' if built else 'not built'}")
     return 0

@@ -48,6 +48,9 @@ class CollectiveVolume:
     wire_bytes: int  # bytes crossing shard boundaries, all shards
     per_chip_bytes: int  # bytes one shard sends (or the first receives)
 
+    def as_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
 
 def ntt_collectives(n: int, s: int, elem: int = 4,
                     columns: int = 1) -> list[CollectiveVolume]:

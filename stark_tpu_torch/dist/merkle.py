@@ -23,8 +23,9 @@ from __future__ import annotations
 import torch
 
 from stark_tpu_torch.dist.mesh import Mesh, Sharded, sharded
-from stark_tpu_torch.merkle.tree import (MerkleTree, digest_bytes,
-                                         hash_levels, level_offsets)
+from stark_tpu_torch.hash.sha256 import digest_to_bytes
+from stark_tpu_torch.merkle.tree import (MerkleTree, hash_levels,
+                                         level_offsets)
 
 
 def shards_tree(n: int, s: int) -> bool:
@@ -75,7 +76,7 @@ class DistMerkleTree:
         return self.top[-1]
 
     def root(self) -> str:
-        return digest_bytes(self.root_digest.cpu().tolist()).hex()
+        return digest_to_bytes(self.root_digest.cpu().tolist()).hex()
 
     def locate(self, row: int):
         """Global buffer row (the ``level_offsets(n)`` layout of a whole
@@ -124,7 +125,7 @@ class DistMerkleTree:
         for row in self.path_rows(index):
             buf, local = self.locate(row)
             sibs.append(buf[local].cpu().tolist())
-        return b"".join(digest_bytes(s) for s in sibs)
+        return b"".join(digest_to_bytes(s) for s in sibs)
 
 
 def dist_merkle_tree(values, mesh: Mesh, columns: bool = False, *,

@@ -68,6 +68,41 @@ def _mullo32(a, c: int):
     return (lo + (hi << 16)) & MASK32
 
 
+def tree_sum(add, a: torch.Tensor, axis: int) -> torch.Tensor:
+    """Modular sum of `a` along `axis` by pairwise halving with the
+    field's `add` (the JAX ``Fp.sum``), the axis squeezed."""
+    n = int(a.shape[axis])
+    while n > 1:
+        half = n // 2
+        s = add(a.narrow(axis, 0, half), a.narrow(axis, half, half))
+        if n % 2:
+            s = torch.cat([s, a.narrow(axis, 2 * half, 1)], dim=axis)
+        a, n = s, int(s.shape[axis])
+    return a.squeeze(axis)
+
+
+def doubling_table(mul, cat, ones, ratio, count: int):
+    """`ones` times ratio^j for j < count, along the last axis, by
+    doubling: each step appends the table times ratio^(2^k).  `mul` is
+    the field's product and `cat` joins along the last axis (torch or
+    numpy), so one loop serves the tables of both fields and both
+    sides."""
+    c = 1
+    while c < count:
+        ones = cat([ones, mul(ones, ratio)])[..., :count]
+        ratio = mul(ratio, ratio)
+        c *= 2
+    return ones
+
+
+def torch_cat(parts):
+    return torch.cat(parts, dim=-1)
+
+
+def numpy_cat(parts):
+    return np.concatenate(parts, axis=-1)
+
+
 @functools.lru_cache(maxsize=None)
 def _get(modulus: int):
     p = int(modulus)
@@ -105,11 +140,32 @@ class Fp:
         """A canonical constant as a 0-dim int64 tensor."""
         return torch.tensor(int(value) % self.p, device=device)
 
+    def const_mont(self, value: int, device=None) -> torch.Tensor:
+        """mont(value) as a 0-dim int64 tensor (width-generic plan code)."""
+        return torch.tensor(int(value) % self.p * self.r % self.p,
+                            device=device)
+
+    def ones_mont(self, count: int, device=None) -> torch.Tensor:
+        """(count,) int64 of mont(1), a width-generic twiddle filler."""
+        return torch.full((count,), self.r, dtype=torch.int64,
+                          device=device)
+
+    @property
+    def one_mont(self) -> int:
+        return self.r
+
     def array(self, values, device=None) -> torch.Tensor:
         """A flat sequence of Python ints -> int64 canonical values (the
         width-1 counterpart of ``Fp64Goldilocks.array``)."""
         return torch.tensor([int(v) % self.p for v in values],
                             dtype=torch.int64, device=device)
+
+    @staticmethod
+    def to_ints(arr) -> list[int]:
+        """Storage words or values (a tensor or an array) -> Python ints,
+        flattened, each word read unsigned."""
+        a = np.asarray(arr.cpu() if torch.is_tensor(arr) else arr)
+        return [int(v) & MASK32 for v in a.astype(np.int64).reshape(-1)]
 
     @staticmethod
     def arith(x: torch.Tensor) -> torch.Tensor:
@@ -141,6 +197,12 @@ class Fp:
         p = self.p
         return ((a * (b >> 16)) % p * 65536 + a * (b & 0xFFFF)) % p
 
+    def sqr(self, a):
+        return self.mul(a, a)
+
+    def double(self, a):
+        return self.add(a, a)
+
     # -- Montgomery domain -------------------------------------------------
     def _redc(self, hi, lo):
         """(hi*2^32 + lo) * R^-1 mod p — the exact semantics of the JAX
@@ -154,6 +216,9 @@ class Fp:
         a, b = lift(a), lift(b)
         hi, lo = _mulhilo32(a, b)
         return self._redc(hi, lo)
+
+    def mont_sqr(self, a):
+        return self.mont_mul(a, a)
 
     def to_mont(self, a):
         a = lift(a)
@@ -183,11 +248,32 @@ class Fp:
                 am = self.mont_mul(am, am)
         return self.from_mont(acc)
 
-    def inv_rolled(self, a):
-        """Batched Fermat inverse a^(p-2) (0 maps to 0, as in JAX).  The
-        JAX version rolls the chain into a fori_loop for program size;
-        eager torch has no program, so this is the same chain as a loop."""
+    def pow(self, a, exp):
+        """a ** exp for an exponent tensor of uint32 words (the shape of
+        `a`): 32 square-and-multiply rounds in the Montgomery domain."""
+        am = self.to_mont(a)
+        e = lift(exp)
+        acc = torch.full_like(am, self.r)
+        for _ in range(32):
+            acc = torch.where((e & 1) == 1, self.mont_mul(acc, am), acc)
+            am = self.mont_mul(am, am)
+            e = e >> 1
+        return self.from_mont(acc)
+
+    def inv(self, a):
+        """Batched Fermat inverse a^(p-2) (0 maps to 0, as in JAX)."""
         return self.pow_static(a, self.p - 2)
+
+    # the JAX version rolls the chain into a fori_loop for program size;
+    # eager torch has no program, so it is the same chain
+    inv_rolled = inv
+
+    def sum(self, a, axis=None):
+        """Modular sum along `axis` (all values when None)."""
+        a = lift(a)
+        if axis is None:
+            a, axis = a.reshape(-1), 0
+        return tree_sum(self.add, a, axis)
 
     # -- host table builders (numpy, u64-safe since operands < 2^32) --------
     def host_powers(self, base: int, count: int, mont: bool = False):
@@ -204,6 +290,24 @@ class Fp:
         if mont:
             out = out * np.uint64(self.r) % np.uint64(p)
         return out.astype(np.uint32)
+
+    def host_geometric_table(self, ratios, count: int, mont: bool = False):
+        """numpy uint32 T[i, j] = ratios[i]^j, canonical (or mont)."""
+        p = np.uint64(self.p)
+        r = np.asarray(ratios, dtype=np.uint64)[..., None] % p
+        cols = doubling_table(lambda a, b: a * b % p, numpy_cat,
+                              np.ones_like(r), r, count)
+        if mont:
+            cols = cols * np.uint64(self.r) % p
+        return cols.astype(np.uint32)
+
+    def geometric_table(self, ratios, count: int) -> torch.Tensor:
+        """T[i, j] = ratios[i]^j for j < count, int64 on the ratios'
+        device: (m,) canonical in, (m, count) out (batched doubling)."""
+        rm = self.to_mont(ratios)[..., None]
+        return self.from_mont(doubling_table(
+            self.mont_mul, torch_cat, torch.full_like(rm, self.r), rm,
+            count))
 
     def powers(self, base: int, count: int, device) -> torch.Tensor:
         """[base^0 .. base^(count-1)] canonical, as int64 built on `device`:
@@ -224,6 +328,12 @@ class Fp:
             out[r * cols:(r + rows) * cols] = self.mont_mul(
                 hi_t[r:r + rows, None], lo_t[None, :]).reshape(-1)
         return out[:count]
+
+    def two_adic_root(self, order: int, generator: int) -> int:
+        """A primitive `order`-th root of unity (host int)."""
+        if (self.p - 1) % order != 0:
+            raise ValueError(f"{order} does not divide p-1 = {self.p - 1}")
+        return pow(int(generator), (self.p - 1) // order, self.p)
 
     def coset_domain(self, offset: int, omega: int, size: int, device):
         """{offset * omega^i} as int32 storage, built on `device`."""

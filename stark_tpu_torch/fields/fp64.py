@@ -27,7 +27,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from stark_tpu_torch.fields.fp import MASK32, _mulhilo32, host_words, lift
+from stark_tpu_torch.fields.fp import (MASK32, _mulhilo32, doubling_table,
+                                      host_words, lift, numpy_cat, torch_cat,
+                                      tree_sum)
 
 GOLDILOCKS = (1 << 64) - (1 << 32) + 1
 # Fp64Goldilocks.powers multiplies at most this many entries at a time
@@ -74,6 +76,12 @@ class Fp64Goldilocks:
         self.p = GOLDILOCKS
         self.r = 1  # the identity "Montgomery" domain
 
+    @staticmethod
+    def get(modulus: int):
+        from stark_tpu_torch.fields.fp import Fp
+
+        return Fp.get(modulus)
+
     # -- construction -----------------------------------------------------
     def const(self, value: int, device=None) -> torch.Tensor:
         """A canonical constant as a (2, 1) int64 pair (broadcasts against
@@ -81,6 +89,16 @@ class Fp64Goldilocks:
         v = int(value) % self.p
         return torch.tensor([[v >> 32], [v & MASK32]], dtype=torch.int64,
                             device=device)
+
+    def const_mont(self, value: int, device=None) -> torch.Tensor:
+        return self.const(value, device)
+
+    def ones_mont(self, count: int, device=None) -> torch.Tensor:
+        """(2, count) int64 limb planes of 1."""
+        return torch.stack([torch.zeros(count, dtype=torch.int64,
+                                        device=device),
+                            torch.ones(count, dtype=torch.int64,
+                                       device=device)])
 
     def array(self, values, device=None) -> torch.Tensor:
         """Python ints -> (2,) + shape int64 limb planes."""
@@ -112,6 +130,10 @@ class Fp64Goldilocks:
         return y.movedim(0, -2).to(torch.int32).contiguous()
 
     # -- canonical ops (inputs int32 storage or int64; output int64) ------
+    def canon(self, a):
+        """A (2,) + lanes pair of values in [0, 2^64) reduced into [0, p)."""
+        return _canon(lift(a[0]), lift(a[1]))
+
     def add(self, a, b):
         alo, blo = lift(a[1]), lift(b[1])
         lo = alo + blo
@@ -154,12 +176,25 @@ class Fp64Goldilocks:
     def sqr(self, a):
         return self.mul(a, a)
 
+    def double(self, a):
+        return self.add(a, a)
+
     # -- "Montgomery" domain (the identity) -------------------------------
+    def mont_mul(self, a, b):
+        return self.mul(a, b)
+
+    def mont_sqr(self, a):
+        return self.mul(a, a)
+
     def to_mont(self, a):
         return lift(a)
 
     def from_mont(self, a):
         return lift(a)
+
+    @property
+    def one_mont(self) -> int:
+        return 1
 
     # -- powers / inversion -------------------------------------------------
     def pow_static(self, a, exp: int):
@@ -180,10 +215,28 @@ class Fp64Goldilocks:
                 a = self.mul(a, a)
         return acc
 
-    def inv_rolled(self, a):
-        """Batched Fermat inverse a^(p-2), 0 mapping to 0 (the JAX
-        version's fori_loop, as a loop)."""
+    def inv(self, a):
+        """Batched Fermat inverse a^(p-2), 0 mapping to 0."""
         return self.pow_static(a, self.p - 2)
+
+    inv_rolled = inv  # the JAX version's fori_loop, as a loop
+
+    def sum(self, a, axis=None):
+        """Modular sum along a lane axis (all lanes when None) of
+        (2,) + lanes limb planes; axis 0 is the limb plane."""
+        a = lift(a)
+        if axis is None:
+            a, axis = a.reshape(2, -1), 1
+        if axis == 0:
+            raise ValueError("axis 0 is the limb plane")
+        return tree_sum(self.add, a, axis)
+
+    def geometric_table(self, ratios, count: int) -> torch.Tensor:
+        """T[:, i, j] = ratios[:, i]^j: (2, m) limb planes in, (2, m,
+        count) int64 out, on the ratios' device."""
+        cur = lift(ratios)[..., None]
+        ones = self.ones_mont(int(cur.shape[1]), cur.device)[..., None]
+        return doubling_table(self.mul, torch_cat, ones, cur, count)
 
     # -- host tables (numpy uint64) ----------------------------------------
     @staticmethod
@@ -221,6 +274,16 @@ class Fp64Goldilocks:
             c *= 2
         return host_words(out[:count], 2)
 
+    def host_geometric_table(self, ratios, count: int, mont: bool = False):
+        """numpy uint32 (2, m, count) limb planes of T[i, j] = r_i^j from
+        (2, m) limb-pair ratios (mont is the identity here)."""
+        r = np.asarray(ratios, dtype=np.uint64)
+        r = ((r[0] << np.uint64(32)) | r[1])[..., None]
+        cols = doubling_table(self._np_mulmod, numpy_cat, np.ones_like(r),
+                              r, count)
+        return np.stack([(cols >> np.uint64(32)).astype(np.uint32),
+                         (cols & np.uint64(MASK32)).astype(np.uint32)])
+
     def powers(self, base: int, count: int, device) -> torch.Tensor:
         """(2, count) int64 [base^0 .. base^(count-1)] built on `device`:
         the outer product of two host tables of about sqrt(count)
@@ -240,6 +303,12 @@ class Fp64Goldilocks:
             out[:, r * cols:(r + step) * cols] = self.mul(
                 hi[:, r:r + step, None], lo[:, None, :]).reshape(2, -1)
         return out[:, :count]
+
+    def two_adic_root(self, order: int, generator: int) -> int:
+        """A primitive `order`-th root of unity (host int)."""
+        if (self.p - 1) % order != 0:
+            raise ValueError(f"{order} does not divide p-1 = {self.p - 1}")
+        return pow(int(generator), (self.p - 1) // order, self.p)
 
     def coset_domain(self, offset: int, omega: int, size: int, device):
         """{offset * omega^i} as (2, size) int32 storage, built on

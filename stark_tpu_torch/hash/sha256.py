@@ -2,7 +2,9 @@
 ``stark_tpu/hash/sha256_jax.py``).
 
 These are the plain versions of the tree kernels K3/K4
-(``hash/cuda_sha.py``) and run on whatever device their inputs are on.
+(``hash/cuda_sha.py``) and run on whatever device their inputs are on;
+:func:`digest_to_bytes` and :func:`digests_to_numpy_bytes` turn digest
+words into bytes on the host.
 Lanes are int64 tensors holding 32-bit words (torch has no uint32
 arithmetic on the CPU); every add is masked back to 32 bits.  Byte
 semantics are standard FIPS 180-4, identical to hashlib.
@@ -10,6 +12,7 @@ semantics are standard FIPS 180-4, identical to hashlib.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from stark_tpu_torch.fields.fp import MASK32, lift
@@ -104,3 +107,31 @@ def sha256_pairs(children: torch.Tensor) -> torch.Tensor:
     pad = [0x80000000] + [0] * 14 + [512]
     out = compress(st, pad)
     return torch.stack(out, dim=-1).to(torch.int32)
+
+
+def sha256_bytes_single_block(words16, lanes_shape) -> torch.Tensor:
+    """One compression from the initial state of pre-padded 16-word
+    messages: 16 lane tensors of `lanes_shape` (int32 storage or int64
+    words) or ints -> (lanes, 8) int32 digests."""
+    w = [lift(x) if torch.is_tensor(x) else x for x in words16]
+    dev = next((x.device for x in w if torch.is_tensor(x)), None)
+    state = [torch.full(tuple(lanes_shape), h, dtype=torch.int64,
+                        device=dev) for h in H0]
+    return torch.stack(compress(state, w), dim=-1).to(torch.int32)
+
+
+def _rows(words):
+    if torch.is_tensor(words):
+        words = words.cpu()
+    return np.asarray(words).astype(np.int64) & MASK32
+
+
+def digest_to_bytes(d) -> bytes:
+    """One digest's 8 words (int32 storage or ints; a tensor, an array or
+    a list) -> 32 big-endian bytes."""
+    return b"".join(int(x).to_bytes(4, "big") for x in _rows(d))
+
+
+def digests_to_numpy_bytes(level) -> list[bytes]:
+    """An (m, 8) level of digest rows -> m digests of 32 bytes."""
+    return [row.astype(">u4").tobytes() for row in _rows(level)]

@@ -53,6 +53,7 @@ import torch
 
 from stark_tpu_torch.hash.cuda_sha import (sha_leaves, sha_nodes,
                                            sha_row_leaves)
+from stark_tpu_torch.hash.sha256 import digest_to_bytes
 
 
 # the stored levels of a pruned tree hold at most 2^PRUNE_KEEP_LOG nodes;
@@ -120,11 +121,6 @@ def level_offsets(n: int) -> list[tuple[int, int]]:
             return out
         off += size
         size = (size + 1) // 2
-
-
-def digest_bytes(words) -> bytes:
-    """Digest words (int32 storage or ints) -> 32 big-endian bytes."""
-    return b"".join((int(x) & 0xFFFFFFFF).to_bytes(4, "big") for x in words)
 
 
 def build_tree(values: torch.Tensor, out: torch.Tensor | None = None, *,
@@ -271,9 +267,17 @@ class MerkleTree:
         buffer; a ``DistMerkleTree`` has one a subtree)."""
         return [self.buffer]
 
+    def level_size(self, level_i: int) -> int:
+        """Nodes of stored level `level_i` (0 the first stored level)."""
+        return self.offsets[level_i][1]
+
+    def root_bytes(self) -> bytes:
+        """The root's 32 bytes (only they cross to the host)."""
+        return digest_to_bytes(self.buffer[-1])
+
     def root(self) -> str:
         """Lowercase hex root (merkle/mod.rs:24-26)."""
-        return digest_bytes(self.root_digest.cpu().tolist()).hex()
+        return self.root_bytes().hex()
 
     def path_rows(self, index: int) -> list[int]:
         """Buffer rows of the sibling digests of leaf `index`, leaf level
@@ -299,7 +303,7 @@ class MerkleTree:
         rows = torch.tensor(self.path_rows(index), dtype=torch.int64,
                             device=self.buffer.device)
         sibs = self.buffer.index_select(0, rows).cpu().tolist()
-        return b"".join(digest_bytes(s) for s in sibs)
+        return b"".join(digest_to_bytes(s) for s in sibs)
 
     @staticmethod
     def validate(root_hex: str, proof: bytes, index: int, leaf_bytes: bytes,
@@ -324,6 +328,22 @@ class MerkleTree:
             idx //= 2
             size = (size + 1) // 2
         return not sibs and cur.hex() == root_hex.lower()
+
+
+def merkle_root_host_rows(cols) -> str:
+    """Host oracle of the multi-column tree: leaf i = SHA-256 of row i's
+    values, 8 big-endian bytes each (hashlib)."""
+    c, n = len(cols), len(cols[0])
+    level = [hashlib.sha256(b"".join(int(cols[j][i]).to_bytes(8, "big")
+                                     for j in range(c))).digest()
+             for i in range(n)]
+    while len(level) > 1:
+        nxt = [hashlib.sha256(level[i] + level[i + 1]).digest()
+               for i in range(0, len(level) - 1, 2)]
+        if len(level) % 2:
+            nxt.append(level[-1])
+        level = nxt
+    return level[0].hex()
 
 
 def merkle_root_host(values: list[int]) -> str:

@@ -95,6 +95,18 @@ def coset_evaluate(coeffs: torch.Tensor, p: int, big_n: int,
     return ntt(scale_pad(coeffs, p, big_n, int(offset) % p), p)
 
 
+def lde(values: torch.Tensor, p: int, blowup: int,
+        offset: int) -> torch.Tensor:
+    """Low-degree extension: read `values` (one column or C columns) as
+    evaluations on the size-n subgroup (natural w^i order) and return the
+    same polynomial's evaluations on the coset {offset * W^i} of size
+    blowup * n, W the canonical primitive (blowup * n)-th root.  An INTT
+    and a coset evaluation: on a CUDA u32 tensor two launches of K1 or K2
+    each, by their sizes."""
+    n = int(values.shape[-1])
+    return coset_evaluate(intt(values, p), p, blowup * n, int(offset) % p)
+
+
 def coset_interpolate(evals: torch.Tensor, p: int,
                       offset: int) -> torch.Tensor:
     """Coefficients of the polynomial whose values on {offset * w^i} are

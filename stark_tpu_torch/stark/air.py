@@ -125,16 +125,81 @@ def _host_trace(values, cfg: ProverConfig):
     return host_words(values, Fp.get(cfg.modulus).width)
 
 
-def _host_ints(cfg: ProverConfig, trace_host, index: int) -> list[int]:
+def _host_ints(trace_host, index: int, width: int) -> list[int]:
     """Each column's value at trace position `index`, from the storage
-    words of :func:`_host_trace`, as Python ints (only that position is
-    converted: a whole 2^24-row trace would cost a copy of every word)."""
+    words of :func:`_host_trace` in a field of `width` limbs, as Python
+    ints (only that position is converted: a whole 2^24-row trace would
+    cost a copy of every word)."""
     i = index % trace_host.shape[-1]
-    vals = host_values(trace_host[..., i:i + 1], Fp.get(cfg.modulus).width)
+    vals = host_values(trace_host[..., i:i + 1], width)
     return [int(v) for v in vals.reshape(-1)]
 
 
-class FibonacciSquareAIR:
+class AIR:
+    """The interface the prover calls (counterpart of the JAX ``AIR`` base
+    class).  A subclass is a light descriptor of one statement; its
+    per-config tables live in its context.
+
+    * ``host_trace(cfg)``: the trace as numpy storage words, from the host;
+    * ``host_publics(trace_host, width)``: the public statement read off
+      those words (a field of `width` u32 limbs);
+    * ``num_folds(cfg)``: FRI folds until the composition's degree is 0;
+    * ``context(cfg, device, block)``: the composition's tables on
+      `device` (a block of lanes for a mesh shard), whose ``compose`` the
+      prover calls, and ``cp_at`` its host mirror for the verifier;
+    * ``witness_params()``: the JSON arguments that rebuild the instance
+      (``rebuild_air``, checkpoint / resume)."""
+
+    name: str = "abstract"
+    shifts: tuple[int, ...] = (0,)
+    num_alphas: int = 0
+    num_columns: int = 1  # trace columns; > 1 commits rows (from_columns)
+
+    def validate(self, cfg: ProverConfig) -> None:
+        cfg.validate()
+
+    def host_trace(self, cfg: ProverConfig):
+        raise NotImplementedError
+
+    def host_publics(self, trace_host, width: int) -> dict:
+        raise NotImplementedError
+
+    def num_folds(self, cfg: ProverConfig) -> int:
+        raise NotImplementedError
+
+    def context(self, cfg: ProverConfig, device, block=None):
+        raise NotImplementedError
+
+    def cp_at(self, cfg: ProverConfig, x: int, opened, alphas,
+              publics: dict) -> int:
+        raise NotImplementedError
+
+    def witness_params(self) -> dict:
+        raise NotImplementedError
+
+    def publics_from_host(self, cfg: ProverConfig, trace_host) -> dict:
+        """The public statement of the host trace of `cfg`."""
+        return self.host_publics(trace_host, Fp.get(cfg.modulus).width)
+
+    def build_trace(self, cfg: ProverConfig, device="cuda"):
+        """The trace uploaded to `device` as storage words (``trace.py``
+        ``upload_trace``, which records its endpoints)."""
+        from stark_tpu_torch.stark.trace import upload_trace
+
+        width = Fp.get(cfg.modulus).width
+        return upload_trace(host_values(self.host_trace(cfg), width),
+                            cfg.modulus, device)
+
+    def publics(self, trace) -> dict:
+        """The public statement of a trace of storage words (a tensor, as
+        :meth:`build_trace` returns, or an array), read on the host; the
+        field's width is the words' rank beyond the columns."""
+        words = np.asarray(trace.cpu() if torch.is_tensor(trace) else trace)
+        return self.host_publics(words,
+                                 words.ndim - (self.num_columns > 1))
+
+
+class FibonacciSquareAIR(AIR):
     """a_{i+2} = a_{i+1}^2 + a_i^2; publics a_0 and a_{T-1}."""
 
     name = "fibonacci-square"
@@ -146,18 +211,15 @@ class FibonacciSquareAIR:
         self.a0 = a0
         self.a1 = a1
 
-    def validate(self, cfg: ProverConfig) -> None:
-        cfg.validate()
-
     def host_trace(self, cfg: ProverConfig):
         """The trace as numpy uint32 storage words, from the native host
         loop (host code whatever the prove's device)."""
         return _host_trace(native.fib_trace(cfg.modulus, self.a0, self.a1,
                                             cfg.trace_length), cfg)
 
-    def publics_from_host(self, cfg: ProverConfig, trace_host) -> dict:
-        return {"a0": _host_ints(cfg, trace_host, 0)[0],
-                "a_last": _host_ints(cfg, trace_host, -1)[0]}
+    def host_publics(self, trace_host, width: int) -> dict:
+        return {"a0": _host_ints(trace_host, 0, width)[0],
+                "a_last": _host_ints(trace_host, -1, width)[0]}
 
     def witness_params(self) -> dict:
         return {"a1": self.a1, "a0": self.a0}
@@ -223,7 +285,7 @@ class _MimcContext(_NextRowContext):
                                f.mul(al[2], p2)))
 
 
-class MimcAIR:
+class MimcAIR(AIR):
     """x_{i+1} = (x_i + k)^3 over GF(p); publics x_0 (input), x_{T-1}
     (output) and the round key k."""
 
@@ -245,9 +307,9 @@ class MimcAIR:
         return _host_trace(native.mimc_trace(cfg.modulus, self.x0, self.k,
                                              cfg.trace_length), cfg)
 
-    def publics_from_host(self, cfg: ProverConfig, trace_host) -> dict:
-        return {"input": _host_ints(cfg, trace_host, 0)[0],
-                "output": _host_ints(cfg, trace_host, -1)[0], "k": self.k}
+    def host_publics(self, trace_host, width: int) -> dict:
+        return {"input": _host_ints(trace_host, 0, width)[0],
+                "output": _host_ints(trace_host, -1, width)[0], "k": self.k}
 
     def witness_params(self) -> dict:
         return {"x0": self.x0, "k": self.k}
@@ -294,7 +356,7 @@ class _FibMulContext(_NextRowContext):
         return f.storage(acc)
 
 
-class FibMulAIR:
+class FibMulAIR(AIR):
     """a_{i+1} = b_i, b_{i+1} = a_i * b_i over GF(p), a two-column trace;
     publics a_0 (input), b_{T-1} (output) and b_0."""
 
@@ -307,17 +369,14 @@ class FibMulAIR:
         self.a0 = a0
         self.b0 = b0
 
-    def validate(self, cfg: ProverConfig) -> None:
-        cfg.validate()
-
     def host_trace(self, cfg: ProverConfig):
         """The (2, T) trace, rows a and b, as numpy uint32 storage words
         ((2, 2, T) for Goldilocks)."""
         return _host_trace(native.fibmul_trace(cfg.modulus, self.a0, self.b0,
                                                cfg.trace_length), cfg)
 
-    def publics_from_host(self, cfg: ProverConfig, trace_host) -> dict:
-        (a0, b0), (_, b_last) = (_host_ints(cfg, trace_host, i)
+    def host_publics(self, trace_host, width: int) -> dict:
+        (a0, b0), (_, b_last) = (_host_ints(trace_host, i, width)
                                  for i in (0, -1))
         return {"input": a0, "output": b_last, "b0": b0}
 

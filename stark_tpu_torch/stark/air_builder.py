@@ -47,7 +47,8 @@ import torch
 
 from stark_tpu_torch.config import ProverConfig
 from stark_tpu_torch.ntt.reference_ntt import root_of_unity
-from stark_tpu_torch.stark.air import _BaseContext, _host_ints, _host_trace
+from stark_tpu_torch.stark.air import (AIR, _BaseContext, _host_ints,
+                                      _host_trace)
 
 
 # ---------------------------------------------------------------------------
@@ -132,9 +133,9 @@ def _periodic_coeffs(cycle, p: int) -> list:
             for m in range(L)]
 
 
-class AirSpec:
+class AirSpec(AIR):
     """A declaratively-defined AIR, with the port's AIR interface
-    (``host_trace``, ``publics_from_host``, ``context(cfg, device)``,
+    (``host_trace``, ``host_publics``, ``context(cfg, device)``,
     ``cp_at``).
 
     Parameters
@@ -364,11 +365,11 @@ class AirSpec:
         values = np.array(cols if C > 1 else cols[0], dtype=np.uint64)
         return _host_trace(values, cfg)
 
-    def publics_from_host(self, cfg: ProverConfig, trace_host) -> dict:
-        T = cfg.trace_length
+    def host_publics(self, trace_host, width: int) -> dict:
+        T = trace_host.shape[-1]
         by_name = {
-            b.public: _host_ints(cfg, trace_host,
-                                 b.row if b.row >= 0 else T + b.row)[b.column]
+            b.public: _host_ints(trace_host, b.row if b.row >= 0
+                                 else T + b.row, width)[b.column]
             for b in self.boundaries
         }
         out = {"input": by_name.pop("input"), "output": by_name.pop("output")}

@@ -55,7 +55,6 @@ plan; the per-query BatchGather loop, which reads every shard, does not.
 from __future__ import annotations
 
 import dataclasses
-import functools
 import json
 import os
 
@@ -79,6 +78,7 @@ from stark_tpu_torch.ntt.ntt import coset_evaluate
 from stark_tpu_torch.stark.air import FibonacciSquareAIR
 from stark_tpu_torch.stark.trace import trace_polynomial
 from stark_tpu_torch.utils import metrics as _metrics
+from stark_tpu_torch.utils.debug import maybe_assert_canonical
 from stark_tpu_torch.utils.gather import BatchGather, fetch_packed
 
 # which pipeline the last prove() took: "single-fetch" or "per-phase",
@@ -114,6 +114,11 @@ class StarkProof:
 
     def size_bytes(self) -> int:
         return sum(len(m) for m in self.proof)
+
+    def compressed_size_bytes(self) -> int:
+        """Transcript size under the node-dedup compression of the STP1
+        container (``channel/compress.py``)."""
+        return _compress.compressed_size(self.proof)
 
     def _header(self) -> dict:
         return {
@@ -200,18 +205,6 @@ def _trace_tree(f_evals, air, wide: bool, mesh, prune: int = 0):
     return tree(f_evals, wide=wide, prune=prune)
 
 
-@functools.lru_cache(maxsize=None)
-def _query_plan(cfg: ProverConfig, offsets: tuple, num_folds: int,
-                num_columns: int, elem_width: int, trace_prune: int,
-                fri_prune: tuple, shards: int) -> _dq.DeviceQueryPlan:
-    M = cfg.eval_domain_size
-    rng = M - max(offsets)
-    fri_lengths = tuple(M >> k for k in range(num_folds + 1))
-    return _dq.DeviceQueryPlan(rng, cfg.num_queries, offsets, M,
-                               fri_lengths, num_columns, elem_width,
-                               trace_prune, fri_prune, shards)
-
-
 def query_plan(cfg: ProverConfig, air=None, pruned: bool = True,
                shards: int = 1) -> _dq.DeviceQueryPlan:
     """The device query plan of `air`'s prove of `cfg` (Fibonacci-square
@@ -224,12 +217,13 @@ def query_plan(cfg: ProverConfig, air=None, pruned: bool = True,
     air = air or FibonacciSquareAIR()
     M, num_folds = cfg.eval_domain_size, air.num_folds(cfg)
     pruned = pruned and shards == 1
+    offsets = tuple(s * cfg.blowup for s in air.shifts)
+    fri_lengths = tuple(M >> k for k in range(num_folds + 1))
     (trace_prune,) = prune_depths((M,), pruned)
-    return _query_plan(cfg, tuple(s * cfg.blowup for s in air.shifts),
-                       num_folds, air.num_columns, Fp.get(cfg.modulus).width,
-                       trace_prune, prune_depths(
-                           [M >> k for k in range(num_folds + 1)], pruned),
-                       shards)
+    return _dq.get_plan(M - max(offsets), cfg.num_queries, offsets, M,
+                        fri_lengths, air.num_columns,
+                        Fp.get(cfg.modulus).width, trace_prune,
+                        prune_depths(fri_lengths, pruned), shards)
 
 
 def prove(cfg: ProverConfig, a1: int = 3141592, *, air=None,
@@ -256,7 +250,11 @@ def prove(cfg: ProverConfig, a1: int = 3141592, *, air=None,
     ``composition``, ``fri-commit``, ``queries``) and the ``proves`` and
     ``proof_bytes`` counters: in ``utils.metrics.GLOBAL`` without
     synchronising the device, or in `metrics`, a MetricsCollector, with
-    each phase ending in ``torch.cuda.synchronize()`` on a CUDA device."""
+    each phase ending in ``torch.cuda.synchronize()`` on a CUDA device.
+
+    With ``STARK_TPU_TORCH_DEBUG`` set, the trace, the LDE, the
+    composition and the FRI layers must hold canonical values
+    (``utils/debug.py``; AssertionError otherwise)."""
     if mesh is not None:
         want = None if device is None else torch.device(device)
         if want is not None and (want.type != mesh.first.type or (
@@ -291,9 +289,11 @@ def prove(cfg: ProverConfig, a1: int = 3141592, *, air=None,
             trace.cpu().numpy() if torch.is_tensor(trace) else trace)
         publics = air.publics_from_host(cfg, trace_host)
         trace_dev = upload_u32(trace_host, device)
+        maybe_assert_canonical(trace_dev, p, "trace")
         coeffs = trace_polynomial(trace_dev, p)
         f_evals = (coset_evaluate(coeffs, p, M, h) if mesh is None
                    else dist_coset_evaluate(coeffs, p, M, h, mesh))
+        maybe_assert_canonical(f_evals, p, "trace-LDE (post-NTT)")
         sync()
 
     # the JAX gate (stark_tpu/stark/prover.py:234-240): phase-accurate
@@ -342,10 +342,12 @@ def _prove_single_fetch(cfg, air, channel, f_evals, publics, plan, mx,
     fs.mark("composition")
     with mx.phase("composition"):
         cp = _compose(air, cfg, f_evals, alphas, publics, device, mesh)
+        maybe_assert_canonical(cp, p, "composition poly")
         sync()
     with mx.phase("fri-commit", folds=num_folds):
         fri = fri_commit(cp, p, h, channel, num_folds=num_folds, fs=fs,
                          defer=True, mesh=mesh)
+        maybe_assert_canonical(fri.fri_layers, p, "FRI layers (post-fold)")
         sync()
 
     with mx.phase("queries", num_queries=cfg.num_queries):
@@ -399,10 +401,12 @@ def _prove_per_phase(cfg, air, channel, f_evals, publics, offsets,
     channel.mark_phase("composition")
     with mx.phase("composition"):
         cp = _compose(air, cfg, f_evals, alphas, publics, device, mesh)
+        maybe_assert_canonical(cp, p, "composition poly")
         sync()
     with mx.phase("fri-commit", folds=num_folds):
         fri = fri_commit(cp, p, h, channel, num_folds=num_folds,
                          strict=strict, mesh=mesh)
+        maybe_assert_canonical(fri.fri_layers, p, "FRI layers (post-fold)")
         sync()
 
     channel.mark_phase("queries")

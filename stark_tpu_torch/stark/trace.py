@@ -18,9 +18,36 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from stark_tpu_torch.fields.fp import Fp
+from stark_tpu_torch import native
+from stark_tpu_torch.fields.fp import Fp, host_words, upload_u32
 from stark_tpu_torch.ntt.ntt import intt
 from stark_tpu_torch.ntt.reference_ntt import root_of_unity
+
+
+def upload_trace(host_u64, p: int, device="cuda") -> torch.Tensor:
+    """Canonical field values (numpy uint64, the trace axis last) -> the
+    trace's storage words on `device`: (n,) / (C, n) u32, (2, n) /
+    (C, 2, n) limb planes for Goldilocks."""
+    arr = np.asarray(host_u64, dtype=np.uint64)
+    return upload_u32(host_words(arr, Fp.get(p).width), device)
+
+
+def host_or_device_trace(kind: str, p: int, arg0: int, arg1: int, n: int,
+                         device_fallback=None, device="cuda"):
+    """The AIR trace `kind` ("fib", "mimc", "fibmul"; ``native.host_trace``)
+    from the native host loop, uploaded to `device` in one copy.  The
+    port always has that loop (a failed build raises), so
+    `device_fallback`, the JAX package's device scan for a machine
+    without a C++ compiler, is accepted and never called."""
+    return upload_trace(native.host_trace(kind, p, arg0, arg1, n), p,
+                        device)
+
+
+def fibonacci_square_trace(p: int, length: int, a0: int = 1,
+                           a1: int = 3141592, device="cuda"):
+    """(length,) trace of the Fibonacci-square AIR on `device`; (2,
+    length) limb planes for Goldilocks."""
+    return host_or_device_trace("fib", p, a0, a1, length, device=device)
 
 
 def fibonacci_square_host(p: int, length: int, a0: int = 1,

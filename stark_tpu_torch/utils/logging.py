@@ -1,17 +1,17 @@
-# Copied from stark_tpu/utils/logging.py (host-only), without its
-# profile_trace (a jax.profiler scope; the port's device profile is
-# ``chip_smoke.py --profile``).
+# Copied from stark_tpu/utils/logging.py (host-only); its profile_trace,
+# a jax.profiler scope there, is a torch.profiler scope here.
 """Logging for the CLI and the prover daemon.
 
 The event format ``[timestamp] [LEVEL] [thread ThreadId(n)] file:line -
 message``, two sinks (the console with ANSI colours when it is a
 terminal, and a plain daily file ``logs/output.log.<date>`` under the
 checkout), and the level from ``STARK_LOG`` (default "info").  Handlers
-flush on close.
+flush on close.  :func:`profile_trace` writes a Chrome trace of a scope.
 """
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import logging
 import os
@@ -97,3 +97,22 @@ def setup_logging(log_dir: str = LOG_DIR,
 
 def get_logger() -> logging.Logger:
     return logging.getLogger(LOGGER)
+
+
+@contextlib.contextmanager
+def profile_trace(log_dir: str = os.path.join(LOG_DIR, "torch-trace")):
+    """A ``torch.profiler`` scope over the CPU and, when there is one, the
+    CUDA device, exported as a Chrome trace (chrome://tracing, Perfetto)
+    into `log_dir` on exit.  Yields the trace file's path."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(log_dir, exist_ok=True)
+    stamp = datetime.datetime.now().strftime("%Y%m%d-%H%M%S-%f")
+    path = os.path.join(log_dir, f"trace-{stamp}-{os.getpid()}.json")
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield path
+    prof.export_chrome_trace(path)

@@ -556,3 +556,60 @@ def test_k5_cut_query_form_matches_plain(dev, shards, modulus):
     torch.cuda.synchronize()
     for g, w in zip(got, query_chain_cut_plain(chain, *half, tb)):
         assert torch.equal(g, w)
+
+
+# lde on the card: the INTT and the coset NTT through K1 (n <= 2^22) and
+# K2 (above; here above 2^9, with a 2^7-word block budget), one wrapper
+# launch each, against the same lde on the CPU (the kernels' plain
+# versions)
+@pytest.mark.parametrize("log_n,blowup,k2_from", [(6, 4, None),
+                                                  (10, 8, None), (8, 4, 9)])
+def test_lde_on_card_matches_plain(dev, monkeypatch, log_n, blowup, k2_from):
+    from stark_tpu_torch.ntt import cuda_ntt, lde
+
+    if k2_from:
+        monkeypatch.setattr(cuda_ntt, "MAX_LOG_N", k2_from)
+        monkeypatch.setattr(cuda_ntt, "BLOCK_LOG", 7)
+    x = _u32(1 << log_n, P, log_n, dev)
+    k1, k2 = cuda_ntt.ntt_k1.launches, cuda_ntt.ntt_k2.launches
+    got = lde(x, P, blowup, 3)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), lde(x.cpu(), P, blowup, 3))
+    assert cuda_ntt.ntt_k1.launches - k1 == 2 - bool(k2_from)
+    assert cuda_ntt.ntt_k2.launches - k2 == bool(k2_from)
+
+
+@pytest.mark.parametrize("p", [P, 2**64 - 2**32 + 1])
+def test_coset_fri_on_card_matches_cpu(dev, p):
+    from stark_tpu_torch.fri import CosetFri
+    from stark_tpu_torch.ntt.reference_ntt import root_of_unity
+
+    w = root_of_unity(p, 1 << 12)
+    on_card, on_cpu = (CosetFri(p, 3, w, 1 << 12, device=d)
+                       for d in (dev, "cpu"))
+    dom = on_card.generate_coset_domain()
+    want = on_cpu.generate_coset_domain()
+    assert torch.equal(dom.cpu(), want)
+    assert torch.equal(on_card.next_coset_domain(dom).cpu(),
+                       on_cpu.next_coset_domain(want))
+    assert torch.equal(on_card.next_coset_domain_full(dom).cpu(),
+                       on_cpu.next_coset_domain_full(want))
+
+
+def test_debug_checks_on_card(dev, monkeypatch):
+    """Under STARK_TPU_TORCH_DEBUG the card's prove gives the golden
+    transcript, and a trace holding p raises at the trace boundary."""
+    from stark_tpu_torch.config import ProverConfig
+    from stark_tpu_torch.stark import FibonacciSquareAIR, prove
+    from stark_tpu_torch.utils.debug import assert_canonical
+
+    cfg = ProverConfig(log2_trace=6, blowup=4, num_queries=2)
+    want = prove(cfg, device="cpu").proof
+    monkeypatch.setenv("STARK_TPU_TORCH_DEBUG", "1")
+    assert prove(cfg, device=dev).proof == want
+    bad = FibonacciSquareAIR().build_trace(cfg, device=dev)
+    bad[5] = torch.tensor(P - (1 << 32), dtype=torch.int32)  # p's bits
+    with pytest.raises(AssertionError, match="trace: non-canonical"):
+        prove(cfg, trace=bad, strict=False, device=dev)
+    with pytest.raises(AssertionError, match="flat index 5"):
+        assert_canonical(bad, P)

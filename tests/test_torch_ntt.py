@@ -3,6 +3,8 @@ K1/K2 kernels on CPU tensors) against the JAX package on the same seeded
 inputs, exact equality.  The JAX side runs its Pallas kernels in
 interpret mode where it has them."""
 
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -14,12 +16,15 @@ from stark_tpu.ntt.ntt import coset_interpolate as j_coset_interpolate
 from stark_tpu.ntt.ntt import get_stockham_plan
 from stark_tpu.stark.trace import trace_polynomial as j_trace_polynomial
 from stark_tpu_torch.interop import tensor_to_u32, u32_to_tensor
-from stark_tpu_torch.ntt import ntt as tn
 from stark_tpu_torch.ntt import cuda_ntt
 from stark_tpu_torch.ntt.cuda_ntt import (CudaNTTPlan, ntt_k1, ntt_k2,
                                           ntt_passes_plain, ntt_plain, split)
 from stark_tpu_torch.stark.trace import (fibonacci_square_host,
                                          trace_polynomial)
+
+# the module (the package exports the function ntt under its name, as
+# the JAX package's does)
+tn = importlib.import_module("stark_tpu_torch.ntt.ntt")
 
 P = 3 * 2**30 + 1
 

@@ -2,6 +2,7 @@
 versions on the CPU) against the golden vectors and the JAX package's
 prove, byte for byte; the port's verifier against both packages' proofs."""
 
+import importlib
 import inspect
 import json
 import os
@@ -19,10 +20,13 @@ from stark_tpu_torch.channel.compress import CompressionError
 from stark_tpu_torch.config import ProverConfig
 from stark_tpu_torch.interop import config_fields, config_from
 from stark_tpu_torch.ntt import cuda_ntt
-from stark_tpu_torch.ntt import ntt as tn
 from stark_tpu_torch.stark import (FibMulAIR, StarkProof,
                                    StarkVerificationError, prove, verify)
 from stark_tpu_torch.stark import prover as tprover
+
+# the module (the package exports the function ntt under its name, as
+# the JAX package's does)
+tn = importlib.import_module("stark_tpu_torch.ntt.ntt")
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 VEC = os.path.join(ROOT, "tests", "vectors", "golden_proofs.json")
