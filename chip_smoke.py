@@ -18,10 +18,12 @@ agree and hash (SHA-256 of the messages) to the pinned transcript
 digest, the port's host verifier must accept the proof and reject it
 with one byte flipped, and the kernels of each path must have launched
 (K1 on the 2^20 paths; K2 on the 2^24 paths; one NTT wrapper call per
-transform whatever C, two a prove; K3 once per tree, or once a chunk of
-a chunked tree, its row form for FibMul's trace tree; K4 exactly as the
-trees' stored and pruned levels say; K5's query form exactly once per
-prove).  K5 has two entry points, the chain form (the channel's absorbs
+transform whatever C, two a prove; each tree as ``merkle/tree.py``
+splits it: K3's subtree form once a tree of more than 2^10 leaves, or
+once a chunk of a chunked tree, its row form for FibMul's trace tree, K4
+once a level between the subtree's top and the tail, the tail once a
+tree; K5's query form exactly once per prove; the kernels line gives
+each prove's launches).  K5 has two entry points, the chain form (the channel's absorbs
 and draws) and the query form (all queries of a prove in one launch);
 both count as K5 and both are held against their plain
 versions: the chain form on a 5,000-block stream with mixed flags and on
@@ -76,6 +78,18 @@ uninitialised), ``stats`` (the five phase names) and ``shutdown`` (exit
 0, socket removed).  Last the CLI on the card: ``prove --air tribmul
 --log2-trace 20 --blowup 4``, ``verify`` (exit 0) and ``verify`` of a
 copy with one byte flipped (exit 1, REJECTED).
+
+The tree build: K3 is one kernel, ``sha_subtree``, that hashes a block
+of 2^10 leaves and the 5 node levels above them in shared memory (K3
+alone without the levels for an odd tree's leaves), and the tail is the
+same kernel over one block from a level of at most 2^10 nodes to the
+root.  Each is held against its plain version: the subtree kernel in
+every form at 2^22 / 2^26 leaves, the whole split (``build_tree``) at
+2^22 leaves in both modes, one column and C = 1..6, prune 0..6, the tail
+at 2^0 .. 2^10 leaves and nodes, the tree batch of 16 x 2^22; the tree
+measurements of ``scripts/tree_build_times.py`` (K3 alone and the
+builds at 2^20 / 2^22 / 2^26 leaves with each kernel's device time, K4
+a launch and its host time) are printed for this checkout.
 
 The ``kernels`` line gives each kernel's time and its plain version's
 (CUDA events, median of 5 after a warm-up) beside its bound: the larger
@@ -196,6 +210,10 @@ NTT_REDUCED = ((8, 13), (8, 14), (8, 16))  # (BLOCK_LOG, log n)
 # int64 message schedule of 2^26 lanes would need ~32 GiB)
 TREE_LOG = 22
 TREE_TIME_LOG = 26
+# the tree build's split (merkle/tree.py) against the plain tree: 2^22
+# leaves in every form at these prune depths (past the 5 fused levels at
+# 6); the tail alone at 2^0 .. 2^TAIL_TOP leaves and nodes
+SPLIT_LOG, SPLIT_PRUNES, TAIL_TOP = 22, range(7), 10
 # the proves: (configuration, AIR name, the AIR's arguments); None is the
 # default Fibonacci-square statement
 _CFG20 = dict(log2_trace=20, blowup=4, num_queries=16)
@@ -503,7 +521,7 @@ API_COSET_LOG, API_INV_LOG = 26, 20
 API_DEBUG_TURNS, API_HOST_TURNS = 2, 3
 API_NATIVE_TREE_LOG = 16
 # the kernels a profiled 2^24 prove's trace must name
-API_TRACE_KERNELS = ("ntt_pass1", "ntt_pass2", "sha_leaves", "sha_nodes",
+API_TRACE_KERNELS = ("ntt_pass1", "ntt_pass2", "sha_subtree", "sha_nodes",
                      "sha_chain", "query_chain")
 
 def log(msg: str) -> None:
@@ -547,6 +565,18 @@ def kernel_device_ms(fn, pattern: str, reps: int = REPS) -> dict:
         if m:
             out[m.group(0)] = e.self_device_time_total / reps / 1e3
     return out
+
+
+def timed_plain(fn):
+    """(fn(), its ms under CUDA events): a plain version's one run, whose
+    result a check compares and whose time a timing reports."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -679,9 +709,11 @@ class Results:
         and log them beside `bound` (ms, by); `row` puts them in the
         kernels line, `other` under the row's "shapes".  With `plain_reps`
         below REPS the plain version, already run by its check, is timed
-        that many times without a warm-up."""
+        that many times without a warm-up; a number for plain_fn is its
+        time taken already (timed_plain around the check's run)."""
         ms = cuda_ms(kernel_fn, reps)
-        pms = cuda_ms(plain_fn, plain_reps, warm=plain_reps == REPS)
+        pms = (plain_fn if isinstance(plain_fn, float)
+               else cuda_ms(plain_fn, plain_reps, warm=plain_reps == REPS))
         log(f"{kernel} {shape}: kernel {ms:.4f} ms (median of {reps}), "
             f"plain {pms:.4f} ms, "
             f"bound {bound[0]:.4f} ms ({bound[1]}); kernel / bound "
@@ -837,32 +869,104 @@ def phase_ntt(res: Results, dev) -> None:
         cuda_ntt.BLOCK_LOG = saved
 
 
+def plain_tree(leaves: torch.Tensor) -> torch.Tensor:
+    """The whole (2n - 1, 8) buffer of a power-of-two tree over its leaf
+    digests, level by level with the plain pairs (any device)."""
+    from stark_tpu_torch.hash.sha256 import sha256_pairs
+    from stark_tpu_torch.merkle.tree import level_offsets
+
+    n = int(leaves.shape[0])
+    out = torch.empty((2 * n - 1, 8), dtype=torch.int32, device=leaves.device)
+    out[:n] = leaves
+    offs = level_offsets(n)
+    for (oc, sc), (op, sp) in zip(offs, offs[1:]):
+        out[op:op + sp] = sha256_pairs(out[oc:oc + sc])
+    return out
+
+
+def subtree_bound(card: "Card", n: int, c: int, wide: bool, levels: int,
+                  stored: bool = True):
+    """The subtree kernel over n leaves of C columns with `levels` node
+    levels: each value read once, each stored digest written once, one
+    leaf's folded operations a leaf and a node's (two compressions, the
+    second of a constant block) a node."""
+    nodes = n - (n >> levels)
+    return card.bound((8 if wide else 4) * c * n + 32 * (n + nodes) * stored,
+                      sha_leaf_ops(c, wide) * n
+                      + (SHA_OPS + SHA_PAD_OPS) * nodes)
+
+
+def subtree_case(res: Results, row: str, vals, rows: bool, wide: bool,
+                 in_line: bool, reps: int = REPS) -> None:
+    """The subtree kernel as the tree build launches it (2^SUBTREE_LOG
+    leaves a block, SUBTREE_LEVELS node levels, every level written) over
+    `vals`, exact against its plain version (in 2^TREE_LOG-leaf slices,
+    each a run of whole blocks), and timed beside its bound; `in_line`
+    puts the time in the kernels line."""
+    from stark_tpu_torch.hash.cuda_sha import level_row, sha_subtree
+    from stark_tpu_torch.merkle import tree as mt
+
+    n = int(vals.shape[-1])
+    k, s, f = n.bit_length() - 1, mt.SUBTREE_LOG, mt.SUBTREE_LEVELS
+    c = int(vals.shape[0]) if rows else 1
+    out = torch.empty((level_row(k, 0, f, n >> f), 8), dtype=torch.int32,
+                      device=vals.device)
+    kw = dict(rows=rows, wide=wide, span_log=s, levels=f, tree_log=k)
+
+    def run():
+        return sha_subtree(vals, out, **kw)
+
+    def plain():
+        want = torch.empty_like(out)
+        sl = min(n, 1 << TREE_LOG)
+        for q in range(0, n, sl):
+            sha_subtree.plain(vals[..., q:q + sl], want, block0=q >> s, **kw)
+        return want
+
+    what = (f"subtree {'C=%d ' % c if rows else ''}n=2^{k}, {f} levels"
+            f"{' 64-bit' * wide}")
+    want, plain_ms = timed_plain(plain)
+    res.check(row, f"{what} (plain in 2^{TREE_LOG}-leaf slices)", run(),
+              want)
+    del want
+    res.time(row, what, run, plain_ms,
+             subtree_bound(res.card, n, c, wide, f), row=in_line,
+             other=True, reps=reps)
+
+
+def time_alone(res: Results, row: str, shape: str, fn, bound,
+               reps: int = REPS) -> None:
+    """Time fn (a kernel whose plain version its check already ran) and
+    log it beside `bound` under the row's "shapes"."""
+    ms = cuda_ms(fn, reps)
+    log(f"{row} {shape}: kernel {ms:.4f} ms (median of {reps}), bound "
+        f"{bound[0]:.4f} ms ({bound[1]}); kernel / bound {ms / bound[0]:.2f}")
+    res.rows[row].setdefault("shapes", {})[shape] = dict(
+        ms=ms, bound_ms=bound[0], bound_by=bound[1])
+
+
 def phase_tree(res: Results, dev) -> None:
-    """K3 and K4: equality over a 2^22 tree, times at the 2^24 path's
-    shapes."""
+    """K3 and K4: K3 alone, K4 a level and the whole build over a 2^22
+    tree; the subtree kernel at the 2^24 path's 2^26 leaves (and K3 alone
+    there), K4 at 2^25 nodes; the row form."""
     from stark_tpu_torch.hash.cuda_sha import (sha_leaves, sha_nodes,
                                                sha_row_leaves)
     from stark_tpu_torch.hash.sha256 import (sha256_pairs, sha256_row_leaves,
                                              sha256_u64_leaves)
-    from stark_tpu_torch.merkle.tree import build_tree, level_offsets
+    from stark_tpu_torch.merkle.tree import build_tree
 
     rs = np.random.RandomState(SEED + 1)
     n = 1 << TREE_LOG
     vals = rand_u32(rs, n, P, dev)
-    res.check("K3", f"leaves n=2^{TREE_LOG}", sha_leaves(vals),
-              sha256_u64_leaves(vals))
+    res.check("K3", f"leaves n=2^{TREE_LOG} (no node level)",
+              sha_leaves(vals), sha256_u64_leaves(vals))
     kids = rand_u32(rs, (n, 8), 1 << 32, dev)
     res.check("K4", f"nodes m=2^{TREE_LOG - 1}", sha_nodes(kids),
               sha256_pairs(kids))
-    tree = build_tree(vals)
-    plain = torch.empty_like(tree)
-    offs = level_offsets(n)
-    plain[:n] = sha256_u64_leaves(vals)
-    for (oc, sc), (op, sp) in zip(offs, offs[1:]):
-        plain[op:op + sp] = sha256_pairs(plain[oc:oc + sc])
-    res.check("K4", f"full tree n=2^{TREE_LOG} (K3 + {TREE_LOG} K4 levels)",
-              tree, plain)
-    del vals, kids, tree, plain
+    res.check("K4", f"full tree n=2^{TREE_LOG} (the subtree kernel, K4, "
+              "the tail)", build_tree(vals),
+              plain_tree(sha256_u64_leaves(vals)))
+    del vals, kids
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
@@ -873,20 +977,19 @@ def phase_tree(res: Results, dev) -> None:
         return torch.cat([fn(x[k:k + per]) for k in range(0, len(x), per)])
 
     vals = rand_u32_dev(gen, (big,), P, dev)
-    res.check("K3", f"leaves n=2^{TREE_TIME_LOG} (plain in 2^{TREE_LOG} "
-              "slices)", sha_leaves(vals), sliced(sha256_u64_leaves, vals, sl))
-    res.time("K3", f"leaves n=2^{TREE_TIME_LOG}", lambda: sha_leaves(vals),
-             lambda: sliced(sha256_u64_leaves, vals, sl),
-             res.card.bound(36 * big, sha_leaf_ops(1, False) * big))
+    time_alone(res, "K3", f"leaves n=2^{TREE_TIME_LOG} (no node level)",
+               lambda: sha_leaves(vals),
+               res.card.bound(36 * big, sha_leaf_ops(1, False) * big))
+    subtree_case(res, "K3", vals, False, False, True)
     del vals
     kids = rand_u32_dev(gen, (big, 8), 1 << 32, dev)
     m = big // 2
+    want, plain_ms = timed_plain(lambda: sliced(sha256_pairs, kids, sl))
     res.check("K4", f"nodes m=2^{TREE_TIME_LOG - 1} (plain in "
-              f"2^{TREE_LOG} slices)", sha_nodes(kids),
-              sliced(sha256_pairs, kids, sl))
+              f"2^{TREE_LOG} slices)", sha_nodes(kids), want)
+    del want
     res.time("K4", f"nodes m=2^{TREE_TIME_LOG - 1}", lambda: sha_nodes(kids),
-             lambda: sliced(sha256_pairs, kids, sl),
-             res.card.bound(96 * m, (SHA_OPS + SHA_PAD_OPS) * m))
+             plain_ms, res.card.bound(96 * m, (SHA_OPS + SHA_PAD_OPS) * m))
     del kids
 
     # K3's row form: every column count, then FibMul's 2^26-row tree
@@ -896,39 +999,28 @@ def phase_tree(res: Results, dev) -> None:
                   sha_row_leaves(cols), sha256_row_leaves(cols))
     c, log = ROW_LEAVES_TIME
     cols = rand_u32_dev(gen, (c, 1 << log), P, dev)
-
-    def rows_sliced():
-        return torch.cat([sha256_row_leaves(cols[:, k:k + sl])
-                          for k in range(0, 1 << log, sl)])
-
     # tribmul's trace tree: C = 3 over 2^22 rows
     fc, flog = ROW_FAMILY
     fcols = rand_u32_dev(gen, (fc, 1 << flog), P, dev)
-    what = f"row leaves C={fc} n=2^{flog}"
-    res.check("K3 row form", what, sha_row_leaves(fcols),
-              sha256_row_leaves(fcols))
-    res.time("K3 row form", what, lambda: sha_row_leaves(fcols),
-             lambda: sha256_row_leaves(fcols),
-             res.card.bound((4 * fc + 32) << flog,
-                            sha_leaf_ops(fc, False) << flog),
-             row=False, other=True)
+    subtree_case(res, "K3 row form", fcols, True, False, False)
     del fcols
-    res.check("K3 row form", f"row leaves C={c} n=2^{log} (plain in "
-              f"2^{TREE_LOG} slices)", sha_row_leaves(cols), rows_sliced())
+    subtree_case(res, "K3 row form", cols, True, False, True)
     # the columns read once (4 bytes a value), the digests written once
-    res.time("K3 row form", f"row leaves C={c} n=2^{log}",
-             lambda: sha_row_leaves(cols), rows_sliced,
-             res.card.bound((4 * c + 32) << log,
-                            sha_leaf_ops(c, False) << log))
+    time_alone(res, "K3 row form", f"row leaves C={c} n=2^{log} (no node "
+               "level)", lambda: sha_row_leaves(cols),
+               res.card.bound((4 * c + 32) << log,
+                              sha_leaf_ops(c, False) << log))
+    del cols
 
 
 def phase_tree_wide(res: Results, dev) -> None:
-    """K3's 64-bit mode (Goldilocks limb planes): one column at 2^22 and
-    2^26 leaves, the row form at C = 1..6 over 2^20 rows and C = 2 over
-    2^22 rows, each exact against its plain version (in 2^22-leaf slices)
-    and timed (the 2^22 shapes in the kernels line, the others under
-    its "shapes").  The words are any 32-bit values: the kernel hashes
-    hi || lo whatever they are."""
+    """K3's 64-bit mode (Goldilocks limb planes): K3 alone over one
+    column at 2^22 leaves and the row form at C = 1..6 over 2^20 rows,
+    exact against its plain version, and timed at 2^22 and 2^26; the
+    subtree kernel over one column and over C = 2 and 3 at 2^22 rows,
+    exact and timed (the one column and C = 2 in the kernels line).  The
+    words are any 32-bit values: the kernel hashes hi || lo whatever they
+    are."""
     from stark_tpu_torch.hash.cuda_sha import sha_leaves, sha_row_leaves
     from stark_tpu_torch.hash.sha256 import (sha256_row_leaves,
                                              sha256_u64_leaves)
@@ -945,57 +1037,122 @@ def phase_tree_wide(res: Results, dev) -> None:
                               for k in range(0, n, sl)])
 
         what = f"leaves (2, 2^{log_n})"
-        res.check("K3 wide", f"{what} (plain in 2^{TREE_LOG} slices)",
-                  sha_leaves(vals, wide=True), plain())
+        if log_n == TREE_LOG:
+            res.check("K3 wide", f"{what} (no node level)",
+                      sha_leaves(vals, wide=True), plain())
         # each limb pair read once (8 bytes), each digest written once
-        res.time("K3 wide", what, lambda: sha_leaves(vals, wide=True), plain,
-                 res.card.bound(40 * n, sha_leaf_ops(1, True) * n),
-                 row=log_n == WIDE_LEAVES_LOGS[0], other=True,
-                 plain_reps=REPS if log_n == TREE_LOG else 1,
-                 reps=SMALL_REPS if log_n == TREE_LOG else REPS)
+        time_alone(res, "K3 wide", f"{what} (no node level)",
+                   lambda: sha_leaves(vals, wide=True),
+                   res.card.bound(40 * n, sha_leaf_ops(1, True) * n),
+                   SMALL_REPS if log_n == TREE_LOG else REPS)
+        if log_n == WIDE_LEAVES_LOGS[0]:
+            subtree_case(res, "K3 wide", vals, False, True, True,
+                         reps=SMALL_REPS)
         del vals
     for c in range(1, 7):
         cols = rand_words_dev(gen, (c, 2, 1 << WIDE_ROW_LOG), dev)
         what = f"row leaves C={c} ({c}, 2, 2^{WIDE_ROW_LOG})"
         res.check("K3 wide row form", what, sha_row_leaves(cols, wide=True),
                   sha256_row_leaves(cols, wide=True))
-        res.time("K3 wide row form", what,
-                 lambda: sha_row_leaves(cols, wide=True),
-                 lambda: sha256_row_leaves(cols, wide=True),
-                 res.card.bound((8 * c + 32) << WIDE_ROW_LOG,
-                                sha_leaf_ops(c, True) << WIDE_ROW_LOG),
-                 row=False, other=True, reps=SMALL_REPS)
+        time_alone(res, "K3 wide row form", f"{what} (no node level)",
+                   lambda: sha_row_leaves(cols, wide=True),
+                   res.card.bound((8 * c + 32) << WIDE_ROW_LOG,
+                                  sha_leaf_ops(c, True) << WIDE_ROW_LOG),
+                   SMALL_REPS)
     c, log_n = ROW_FAMILY  # tribmul-GL's trace tree
     cols = rand_words_dev(gen, (c, 2, 1 << log_n), dev)
-    what = f"row leaves C={c} ({c}, 2, 2^{log_n})"
-    res.check("K3 wide row form", what, sha_row_leaves(cols, wide=True),
-              sha256_row_leaves(cols, wide=True))
-    res.time("K3 wide row form", what,
-             lambda: sha_row_leaves(cols, wide=True),
-             lambda: sha256_row_leaves(cols, wide=True),
-             res.card.bound((8 * c + 32) << log_n,
-                            sha_leaf_ops(c, True) << log_n),
-             row=False, other=True)
+    subtree_case(res, "K3 wide row form", cols, True, True, False)
     c, log_n = WIDE_ROW_TIME
     cols = rand_words_dev(gen, (c, 2, 1 << log_n), dev)
-    what = f"row leaves C={c} ({c}, 2, 2^{log_n})"
-    res.check("K3 wide row form", what, sha_row_leaves(cols, wide=True),
-              sha256_row_leaves(cols, wide=True))
-    res.time("K3 wide row form", what,
-             lambda: sha_row_leaves(cols, wide=True),
-             lambda: sha256_row_leaves(cols, wide=True),
-             res.card.bound((8 * c + 32) << log_n,
-                            sha_leaf_ops(c, True) << log_n))
+    subtree_case(res, "K3 wide row form", cols, True, True, True,
+                 reps=SMALL_REPS)
     del cols
     torch.cuda.empty_cache()
 
 
+def phase_tree_split(res: Results, dev) -> None:
+    """The tree build's split on the card (the subtree kernel, K4 a
+    level, the tail) against the plain tree, bit for bit: 2^22 leaves in
+    both modes, one column and the row form at C = 1..6, every prune
+    depth 0..6 (6 passes the fused levels: the scratch and a K4 launch);
+    then the tail alone at 2^0 .. 2^10 leaves (the whole tree in one
+    launch) and from a level of 2^1 .. 2^10 digest rows, timed at 2^10
+    nodes (the kernels line's row) beside K4's 10 launches."""
+    from stark_tpu_torch.hash.cuda_sha import sha_nodes, sha_tail
+    from stark_tpu_torch.hash.sha256 import (sha256_row_leaves,
+                                             sha256_u64_leaves)
+    from stark_tpu_torch.merkle.tree import build_tree, level_offsets
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 10)
+    n = 1 << SPLIT_LOG
+    for wide in (False, True):
+        for c in range(0, 7):  # 0: one column
+            shape = ((c,) if c else ()) + ((2,) if wide else ()) + (n,)
+            vals = rand_words_dev(gen, shape, dev)
+            row = ("K3" + " wide" * wide + " row form" * (c > 0))
+            whole = plain_tree(sha256_row_leaves(vals, wide) if c
+                               else sha256_u64_leaves(vals, wide))
+            for prune in SPLIT_PRUNES:
+                got = build_tree(vals, rows=c > 0, wide=wide, prune=prune)
+                res.check(row, f"build_tree {tuple(shape)} prune {prune}",
+                          got, whole[2 * n - 2 * (n >> prune):])
+            del vals, whole
+    torch.cuda.empty_cache()
+    rs = np.random.RandomState(SEED + 11)
+    for log_n in range(TAIL_TOP + 1):
+        m = 1 << log_n
+        vals = rand_u32(rs, m, P, dev)
+        out = torch.empty((2 * m - 1, 8), dtype=torch.int32, device=dev)
+        res.check("K4 tail", f"leaves n=2^{log_n} (the whole tree)",
+                  sha_tail(vals, out, leaves=True),
+                  plain_tree(sha256_u64_leaves(vals)))
+        if m > 1:
+            kids = rand_u32(rs, (m, 8), 1 << 32, dev)
+            top = torch.empty((m - 1, 8), dtype=torch.int32, device=dev)
+            res.check("K4 tail", f"nodes m=2^{log_n}", sha_tail(kids, top),
+                      plain_tree(kids)[m:])
+    offs = level_offsets(m)
+
+    def levels():
+        for (oc, sc), (op, sp) in zip(offs, offs[1:]):
+            sha_nodes(buf[oc:oc + sc], out=buf[op:op + sp])
+
+    buf = plain_tree(kids)
+    res.time("K4 tail", f"nodes m=2^{TAIL_TOP} to the root",
+             lambda: sha_tail(kids, top),
+             lambda: sha_tail.plain(kids, top),
+             res.card.bound(32 * (2 * m - 1), (SHA_OPS + SHA_PAD_OPS)
+                            * (m - 1)), reps=SMALL_REPS)
+    log(f"K4 tail: the same {TAIL_TOP} levels as {TAIL_TOP} K4 launches "
+        f"{cuda_ms(levels, SMALL_REPS):.4f} ms (device times: the tree "
+        "times below)")
+
+
+def phase_tree_times() -> None:
+    """The tree build's measurements of scripts/tree_build_times.py on
+    this checkout, in a process of their own (the profiler of a long
+    process drops device events): K3 alone, the builds at 2^20 / 2^22 /
+    2^26 leaves with each kernel's device time and launches, K4 a launch
+    and its host time."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = subprocess.run(
+        [sys.executable, os.path.join(root, "scripts", "tree_build_times.py"),
+         "--root", root, "--reps", str(REPS)], capture_output=True,
+        text=True, timeout=600, check=True).stdout
+    for line in out.splitlines():
+        row = json.loads(line)
+        log(f"tree times {row.pop('kind')}: "
+            f"{json.dumps({k: v for k, v in row.items() if k != 'root'})}")
+
+
 def phase_tree_chunked(res: Results, dev) -> None:
-    """The chunked pruned build (K3 once a chunk of 2^CHUNK_LOG leaves,
-    then `prune` K4 launches, the last into the stored level) against the
-    one-pass pruned build, both on the card, at 2^27 leaves in three
-    modes: one u32 column, the C = 2 row form and the 64-bit mode; stored
-    levels equal, each build timed."""
+    """The chunked pruned build (K3's subtree form once a chunk of
+    2^CHUNK_LOG leaves, writing the chunk's slice of the first stored
+    level, then K4 a level and the tail) against the one-pass pruned
+    build, both on the card, at 2^27 leaves in three modes: one u32
+    column, the C = 2 row form and the 64-bit mode; stored levels equal,
+    each build timed."""
     from stark_tpu_torch.merkle import tree as mt
 
     gen = torch.Generator(device=dev)
@@ -1030,10 +1187,11 @@ def phase_tree_chunked(res: Results, dev) -> None:
         log(f"{row} {what}: {ms:.4f} ms; one-pass pruned build "
             f"{one_ms:.4f} ms; launches {launches[row]} K3, "
             f"{launches['K4']} K4")
-        want = (chunks, chunks * prune + CHUNKED_LOG - prune)
-        if (launches[row], launches["K4"]) != want:
+        t = mt.tree_launches(n, prune)
+        want = (t["subtree"], t["nodes"], t["tail"])
+        if (launches[row], launches["K4"], launches["K4 tail"]) != want:
             raise AssertionError(f"chunked build launched {launches}, "
-                                 f"expected (K3, K4) {want}")
+                                 f"expected (K3, K4, tail) {want}")
         res.rows[row].setdefault("chunked_build", {})[str(shape)] = dict(
             ms=ms, one_pass_ms=one_ms, k3=launches[row], k4=launches["K4"])
         del vals, chunked, one_pass
@@ -1294,25 +1452,33 @@ def counters() -> dict:
                                                       query_chain_batch,
                                                       query_chain_cut)
     from stark_tpu_torch.hash.cuda_chain import sha_chain, sha_chain_batch
-    from stark_tpu_torch.hash.cuda_sha import (sha_leaves, sha_leaves_batch,
-                                               sha_nodes, sha_nodes_batch,
-                                               sha_row_leaves)
+    from stark_tpu_torch.hash.cuda_sha import (sha_leaves, sha_nodes,
+                                               sha_nodes_batch,
+                                               sha_row_leaves, sha_subtree,
+                                               sha_subtree_batch, sha_tail,
+                                               sha_tail_batch)
     from stark_tpu_torch.ntt.cuda_ntt import ntt_k1, ntt_k2
 
+    # K3 is one kernel launched with its node levels (sha_subtree) or
+    # without (sha_leaves / sha_row_leaves, an odd tree's leaves)
     return {"K1": ((ntt_k1, "launches"),), "K2": ((ntt_k2, "launches"),),
             "K1 batched": ((ntt_k1, "column_launches"),),
             "K2 batched": ((ntt_k2, "column_launches"),),
-            "K3": ((sha_leaves, "launches"),),
-            "K3 row form": ((sha_row_leaves, "launches"),),
-            "K3 wide": ((sha_leaves, "wide_launches"),),
-            "K3 wide row form": ((sha_row_leaves, "wide_launches"),),
+            "K3": ((sha_subtree, "launches"), (sha_leaves, "launches")),
+            "K3 row form": ((sha_subtree, "row_launches"),
+                            (sha_row_leaves, "launches")),
+            "K3 wide": ((sha_subtree, "wide_launches"),
+                        (sha_leaves, "wide_launches")),
+            "K3 wide row form": ((sha_subtree, "row_wide_launches"),
+                                 (sha_row_leaves, "wide_launches")),
             "K4": ((sha_nodes, "launches"),),
+            "K4 tail": ((sha_tail, "launches"), (sha_tail_batch, "launches")),
             "K5": ((sha_chain, "launches"), (query_chain, "launches"),
                    (query_chain_cut, "launches")),
             "K5 row messages": ((query_chain, "launches"),),
             "K5 pruned recompute": ((query_chain, "launches"),),
-            "K3 tree batch": ((sha_leaves_batch, "launches"),
-                              (sha_leaves_batch, "wide_launches")),
+            "K3 tree batch": ((sha_subtree_batch, "launches"),
+                              (sha_subtree_batch, "wide_launches")),
             "K4 tree batch": ((sha_nodes_batch, "launches"),),
             "K5 chain batch": ((sha_chain_batch, "launches"),),
             "K5 query batch": ((query_chain_batch, "launches"),),
@@ -1453,21 +1619,20 @@ def check_verifies(name: str, cfg, proof) -> None:
 
 def expected_launches(cfg, air) -> dict:
     """Each kernel row's launches in one prove of `cfg`, from its query
-    plan's tree prune depths.  u32 fields: one NTT wrapper call a
-    transform (trace INTT, LDE) whatever the column count, K1 up to
+    plan's tree sizes and prune depths.  u32 fields: one NTT wrapper call
+    a transform (trace INTT, LDE) whatever the column count, K1 up to
     2^MAX_LOG_N (the 2^20 paths), K2 above; Goldilocks: no NTT kernel
-    (torch ops).  K3 once a tree, or once a chunk of a chunked tree, in
-    the field's mode, its row form for a multi-column trace tree; K4 once
-    a stored level above the leaves, plus `prune` launches a chunk (or a
-    one-pass tree) of a pruned tree; K5's query form once."""
+    (torch ops).  Each tree as ``merkle/tree.py``'s split builds it
+    (``tree_launches``): K3's subtree form once a pass (a tree, or a
+    chunk of a chunked one) in the field's mode, its row form for a
+    multi-column trace tree; K4 once a level between the subtree's top
+    (or the first stored level) and the tail, plus the levels a pass
+    prunes past the fused ones; the tail once a tree (the whole build of
+    a tree of at most 2^10 leaves); K5's query form once."""
     from stark_tpu_torch.fields.fp import Fp
     from stark_tpu_torch.merkle import tree as mt
     from stark_tpu_torch.ntt import cuda_ntt
     from stark_tpu_torch.stark.prover import query_plan
-
-    def tree(n, prune):
-        passes = n >> mt.chunk_log(n, prune) if prune else 1
-        return passes, passes * prune + (n >> prune).bit_length() - 1
 
     plan = query_plan(cfg, air)
     cols = plan.num_columns
@@ -1476,19 +1641,34 @@ def expected_launches(cfg, air) -> dict:
                             for n in (cfg.trace_domain_size,
                                       cfg.eval_domain_size))
     k2 = 0 if wide else 2 - k1
-    trace = tree(plan.trace_len, plan.trace_prune)
-    fri = [tree(ln, pr) for ln, pr in zip(plan.fri_lengths, plan.fri_prune)]
-    k3 = (sum(f[0] for f in fri) + trace[0] * (cols == 1),
-          trace[0] * (cols > 1))  # (one column, row form)
+    trace = mt.tree_launches(plan.trace_len, plan.trace_prune)
+    fri = [mt.tree_launches(ln, pr)
+           for ln, pr in zip(plan.fri_lengths, plan.fri_prune)]
+    trees = [trace] + fri
+
+    def k3(t):
+        return t["subtree"] + t["leaves"]
+
+    k3 = (sum(k3(f) for f in fri) + k3(trace) * (cols == 1),
+          k3(trace) * (cols > 1))  # (one column, row form)
     u32_k3, wide_k3 = ((0, 0), k3) if wide else (k3, (0, 0))
     return {"K1": k1, "K2": k2,
             "K1 batched": k1 * (cols > 1), "K2 batched": k2 * (cols > 1),
             "K3": u32_k3[0], "K3 row form": u32_k3[1],
             "K3 wide": wide_k3[0], "K3 wide row form": wide_k3[1],
-            "K4": trace[1] + sum(f[1] for f in fri),
+            "K4": sum(t["nodes"] for t in trees),
+            "K4 tail": sum(t["tail"] for t in trees),
             # both rows count the query form's launches; the pruned
             # row's own launches are the 2^26 prove's (ROW_PATH)
             "K5 row messages": 1, "K5 pruned recompute": 1}
+
+
+def tree_launches_text(launches: dict) -> str:
+    """A prove's tree kernel launches: K3 (all forms) + K4 + tail."""
+    k3 = sum(launches[k] for k in ("K3", "K3 row form", "K3 wide",
+                                   "K3 wide row form"))
+    return (f"tree launches {k3 + launches['K4'] + launches['K4 tail']} "
+            f"(K3 {k3}, K4 {launches['K4']}, tail {launches['K4 tail']})")
 
 
 def phase_prove(res: Results, dev, name: str) -> dict:
@@ -1511,7 +1691,8 @@ def phase_prove(res: Results, dev, name: str) -> dict:
     log(f"{name} cold prove's phases' peak device memory (MiB): "
         f"{json.dumps(peaks['peak_mib'])}; walls (ms, each phase synced): "
         f"{json.dumps(peaks['wall_ms'])}")
-    log(f"launches during the cold {name} prove: {launches}")
+    log(f"launches during the cold {name} prove: {launches}; "
+        f"{tree_launches_text(launches)}")
     digest = hashlib.sha256(b"".join(cold.proof)).hexdigest()
     if digest != TRANSCRIPT_SHA256[name]:
         raise AssertionError(f"{name} transcript sha256 {digest} differs "
@@ -1557,12 +1738,14 @@ def unpruned_prove(name, cfg, air, dev, digest: str, warm: bool) -> dict:
         raise AssertionError(f"{name} unpruned transcript sha256 {got} != "
                              f"the pruned prove's {digest}")
     if (launches["K3"] + launches["K3 row form"] + launches["K3 wide"]
-            + launches["K3 wide row form"], launches["K4"]) != (
+            + launches["K3 wide row form"], launches["K4"],
+            launches["K4 tail"]) != (
             want["K3"] + want["K3 row form"] + want["K3 wide"]
-            + want["K3 wide row form"], want["K4"]):
+            + want["K3 wide row form"], want["K4"], want["K4 tail"]):
         raise AssertionError(f"unpruned {name} prove launched {launches}, "
                              f"expected {want}")
     warm_txt = f", warm {warm_s:.3f} s" if warm else ""
+    log(f"prove {name} unpruned: {tree_launches_text(launches)}")
     log(f"prove {name} unpruned: cold {cold_s:.3f} s{warm_txt}, peak "
         f"device memory {peak / 2**20:.1f} MiB, phases' peaks (MiB) "
         f"{json.dumps(peaks['peak_mib'])}, walls (ms) "
@@ -1604,7 +1787,8 @@ def warm_turns(cfg, air, dev) -> dict:
 def phase_kernel_batches(res: Results, dev) -> None:
     """The batched kernel forms of stark/batch.py, each exact against its
     plain version (a loop over the single plain version) and against B
-    single launches: K3 / K4's tree batch over B trees of 2^22 leaves,
+    single launches: the tree batch (K3's subtree form, K4, the tail)
+    over B trees of 2^22 leaves,
     K5's chain form on B mixed-flag streams, K5's query form on the B =
     16 plan of the 2^20 batch with seeded buffers."""
     from stark_tpu_torch.channel.device_query import (query_chain,
@@ -1613,10 +1797,13 @@ def phase_kernel_batches(res: Results, dev) -> None:
     from stark_tpu_torch.hash.cuda_chain import (FIRST_HEX, FIRST_ROW,
                                                  sha_chain, sha_chain_batch,
                                                  sha_chain_plain)
-    from stark_tpu_torch.hash.cuda_sha import (sha_leaves, sha_leaves_batch,
-                                               sha_nodes, sha_nodes_batch)
-    from stark_tpu_torch.hash.sha256 import sha256_pairs, sha256_u64_leaves
-    from stark_tpu_torch.merkle.tree import level_offsets
+    from stark_tpu_torch.hash.cuda_sha import (level_row, sha_nodes,
+                                               sha_nodes_batch, sha_subtree,
+                                               sha_subtree_batch, sha_tail,
+                                               sha_tail_batch)
+    from stark_tpu_torch.hash.sha256 import sha256_pairs
+    from stark_tpu_torch.merkle import tree as mt
+    from stark_tpu_torch.merkle.tree import build_tree, level_offsets
     from stark_tpu_torch.stark.batch import _batched_tree
     from stark_tpu_torch.stark.prover import query_plan
 
@@ -1626,31 +1813,28 @@ def phase_kernel_batches(res: Results, dev) -> None:
     vals = rand_u32_dev(gen, (b, n), P, dev)
     trees = torch.empty((b, 2 * n - 1, 8), dtype=torch.int32, device=dev)
     _batched_tree(vals, trees, rows=False, wide=False)
-    offs = level_offsets(n)
+    s_log, f = mt.SUBTREE_LOG, mt.SUBTREE_LEVELS
+    kw = dict(span_log=s_log, levels=f, tree_log=BATCH_TREE_LOG)
+    top = level_row(BATCH_TREE_LOG, 0, f, n >> f)
+    plain_ms = 0.0  # the plain subtree of the B trees, one run each
     for k in range(b):
-        one = torch.empty((2 * n - 1, 8), dtype=torch.int32, device=dev)
+        one = build_tree(vals[k])
         plain = torch.empty_like(one)
-        sha_leaves(vals[k], out=one[:n])
-        plain[:n] = sha256_u64_leaves(vals[k])
-        for (oc, sc), (op, sp) in zip(offs, offs[1:]):
-            sha_nodes(one[oc:oc + sc], out=one[op:op + sp])
+        plain_ms += timed_plain(lambda: sha_subtree.plain(
+            vals[k], plain[:top], **kw))[1]
+        offs = level_offsets(n)
+        for (oc, sc), (op, sp) in zip(offs[f:], offs[f + 1:]):
             plain[op:op + sp] = sha256_pairs(plain[oc:oc + sc])
         what = f"tree {k} of {b} x 2^{BATCH_TREE_LOG} leaves"
-        res.check("K3 tree batch", f"{what} (leaves): single launch",
-                  trees[k, :n], one[:n])
-        res.check("K3 tree batch", f"{what} (leaves): plain",
-                  trees[k, :n], plain[:n])
-        res.check("K4 tree batch", f"{what} (every level): single launches",
-                  trees[k], one)
-        res.check("K4 tree batch", f"{what} (every level): plain",
-                  trees[k], plain)
+        for row in ("K3 tree batch", "K4 tree batch", "K4 tail"):
+            res.check(row, f"{what} (every level): single launches",
+                      trees[k], one)
+            res.check(row, f"{what} (every level): plain", trees[k], plain)
     del one, plain
-    leaves = trees[:, :n]
-    res.time("K3 tree batch", f"leaves B={b} x n=2^{BATCH_TREE_LOG}",
-             lambda: sha_leaves_batch(vals, leaves),
-             lambda: [sha256_u64_leaves(vals[k]) for k in range(b)],
-             res.card.bound(36 * b * n, sha_leaf_ops(1, False) * b * n))
-    single = cuda_ms(lambda: [sha_leaves(vals[k], out=leaves[k])
+    res.time("K3 tree batch", f"subtree B={b} x n=2^{BATCH_TREE_LOG}, {f} "
+             "levels", lambda: sha_subtree_batch(vals, trees, **kw),
+             plain_ms, subtree_bound(res.card, b * n, 1, False, f))
+    single = cuda_ms(lambda: [sha_subtree(vals[k], trees[k], **kw)
                               for k in range(b)])
     log(f"K3 tree batch: {b} single launches {single:.4f} ms")
     m = n // 2
@@ -1658,11 +1842,19 @@ def phase_kernel_batches(res: Results, dev) -> None:
     res.time("K4 tree batch", f"nodes B={b} x m=2^{BATCH_TREE_LOG - 1}",
              lambda: sha_nodes_batch(kids, parents),
              lambda: [sha256_pairs(kids[k]) for k in range(b)],
-             res.card.bound(96 * b * m, (SHA_OPS + SHA_PAD_OPS) * b * m))
+             res.card.bound(96 * b * m, (SHA_OPS + SHA_PAD_OPS) * b * m),
+             plain_reps=1)
     single = cuda_ms(lambda: [sha_nodes(kids[k], out=parents[k])
                               for k in range(b)])
     log(f"K4 tree batch: {b} single launches {single:.4f} ms")
-    del vals, trees, leaves, kids, parents
+    tail_in = trees[:, 2 * n - 2048:2 * n - 1024]  # each tree's 2^10 level
+    tail_out = trees[:, 2 * n - 1024:]
+    ms = cuda_ms(lambda: sha_tail_batch(tail_in, tail_out))
+    single = cuda_ms(lambda: [sha_tail(tail_in[k], tail_out[k])
+                              for k in range(b)])
+    log(f"K4 tail batch, B={b} x 2^10 nodes: {ms:.4f} ms; {b} single "
+        f"launches {single:.4f} ms")
+    del vals, trees, kids, parents, tail_in, tail_out
 
     rs = np.random.RandomState(SEED + 8)
     r = BATCH_STREAM
@@ -1792,6 +1984,7 @@ def phase_batch(res: Results, dev) -> dict:
         want = {"K3 tree batch": per_prove["K3"] + per_prove["K3 row form"]
                 + per_prove["K3 wide"] + per_prove["K3 wide row form"],
                 "K4 tree batch": per_prove["K4"],
+                "K4 tail": per_prove["K4 tail"],
                 "K5 chain batch": (single["K5"] - single["K5 row messages"])
                 // b,
                 "K5 query batch": 1,
@@ -1806,8 +1999,8 @@ def phase_batch(res: Results, dev) -> dict:
                       "K5 query batch"):
                 res.rows[k]["launches"] = counts[k]
             split = batch_split(cfg, airs, dev, warm_s)
-        for k in ("K3 tree batch", "K4 tree batch", "K5 chain batch",
-                  "K5 query batch"):
+        for k in ("K3 tree batch", "K4 tree batch", "K4 tail",
+                  "K5 chain batch", "K5 query batch"):
             res.rows[k]["launches_by_prove"][f"{name} batch of {b}"] = \
                 counts[k]
         out[f"{name} x {b}"] = row = {
@@ -3107,10 +3300,11 @@ def phase_split(cfg, air, dev) -> dict:
     if air.num_columns > 1:
         tree = MerkleTree.from_columns(lde, wide=wide,
                                        prune=plan.trace_prune)
-        mark(f"trace tree ({k3} row form + K4, prune {plan.trace_prune})")
+        mark(f"trace tree ({k3} row form + K4 + tail, prune "
+             f"{plan.trace_prune})")
     else:
         tree = MerkleTree(lde, wide=wide, prune=plan.trace_prune)
-        mark(f"trace tree ({k3} + K4, prune {plan.trace_prune})")
+        mark(f"trace tree ({k3} + K4 + tail, prune {plan.trace_prune})")
     fs = DeviceFS(p, Channel(p).state, device=dev)
     fs.absorb_root(tree.root_digest)
     alphas = tuple(fs.draw() for _ in range(air.num_alphas))
@@ -3242,6 +3436,10 @@ def main() -> int:
              "stark_tpu/hash/pallas_sha.py:100"),
             ("K4", "stark_tpu_torch/csrc/sha256_tree.cu",
              "stark_tpu/hash/pallas_sha.py:124"),
+            ("K4 tail", "stark_tpu_torch/csrc/sha256_tree.cu",
+             "stark_tpu/hash/pallas_sha.py:124 (:202, :294) for the levels "
+             "of at most 2^10 nodes, which the JAX package runs as one XLA "
+             "lax.scan, stark_tpu/merkle/tree.py:124 _tail_scan"),
             ("K5", "stark_tpu_torch/csrc/sha_chain.cu",
              "stark_tpu/hash/pallas_chain.py:80 (and, for the query form, "
              "the lax.scan of stark_tpu/channel/device_query.py:314)"),
@@ -3303,6 +3501,8 @@ def main() -> int:
     phase_ntt(res, dev)
     phase_tree(res, dev)
     phase_tree_wide(res, dev)
+    phase_tree_split(res, dev)
+    phase_tree_times()
     phase_tree_chunked(res, dev)
     phase_chain(res, dev)
     phase_kernel_batches(res, dev)

@@ -9,12 +9,15 @@ The rounds are unrolled and the compiler hoists the round constants, so
 rounds have no boundary in the listing.  So this counts each kernel's
 32-bit integer instructions (funnel shifts and shifts, LOP3, the adds on
 either pipe), divides them by its rounds (64 a compression: K3's leaf
-one compression, K4's node two) and prints that beside the count the
-bound uses for the same kernel over the same rounds: for K4
+one compression, a node two) and prints that beside the count the
+bound uses for the same kernel over the same rounds: for a node
 ``chip_smoke.SHA_OPS`` for its data block and ``SHA_PAD_OPS`` for its
-constant padding block, for each form sha_leaves<C, WIDE> of K3
-``sha_leaf_ops(C, WIDE)``, which leaves out what its constant message
-words fold away.  One JSON line a kernel.
+constant padding block, for a leaf of each form sha_subtree<C, WIDE> of
+K3 ``sha_leaf_ops(C, WIDE)``, which leaves out what its constant message
+words fold away.  K4's ``sha_nodes`` holds one node; each form of
+``sha_subtree`` one leaf (none at C = 0, the tail's digest input) and
+one node (its node levels), if the compiler copies neither.  One JSON
+line a kernel.
 """
 
 import json
@@ -28,7 +31,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 from chip_smoke import SHA_OPS, SHA_PAD_OPS, sha_leaf_ops  # noqa: E402
 
 FUNC = re.compile(r"Function : (\S+)")
-LEAF = re.compile(r"sha_leavesILi(\d)ELb([01])E")  # sha_leaves<C, WIDE>
+LEAF = re.compile(r"sha_subtreeILi(\d)ELb([01])E")  # sha_subtree<C, WIDE>
 INSN = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)"
                   r"[^;]*;")
 # the 32-bit integer work of the rounds and the schedule
@@ -59,7 +62,10 @@ def main() -> int:
             compressions, model = 2, SHA_OPS + SHA_PAD_OPS
         elif LEAF.search(name):
             c, wide = LEAF.search(name).groups()
-            compressions, model = 1, sha_leaf_ops(int(c), wide == "1")
+            leaf = int(c) > 0
+            compressions = leaf + 2
+            model = (leaf and sha_leaf_ops(int(c), wide == "1")) + (
+                SHA_OPS + SHA_PAD_OPS)
         else:
             continue
         alu = sum(ops[k] for k in ALU)

@@ -4,9 +4,10 @@ Leaves are sharded in contiguous blocks, so each shard owns a complete
 subtree: its leaf digests (K3, in its u32, 64-bit or row form) and every
 level up to its subtree root (K4) build on its own device with no
 communication.  The S subtree roots, 32 bytes each, are copied to the
-first shard, where K4 builds the top log2(S) levels; on a process mesh
-they are all-gathered and every rank builds the top levels (replicated,
-on its first shard), so every rank holds the root.
+first shard, where ``hash_levels`` builds the top log2(S) levels (K4's
+tail, one launch for a power-of-two S; K4 a level for another); on a
+process mesh they are all-gathered and every rank builds the top levels
+(replicated, on its first shard), so every rank holds the root.
 
 Because subtrees are contiguous, the concatenated subtree levels are the
 global tree's levels, so roots and authentication paths equal those of

@@ -35,8 +35,13 @@ H0 = [0x6A09E667, 0xBB67AE85, 0x3C6EF372, 0xA54FF53A,
       0x510E527F, 0x9B05688C, 0x1F83D9AB, 0x5BE0CD19]
 
 
-def _rotr(x, r: int):
-    return ((x >> r) | (x << (32 - r))) & MASK32
+def _sigma(x, r1: int, r2: int, r3: int, shift: bool = False):
+    """rotr(x, r1) ^ rotr(x, r2) ^ (x >> r3 if `shift` else rotr(x, r3))
+    of 32-bit words: x | x << 32 holds x twice, so its bits r..r + 31 are
+    x rotated right by r (r <= 31; an int64 lane's top bits may wrap or
+    sign-extend, and only bits below 63 are read)."""
+    y = x | (x << 32)
+    return ((y >> r1) ^ (y >> r2) ^ ((x if shift else y) >> r3)) & MASK32
 
 
 def compress(state, w16):
@@ -48,14 +53,11 @@ def compress(state, w16):
     a, b, c, d, e, f, g, h = state
     for i in range(64):
         if i >= 16:
-            x15, x2 = w[i - 15], w[i - 2]
-            s0 = _rotr(x15, 7) ^ _rotr(x15, 18) ^ (x15 >> 3)
-            s1 = _rotr(x2, 17) ^ _rotr(x2, 19) ^ (x2 >> 10)
+            s0 = _sigma(w[i - 15], 7, 18, 3, shift=True)
+            s1 = _sigma(w[i - 2], 17, 19, 10, shift=True)
             w.append((w[i - 16] + s0 + w[i - 7] + s1) & MASK32)
-        t1 = h + (_rotr(e, 6) ^ _rotr(e, 11) ^ _rotr(e, 25)) + (
-            (e & f) ^ ((e ^ MASK32) & g)) + K[i] + w[i]
-        t2 = (_rotr(a, 2) ^ _rotr(a, 13) ^ _rotr(a, 22)) + (
-            (a & b) ^ (a & c) ^ (b & c))
+        t1 = h + _sigma(e, 6, 11, 25) + (g ^ (e & (f ^ g))) + K[i] + w[i]
+        t2 = _sigma(a, 2, 13, 22) + ((a & b) | (c & (a | b)))
         h, g, f, e = g, f, e, (d + t1) & MASK32
         d, c, b, a = c, b, a, (t1 + t2) & MASK32
     return [(s + n) & MASK32 for s, n in zip(state, (a, b, c, d, e, f, g, h))]

@@ -23,25 +23,35 @@ contiguous bytes, and the authentication path of leaf j is the rows
 the odd one out (promoted, so it has no sibling).  Digests do not depend
 on the storage layout, so roots and paths equal the JAX package's.
 
-On a CUDA tensor the leaves go through kernel K3 (its row form for
-columns) and every level above them, down to the root, through K4
-(``hash/cuda_sha.py``): one launch a level over its floor(size / 2)
-pairs, the promoted node of an odd level copied after them; on a CPU
-tensor through their plain versions.
+On a CUDA tensor a power-of-two tree builds in few launches
+(``hash/cuda_sha.py``): K3's subtree form hashes 2^SUBTREE_LOG leaves a
+block and the SUBTREE_LEVELS node levels above them in shared memory;
+K4 (``sha_nodes``) hashes each larger level above that, one launch a
+level; K4's tail hashes every level of at most 2^TAIL_LOG nodes up to
+the root in one block (the JAX package's ``_tail_scan``), and is the
+whole build of a tree of at most 2^TAIL_LOG leaves.  An odd-size tree
+hashes its leaves with K3 alone and every level with K4, the promoted
+node of an odd level copied after its pairs, until a level of a
+power-of-two size goes to the tail.  On a CPU tensor the same launches
+run their plain versions, over the same spans and into the same rows:
+the split is made before the device is looked at.  The three sizes are
+read at call time, so a test may shrink them.
 
 Pruned storage (``prune=``, the JAX package's ``prune_depth_for``): the
 single-fetch prove stores only the levels of at most 2^PRUNE_KEEP_LOG
-nodes of each tree.  The first ``prune`` levels go through a scratch
-buffer that the caller may share between trees, and the query phase
-recomputes their siblings from the leaf values inside K5's query form
+nodes of each tree; the query phase recomputes the siblings of the first
+``prune`` levels from the leaf values inside K5's query form
 (``channel/device_query.py``).  The stored levels are one
 (2 (n >> prune) - 1, 8) buffer at the offsets of a tree of n >> prune
-leaves.  A pruned tree of at least 2^CHUNK_MIN_LOG leaves builds in
-chunks of 2^CHUNK_LOG consecutive leaves: one K3 launch into the
-scratch, then ``prune`` K4 launches, the last of which writes the
-chunk's slice of the first stored level, so the leaf-digest level is
-never held whole.  Digests do not depend on either, so roots and
-transcripts are those of the full tree.
+leaves.  The kernels write only the stored levels, so the unstored ones
+of the subtree kernel and of the tail never reach device memory; only
+when ``prune`` exceeds the subtree kernel's fused levels do the levels
+between go through a scratch buffer, which the caller may share between
+trees.  A pruned tree of at least 2^CHUNK_MIN_LOG leaves builds in
+chunks of 2^CHUNK_LOG consecutive leaves, each writing its slice of the
+first stored level, so the leaf-digest level is never held whole.
+Digests do not depend on either, so roots and transcripts are those of
+the full tree.
 """
 
 from __future__ import annotations
@@ -52,17 +62,24 @@ import os
 import torch
 
 from stark_tpu_torch.hash.cuda_sha import (sha_leaves, sha_nodes,
-                                           sha_row_leaves)
+                                           sha_nodes_batch, sha_row_leaves,
+                                           sha_subtree, sha_subtree_batch,
+                                           sha_tail, sha_tail_batch)
 from stark_tpu_torch.hash.sha256 import digest_to_bytes
 
 
 # the stored levels of a pruned tree hold at most 2^PRUNE_KEEP_LOG nodes;
 # pruned trees of at least 2^CHUNK_MIN_LOG leaves build in chunks of
-# 2^CHUNK_LOG leaves (the JAX package's values).  Read at call time, so
-# a test may set them.
+# 2^CHUNK_LOG leaves (the JAX package's values).  The subtree kernel's
+# block hashes 2^SUBTREE_LOG leaves and the SUBTREE_LEVELS levels above
+# them (1024 leaves keep 5 levels in whole warps); the tail takes every
+# level of at most 2^TAIL_LOG nodes (the JAX package's _TAIL_SIZE).  Read
+# at call time, so a test may set them.
 PRUNE_KEEP_LOG = int(os.environ.get("STARK_TPU_TORCH_PRUNE_KEEP_LOG", "22"))
 CHUNK_MIN_LOG = int(os.environ.get("STARK_TPU_TORCH_CHUNK_TREE_LOG", "27"))
 CHUNK_LOG = 24
+SUBTREE_LOG, SUBTREE_LEVELS = 10, 5
+TAIL_LOG = 10
 
 
 def prune_depth_for(n: int) -> int:
@@ -90,21 +107,40 @@ def chunk_log(n: int, prune: int) -> int:
     return min(log_n, max(CHUNK_LOG, prune))
 
 
+def _passes(n: int, prune: int) -> tuple[int, int, int]:
+    """(log2 of the leaves a pass hashes, the subtree kernel's block span
+    log, its fused node levels) of a power-of-two tree of n leaves above
+    the tail."""
+    c = chunk_log(n, prune) if prune else n.bit_length() - 1
+    s = min(SUBTREE_LOG, c)
+    return c, s, min(SUBTREE_LEVELS, s)
+
+
+def _tail_builds(n: int) -> bool:
+    """Whether the tail alone builds a tree of n leaves."""
+    return not n & (n - 1) and n <= 1 << TAIL_LOG
+
+
 def scratch_rows(n: int, prune: int) -> int:
-    """Digest rows of the scratch a pruned build of n leaves needs: one
-    pass's leaves, then half as many again when there are levels between
-    them and the first stored level (those alternate between the two
-    regions).  0 without pruning."""
-    if not prune:
+    """Digest rows of the scratch a pruned build of n leaves needs: none
+    where the kernels write every level from `prune` up (the tail builds
+    the tree, or `prune` is within the subtree kernel's fused levels);
+    else one pass's top fused level, then half as many again when more
+    than one level lies between it and the first stored level (those
+    alternate between the two regions).  0 without pruning."""
+    if not prune or _tail_builds(n):
         return 0
-    s = 1 << chunk_log(n, prune)
-    return s + (s // 2 if prune > 1 else 0)
+    c, _, f = _passes(n, prune)
+    if prune <= f:
+        return 0
+    s = 1 << (c - f)
+    return s + (s // 2 if prune > f + 1 else 0)
 
 
 def tree_scratch(trees, device) -> torch.Tensor | None:
     """One scratch buffer for the pruned builds of `trees`, (leaf count,
     prune depth) pairs: the trees of a prove share it.  None when none of
-    them prunes."""
+    them needs one."""
     rows = max((scratch_rows(n, prune) for n, prune in trees), default=0)
     if not rows:
         return None
@@ -123,47 +159,146 @@ def level_offsets(n: int) -> list[tuple[int, int]]:
         size = (size + 1) // 2
 
 
+def _level_launches(size: int) -> tuple[int, int]:
+    """(K4 level launches, tail launches) of :func:`hash_levels` from a
+    level of `size` nodes."""
+    nodes = 0
+    while size > 1:
+        if _tail_builds(size):
+            return nodes, 1
+        nodes += 1
+        size = (size + 1) // 2
+    return nodes, 0
+
+
+def tree_launches(n: int, prune: int = 0) -> dict:
+    """The kernel launches :func:`build_tree` makes for a tree of n
+    leaves with `prune` unstored levels: {"leaves": K3 alone (an odd
+    tree), "subtree": K3's subtree form, "nodes": K4 one level a launch,
+    "tail": K4's tail}."""
+    if n & (n - 1):
+        nodes, tail = _level_launches(n)
+        return {"leaves": 1, "subtree": 0, "nodes": nodes, "tail": tail}
+    if _tail_builds(n):
+        return {"leaves": 0, "subtree": 0, "nodes": 0, "tail": 1}
+    c, _, f = _passes(n, prune)
+    passes = n >> c
+    nodes, tail = _level_launches(n >> max(f, prune))
+    return {"leaves": 0, "subtree": passes,
+            "nodes": nodes + passes * max(0, prune - f), "tail": tail}
+
+
+def _kernels(batch: bool):
+    """(subtree, nodes, tail) wrappers of a single tree or a tree batch."""
+    if batch:
+        return sha_subtree_batch, sha_nodes_batch, sha_tail_batch
+    return sha_subtree, sha_nodes, sha_tail
+
+
+def _rows(t: torch.Tensor, a: int, b: int) -> torch.Tensor:
+    """Rows a..b of a (rows, 8) buffer, or of each tree of a (B, rows, 8)
+    batch."""
+    return t[..., a:b, :]
+
+
 def build_tree(values: torch.Tensor, out: torch.Tensor | None = None, *,
                rows: bool = False, wide: bool = False, prune: int = 0,
-               scratch: torch.Tensor | None = None):
+               scratch: torch.Tensor | None = None, batch: bool = False):
     """The stored digest levels of the tree over `values` into `out` (a
     contiguous (rows, 8) int32 buffer of :func:`tree_rows` rows, allocated
     when None); n, the last axis, at least 1.  One value a leaf ((n,)
     u32, or (2, n) limb planes with `wide`), or with `rows` the row
     messages of C columns ((C, n), or (C, 2, n) with `wide`).  A level of
     odd size promotes its last node unhashed.  With `prune` (a
-    power-of-two tree only) the first `prune` levels go through `scratch`
-    (a (rows, 8) int32 buffer of at least :func:`scratch_rows` rows,
-    allocated when None) and are not stored.  Returns the buffer."""
+    power-of-two tree only) the first `prune` levels are not stored;
+    those that the subtree kernel does not fuse go through `scratch` (a
+    (rows, 8) int32 buffer of at least :func:`scratch_rows` rows,
+    allocated when needed and None).  With `batch`, B unpruned
+    power-of-two trees along the leading axis of `values` into a (B,
+    rows, 8) `out`, each kernel launched once for all of them.  Returns
+    the buffer."""
     n = int(values.shape[-1])
     if prune and (n & (n - 1) or (1 << prune) > n):
         raise ValueError(f"prune={prune} needs a power-of-two leaf count "
                          f">= 2^prune, got {n}")
     if n < 1:
         raise ValueError("a Merkle tree needs at least one leaf")
+    if batch and (prune or n & (n - 1)):
+        raise ValueError("a tree batch is of unpruned power-of-two trees")
     m = n >> prune
     if out is None:
-        out = torch.empty((tree_rows(m), 8), dtype=torch.int32,
+        lead = (int(values.shape[0]),) if batch else ()
+        out = torch.empty(lead + (tree_rows(m), 8), dtype=torch.int32,
                           device=values.device)
-    leaves = sha_row_leaves if rows else sha_leaves
-    if prune:
-        _first_stored(values, out[:m], leaves, wide, prune, scratch)
-    else:
+    if n & (n - 1):  # K3 alone, then one level a launch
+        leaves = sha_row_leaves if rows else sha_leaves
         leaves(values, out=out[:n], wide=wide)
-    return hash_levels(out, m)
+        return hash_levels(out, n)
+    subtree, nodes, tail = _kernels(batch)
+    if _tail_builds(n):
+        return tail(values, out, leaves=True, rows=rows, wide=wide,
+                    store_from=prune)
+    k = n.bit_length() - 1
+    c, s, f = _passes(n, prune)
+    if prune > f:
+        regions = _scratch_regions(n, prune, scratch, values.device)
+    for q in range(n >> c):
+        part = values[..., q << c:(q + 1) << c]
+        if prune <= f:
+            subtree(part, out, rows=rows, wide=wide, span_log=s, levels=f,
+                    store_from=prune, tree_log=k, block0=q << (c - s))
+            continue
+        level = subtree(part, regions[0], rows=rows, wide=wide, span_log=s,
+                        levels=f, store_from=f, tree_log=c)[:1 << (c - f)]
+        for lv in range(f + 1, prune + 1):
+            size = 1 << (c - lv)
+            dst = (out[q * size:(q + 1) * size] if lv == prune
+                   else regions[(lv - f) % 2][:size])
+            nodes(level, out=dst)
+            level = dst
+    return hash_levels(out, m, max(f, prune) - prune, batch=batch)
 
 
-def hash_levels(out: torch.Tensor, m: int) -> torch.Tensor:
-    """Every level above the first of a tree buffer whose first `m` rows
-    hold that level (:func:`level_offsets` layout): one K4 launch a level,
-    the promoted node of an odd level copied after its pairs.  Returns
-    `out`."""
+def _scratch_regions(n: int, prune: int, scratch, device) -> tuple:
+    """The scratch's two regions (a pass's top fused level, then half as
+    many rows) for a pruned build of n leaves."""
+    need = scratch_rows(n, prune)
+    if scratch is None:
+        scratch = tree_scratch([(n, prune)], device)
+    elif (scratch.dtype != torch.int32 or scratch.dim() != 2
+          or scratch.shape[0] < need or scratch.shape[1] != 8
+          or scratch.device != device):
+        raise ValueError(f"a pruned build of {n} leaves needs a ({need}, 8) "
+                         f"int32 scratch on {device}, got "
+                         f"{tuple(scratch.shape)} {scratch.dtype} on "
+                         f"{scratch.device}")
+    c, _, f = _passes(n, prune)
+    s = 1 << (c - f)
+    return scratch[:s], scratch[s:s + s // 2]
+
+
+def hash_levels(out: torch.Tensor, m: int, first: int = 0, *,
+                batch: bool = False) -> torch.Tensor:
+    """Every level above level `first` of a tree buffer whose first `m`
+    rows hold the tree's first level (:func:`level_offsets` layout), from
+    level `first` already written: one K4 launch a level, the promoted
+    node of an odd level copied after its pairs, until a level of a
+    power-of-two size of at most 2^TAIL_LOG nodes, whose levels up to the
+    root the tail hashes in one launch.  `batch`: a (B, rows, 8) buffer
+    of B trees.  Returns `out`."""
+    _, nodes, tail = _kernels(batch)
     offs = level_offsets(m)
-    for (off_c, size_c), (off_p, size_p) in zip(offs, offs[1:]):
+    for j in range(first, len(offs) - 1):
+        (off_c, size_c), (off_p, _) = offs[j], offs[j + 1]
+        if _tail_builds(size_c):
+            tail(_rows(out, off_c, off_c + size_c),
+                 _rows(out, off_p, off_p + size_c - 1))
+            break
         half = size_c // 2
-        sha_nodes(out[off_c:off_c + 2 * half], out=out[off_p:off_p + half])
+        nodes(_rows(out, off_c, off_c + 2 * half),
+              out=_rows(out, off_p, off_p + half))
         if size_c % 2:  # the odd node goes up unhashed
-            out[off_p + half] = out[off_c + size_c - 1]
+            out[..., off_p + half, :] = out[..., off_c + size_c - 1, :]
     return out
 
 
@@ -172,37 +307,6 @@ def tree_rows(n: int) -> int:
     power of two)."""
     off, size = level_offsets(n)[-1]
     return off + size
-
-
-def _first_stored(values, first, leaves, wide: bool, prune: int,
-                  scratch) -> None:
-    """Level `prune` of the tree over `values` into `first`, pass by pass
-    (:func:`chunk_log`): per pass one K3 launch into the scratch, then
-    `prune` K4 launches, the levels between alternating between the
-    scratch's two regions and the last writing the pass's slice of
-    `first`."""
-    n = int(values.shape[-1])
-    s = 1 << chunk_log(n, prune)
-    need = scratch_rows(n, prune)
-    if scratch is None:
-        scratch = tree_scratch([(n, prune)], values.device)
-    elif (scratch.dtype != torch.int32 or scratch.dim() != 2
-          or scratch.shape[0] < need or scratch.shape[1] != 8
-          or scratch.device != values.device):
-        raise ValueError(f"a pruned build of {n} leaves needs a ({need}, 8) "
-                         f"int32 scratch on {values.device}, got "
-                         f"{tuple(scratch.shape)} {scratch.dtype} on "
-                         f"{scratch.device}")
-    regions = (scratch[:s], scratch[s:s + s // 2])
-    for k in range(n // s):
-        level = leaves(values[..., k * s:(k + 1) * s], out=regions[0],
-                       wide=wide)
-        for lv in range(1, prune + 1):
-            size = s >> lv
-            dst = (first[k * size:(k + 1) * size] if lv == prune
-                   else regions[lv % 2][:size])
-            sha_nodes(level, out=dst)
-            level = dst
 
 
 class MerkleTree:

@@ -6,10 +6,11 @@ launch each kernel as often as one prove does, not B times:
 
 * the trace INTT and the LDE: one NTT call each, the B x C columns as
   the batched NTT's (C, n) rows (K1/K2; torch ops for Goldilocks);
-* every Merkle tree: K3 once for the B trees' leaves and K4 once a level
-  (the tree as grid y, ``hash/cuda_sha.py`` ``sha_leaves_batch``,
-  ``sha_nodes_batch``); every level is stored, as the JAX batch stores
-  them (``_batched_levels``);
+* every Merkle tree: each launch of the single tree's build
+  (``merkle/tree.py``: K3's subtree form, K4 a level, the tail) once for
+  the B trees (the tree as grid y, ``hash/cuda_sha.py``
+  ``sha_subtree_batch``, ``sha_nodes_batch``, ``sha_tail_batch``); every
+  level is stored, as the JAX batch stores them (``_batched_levels``);
 * every Fiat-Shamir interaction: one launch of K5's chain form for the B
   chains (a DeviceFS of (B, 8) states; ``sha_chain_batch``, one block a
   chain);
@@ -37,8 +38,7 @@ from stark_tpu_torch.config import ProverConfig
 from stark_tpu_torch.fields.fp import Fp, upload_u32
 from stark_tpu_torch.fri.commit import (_inv_domain, finish_deferred,
                                         layer_layout)
-from stark_tpu_torch.hash.cuda_sha import sha_leaves_batch, sha_nodes_batch
-from stark_tpu_torch.merkle.tree import level_offsets
+from stark_tpu_torch.merkle.tree import build_tree
 from stark_tpu_torch.ntt.ntt import coset_evaluate
 from stark_tpu_torch.stark.prover import (StarkProof, _finish_proof,
                                           get_air_context, query_plan)
@@ -50,15 +50,9 @@ from stark_tpu_torch.utils.gather import fetch_packed
 def _batched_tree(values: torch.Tensor, out: torch.Tensor, *, rows: bool,
                   wide: bool) -> torch.Tensor:
     """The B trees over `values` ((B, n), (B, 2, n), or with `rows` the
-    (B, C, n) columns) into `out`, a (B, 2n - 1, 8) view: K3 once, then
-    K4 once a level, for all B trees."""
-    n = int(values.shape[-1])
-    sha_leaves_batch(values, out[:, :n], rows=rows, wide=wide)
-    offs = level_offsets(n)
-    for (off_c, size_c), (off_p, size_p) in zip(offs, offs[1:]):
-        sha_nodes_batch(out[:, off_c:off_c + size_c],
-                        out[:, off_p:off_p + size_p])
-    return out
+    (B, C, n) columns) into `out`, a (B, 2n - 1, 8) view: the launches of
+    one tree's build, each once for all B trees."""
+    return build_tree(values, out, rows=rows, wide=wide, batch=True)
 
 
 def _batched_fold(f, evals: torch.Tensor, beta: torch.Tensor,

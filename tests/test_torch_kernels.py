@@ -150,6 +150,76 @@ def test_k3_wide_row_form_matches_plain(dev, cols, n):
     assert torch.equal(got, sha256_row_leaves(v, wide=True))
 
 
+# the subtree kernel (K3 with the node levels above the leaves): every form
+# at the tree build's block (2^10 leaves, 5 levels), a small block, the
+# levels stored from 0 (unpruned), from 3 and from the top, a launch that
+# starts at block 3 of a larger tree
+@pytest.mark.parametrize("form", ["u32", "rows1", "rows6", "wide",
+                                  "wide_rows6"])
+@pytest.mark.parametrize("span_log,levels,store_from,block0",
+                         [(10, 5, 0, 0), (10, 5, 3, 3), (10, 5, 5, 0),
+                          (3, 3, 1, 2), (12, 7, 0, 0)])
+def test_subtree_kernel_matches_plain(dev, form, span_log, levels,
+                                      store_from, block0):
+    from stark_tpu_torch.hash.cuda_sha import level_row, sha_subtree
+
+    rows, wide = "rows" in form, form.startswith("wide")
+    c = int(form[-1]) if rows else 1
+    n = 4 << span_log
+    shape = ((c,) if rows else ()) + ((2,) if wide else ()) + (n,)
+    vals = _u32(shape, 2**32 if wide else P, n + c, dev)
+    tree_log = span_log + 4 + (block0 > 0)
+    size = level_row(tree_log, store_from, tree_log, 1)
+    out = torch.zeros((size, 8), dtype=torch.int32, device=dev)
+    kw = dict(rows=rows, wide=wide, span_log=span_log, levels=levels,
+              store_from=store_from, tree_log=tree_log, block0=block0)
+    name = "row_" * rows + "wide_" * wide + "launches"
+    before = getattr(sha_subtree, name)
+    sha_subtree(vals, out, **kw)
+    torch.cuda.synchronize()
+    assert getattr(sha_subtree, name) == before + 1
+    want = sha_subtree.plain(vals, torch.zeros_like(out), **kw)
+    assert torch.equal(out, want)
+
+
+@pytest.mark.parametrize("log_n", range(11))
+def test_tail_kernel_matches_plain(dev, log_n):
+    """The tail from the leaves (the whole tree in one launch, stored from
+    0 and from 2) and from a level of digest rows, one block."""
+    from stark_tpu_torch.hash.cuda_sha import sha_tail
+
+    n = 1 << log_n
+    vals = _u32(n, P, 70 + log_n, dev)
+    for store_from in sorted({0, min(2, log_n)}):
+        rows = 2 * (n >> store_from) - 1
+        out = torch.zeros((rows, 8), dtype=torch.int32, device=dev)
+        before = sha_tail.launches
+        sha_tail(vals, out, leaves=True, store_from=store_from)
+        torch.cuda.synchronize()
+        assert sha_tail.launches == before + 1
+        want = sha_tail.plain(vals, torch.zeros_like(out), leaves=True,
+                              store_from=store_from)
+        assert torch.equal(out, want)
+    if n > 1:
+        kids = _u32((n, 8), 2**32, 80 + log_n, dev)
+        out = sha_tail(kids, torch.zeros((n - 1, 8), dtype=torch.int32,
+                                         device=dev))
+        want = sha_tail.plain(kids, torch.zeros_like(out))
+        assert torch.equal(out, want)
+
+
+@pytest.mark.parametrize("prune", range(7))
+def test_tree_build_matches_plain(dev, prune):
+    """build_tree on the card (the subtree kernel, K4, the tail) against
+    the same build on the CPU (their plain versions) at 2^17 leaves,
+    every prune depth up to one past the fused levels."""
+    from stark_tpu_torch.merkle.tree import build_tree
+
+    vals = _u32(1 << 17, P, 90 + prune, dev)
+    got = build_tree(vals, prune=prune)
+    assert torch.equal(got.cpu(), build_tree(vals.cpu(), prune=prune))
+
+
 def test_wide_tree_matches_plain(dev):
     from stark_tpu_torch.merkle.tree import MerkleTree
 
@@ -388,21 +458,26 @@ def test_tree_batch_matches_plain_loop(dev, rows, wide):
     """K3 / K4's tree batch (the tree as grid y) into a (B, 2n - 1, 8)
     buffer against the plain version tree by tree, and against B single
     launches."""
-    from stark_tpu_torch.hash.cuda_sha import (sha_leaves_batch,
-                                               sha_nodes_batch)
+    from stark_tpu_torch.hash.cuda_sha import (sha_nodes_batch,
+                                               sha_subtree_batch,
+                                               sha_tail_batch)
     from stark_tpu_torch.merkle.tree import build_tree
     from stark_tpu_torch.stark.batch import _batched_tree
 
-    b, n = 5, 1 << 10
+    b, n = 5, 1 << 16
     shape = (b, 3, n) if rows else (b, 2, n) if wide else (b, n)
     vals = _u32(shape, 2**32 if wide else P, 40, dev)
     out = torch.empty((b, 2 * n - 1, 8), dtype=torch.int32, device=dev)
-    before = (sha_leaves_batch.launches + sha_leaves_batch.wide_launches,
-              sha_nodes_batch.launches)
+
+    def counts():
+        return (sha_subtree_batch.launches + sha_subtree_batch.wide_launches,
+                sha_nodes_batch.launches, sha_tail_batch.launches)
+
+    before = counts()
     _batched_tree(vals, out, rows=rows, wide=wide)
     torch.cuda.synchronize()
-    assert (sha_leaves_batch.launches + sha_leaves_batch.wide_launches,
-            sha_nodes_batch.launches) == (before[0] + 1, before[1] + 10)
+    # 2^16 leaves: the subtree kernel to level 5, K4 to 2^10, the tail
+    assert counts() == (before[0] + 1, before[1] + 1, before[2] + 1)
     plain = torch.empty_like(out).cpu()
     _batched_tree(vals.cpu(), plain, rows=rows, wide=wide)
     assert torch.equal(out.cpu(), plain)

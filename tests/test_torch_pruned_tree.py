@@ -133,25 +133,32 @@ def test_chunked_build_matches_jax(monkeypatch, form):
 def test_chunked_build_shares_a_scratch_and_routes_by_size(monkeypatch):
     """One scratch serves trees of several sizes; below CHUNK_MIN_LOG the
     leaf level is hashed in one pass, from it in CHUNK_LOG chunks, and
-    the scratch holds one pass's leaves and half as many again."""
+    the scratch (needed only where `prune` passes the subtree kernel's
+    fused levels, here 1 above 2^3-leaf blocks, with a 2^2-node tail)
+    holds one pass's top fused level and half as many again."""
     monkeypatch.setattr(tmt, "CHUNK_MIN_LOG", 8)
     monkeypatch.setattr(tmt, "CHUNK_LOG", 5)
+    monkeypatch.setattr(tmt, "SUBTREE_LOG", 3)
+    monkeypatch.setattr(tmt, "SUBTREE_LEVELS", 1)
+    monkeypatch.setattr(tmt, "TAIL_LOG", 2)
     assert tmt.chunk_log(2**7, 3) == 7
     assert tmt.chunk_log(2**9, 3) == 5
-    assert tmt.scratch_rows(2**9, 3) == 32 + 16
-    assert tmt.scratch_rows(2**9, 1) == 32
+    assert tmt.scratch_rows(2**9, 3) == 16 + 8
+    assert tmt.scratch_rows(2**9, 2) == 16
+    assert tmt.scratch_rows(2**9, 1) == 0
     assert tmt.scratch_rows(2**9, 0) == 0
+    assert tmt.scratch_rows(2**2, 2) == 0  # the tail builds it
     trees = [(2**9, 3), (2**7, 2), (2**6, 0)]
     scratch = tmt.tree_scratch(trees, "cpu")
-    assert tuple(scratch.shape) == (2**7 + 2**6, 8)
-    assert tmt.tree_scratch([(2**9, 0)], "cpu") is None
+    assert tuple(scratch.shape) == (2**6, 8)
+    assert tmt.tree_scratch([(2**9, 0), (2**9, 1)], "cpu") is None
     for n, prune in trees:
         vals = _t(_words(n, n, P))
         got = MerkleTree(vals, prune=prune, scratch=scratch)
         _assert_levels(got, jmt.MerkleTree(jnp.asarray(tensor_to_u32(vals)),
                                            prune=prune).levels)
     with pytest.raises(ValueError, match="scratch"):
-        MerkleTree(_t(_words(2**9, 1, P)), prune=3, scratch=scratch[:40])
+        MerkleTree(_t(_words(2**9, 1, P)), prune=3, scratch=scratch[:20])
 
 
 def test_pruned_tree_refuses_host_paths():
