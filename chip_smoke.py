@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``stark_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py [--profile] [--phase multiproc|api]
+    python3 chip_smoke.py [--profile] [--phase multiproc|api|mega]
 
 Builds the port's CUDA kernels from ``stark_tpu_torch/csrc`` (and its
 native host trace from ``stark_tpu_torch/native``), holds each kernel
@@ -150,6 +150,26 @@ under NCCL, one rank a card; with one, a probe of two NCCL ranks on the
 card prints what NCCL answers.  ``--phase multiproc`` runs only the
 build, the latency probe and this phase.
 
+``mega`` (after the golden vectors, which take the mega path too): the
+single-dispatch prove (``stark/prover.py`` ``_prove_mega``), whose
+region after the LDE is one CUDA graph captured once and replayed.
+fib-sq ``ProverConfig()`` (M = 2^13, the JAX package's default prove),
+fib-sq, MiMC³ and FibMul at 2^18 rows and tribmul at 2^16 (blowup 4, M
+up to 2^20, the gate's edge), each through ``prove(cfg)`` alone: the
+"mega" path, one capture (the region's wrappers called three times in
+the capturing prove: two eager runs, the second under
+``torch.cuda.set_sync_debug_mode("error")``, and the capture) and a
+replay (no region wrapper called; ``prover.MEGA_STATS`` counts it), the
+transcript equal to the ``STARK_TPU_TORCH_NO_MEGA`` prove's, verified,
+a flipped byte rejected; warm walls of both paths in turns
+(MEGA_TURNS each), the first prove's wall and the graph's pool, and
+for MEGA_PROFILED the device busy share, the kernels of one replay and
+the host launch calls of each path.  Then two statements through one
+graph, a continued channel (its own graph), and, recorded only,
+FibMul-GL 2^16 under ``STARK_TPU_TORCH_WIDE_MEGA`` and fib-sq 2^20 (M =
+2^22) under ``STARK_TPU_TORCH_MEGA_MAX``.  ``--phase mega`` runs only
+the build, the golden vectors and this phase.
+
 ``api`` (after the proves above): the rest of the public API on the
 card.  ``ntt.lde`` of seeded values at 2^20 -> 2^22 (K1) and 2^24 ->
 2^26 (K2) against its plain version (the kernels' plain passes around
@@ -176,7 +196,11 @@ busy time, the kernels' shares; the full tables go to
 split.
 
 Needs one CUDA device; exits non-zero without one.  Imports nothing of
-JAX.  The last line of standard output is the result object.
+JAX.  The last line of standard output is the result object.  Leaves no
+process behind: it is the child subreaper of what it starts, and on the
+way out, after a failure too, ``stop_children`` closes the
+multiprocessing resource tracker and stops and reaps every process still
+below it.
 """
 
 from __future__ import annotations
@@ -523,6 +547,36 @@ API_NATIVE_TREE_LOG = 16
 # the kernels a profiled 2^24 prove's trace must name
 API_TRACE_KERNELS = ("ntt_pass1", "ntt_pass2", "sha_subtree", "sha_nodes",
                      "sha_chain", "query_chain")
+# the single-dispatch ("mega") prove (stark/prover.py _prove_mega): each
+# configuration proved through its captured graph (prove() with no device
+# argument) against the multi-launch prove (STARK_TPU_TORCH_NO_MEGA), with
+# MEGA_TURNS warm walls of each in turns: (configuration, AIR name, the
+# AIR's arguments), None the default statement; ProverConfig() is the JAX
+# package's default prove (M = 2^13), the 2^18-row ones sit at the gate's
+# edge (M = 2^20)
+_MEGA20 = dict(log2_trace=18, blowup=4, num_queries=16)
+MEGA_PROVES = {"fib-sq ProverConfig()": ({}, None, {}),
+               "fib-sq 2^18": (_MEGA20, None, {}),
+               "MiMC 2^18": (_MEGA20, "mimc3", dict(x0=271828, k=777)),
+               "FibMul 2^18": (_MEGA20, "fibmul", _FIBMUL),
+               "tribmul 2^16": (dict(_MEGA20, log2_trace=16), "tribmul", {})}
+# recorded only, no default changed: (configuration, AIR, arguments, the
+# environment that lets the prove take the mega path)
+MEGA_RECORDED = {
+    "FibMul-GL 2^16 (WIDE_MEGA)": (dict(_MEGA20, log2_trace=16, **_GL),
+                                   "fibmul", _FIBMUL,
+                                   {"STARK_TPU_TORCH_WIDE_MEGA": "1"}),
+    "fib-sq 2^20, M = 2^22 (MEGA_MAX = 2^22)": (
+        _CFG20, None, {}, {"STARK_TPU_TORCH_MEGA_MAX": str(1 << 22)})}
+MEGA_TURNS, MEGA_RECORDED_TURNS = 5, 3
+# the proves whose warm mega and multi-launch runs are profiled (device
+# busy share, kernels and host launch calls)
+MEGA_PROFILED = ("fib-sq ProverConfig()", "fib-sq 2^18", "FibMul 2^18")
+# the kernel rows a prove's LDE launches (outside the mega region) and
+# those of the region (whose wrappers a replay does not call)
+LDE_ROWS = ("K1", "K2", "K1 batched", "K2 batched")
+REGION_ROWS = ("K3", "K3 row form", "K3 wide", "K3 wide row form", "K4",
+               "K4 tail", "K5 row messages", "K5 pruned recompute")
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -1444,6 +1498,250 @@ def phase_golden() -> None:
             f"{len(got)} messages, byte-identical")
 
 
+@contextlib.contextmanager
+def env_set(**values):
+    """Environment variables set for the block (None: unset)."""
+    old = {k: os.environ.get(k) for k in values}
+    try:
+        for k, v in values.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def synced_prove(cfg, air, want_path: str, **kw):
+    """(proof, wall ms) of one prove() with no device argument (the card),
+    synchronised before and after; it must take `want_path`."""
+    from stark_tpu_torch.stark import prove
+    from stark_tpu_torch.stark import prover as tprover
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pr = prove(cfg, air=air, **kw)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    if tprover.LAST_PROVE_PATH != want_path:
+        raise AssertionError(f"{cfg} took {tprover.LAST_PROVE_PATH}, "
+                             f"expected {want_path}")
+    return pr, ms
+
+
+def no_mega_prove(cfg, air, **kw):
+    with env_set(STARK_TPU_TORCH_NO_MEGA="1"):
+        return synced_prove(cfg, air, "single-fetch", **kw)
+
+
+def mega_turns(cfg, air, turns: int) -> dict:
+    """`turns` warm walls (ms) each of the mega and the multi-launch
+    prove, in turns (mega, no-mega, no-mega, mega, ...): each wall, the
+    median and the spread (max - min)."""
+    walls = {"mega": [], "no-mega": []}
+    order = ("mega", "no-mega", "no-mega", "mega")
+    for turn in range(2 * turns):
+        which = order[turn % 4]
+        _, ms = (synced_prove(cfg, air, "mega") if which == "mega"
+                 else no_mega_prove(cfg, air))
+        walls[which].append(round(ms, 3))
+    return {k: {"ms": v, "median": round(statistics.median(v), 3),
+                "spread": round(max(v) - min(v), 3)}
+            for k, v in walls.items()}
+
+
+def mega_program(cfg, air):
+    """The cached mega program of a fresh channel's prove of `cfg` on the
+    default card."""
+    from stark_tpu_torch.stark import FibonacciSquareAIR
+    from stark_tpu_torch.stark import prover as tprover
+
+    ctx = tprover.get_air_context(air or FibonacciSquareAIR(), cfg,
+                                  torch.device("cuda"))
+    (prog,) = [p for key, p in ctx._mega_fns.items() if key[1]]
+    return prog
+
+
+def mega_profile(cfg, air, walls: dict) -> dict:
+    """One warm prove of each path under torch.profiler: its device
+    kernels, memory copies, host kernel-launch and graph-launch calls,
+    and the device busy time (union of device event intervals) as a
+    share of the path's median warm wall; and one bare replay of the
+    graph's kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def traced(fn):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ev = prof.events()
+        gpu = [e for e in ev if e.device_type == DeviceType.CUDA]
+        kernels = [e for e in gpu if not e.name.startswith("Mem")]
+        return {"device_kernels": len(kernels),
+                "device_copies": len(gpu) - len(kernels),
+                "host_launch_calls": sum(
+                    e.name.startswith(("cudaLaunchKernel", "cuLaunchKernel"))
+                    for e in ev),
+                "graph_launches": sum(e.name == "cudaGraphLaunch"
+                                      for e in ev),
+                "busy_ms": round(busy_us(gpu) / 1e3, 4)}
+
+    out = {}
+    for which, ctxm in (("mega", contextlib.nullcontext()),
+                        ("no-mega", env_set(STARK_TPU_TORCH_NO_MEGA="1"))):
+        with ctxm:
+            got = traced(lambda: synced_prove(
+                cfg, air, "mega" if which == "mega" else "single-fetch"))
+        got["busy_share_of_median_wall"] = round(
+            got["busy_ms"] / walls[which]["median"], 4)
+        out[which] = got
+    out["one replay"] = traced(mega_program(cfg, air).graph.replay)
+    if not out["one replay"]["device_kernels"]:
+        raise AssertionError("torch.profiler saw no kernel of a replay")
+    return out
+
+
+def phase_mega(res: Results, dev) -> dict:
+    """The single-dispatch prove on the card (stark/prover.py
+    _prove_mega, module docstring).  For each MEGA_PROVES configuration:
+    prove() with no device argument takes the "mega" path; its first
+    prove captures the graph (the region's wrappers called three times:
+    two eager runs, one under torch.cuda.set_sync_debug_mode("error"),
+    then the capture; the LDE's kernels once), its second replays it
+    (capture count unchanged, no region wrapper called: a replay is
+    counted as a replay, not as launches); both transcripts equal the
+    multi-launch prove's (STARK_TPU_TORCH_NO_MEGA), verified and a
+    flipped byte rejected; warm walls of both paths in turns, the first
+    prove's wall and the graph's pool, and for MEGA_PROFILED the device
+    busy share and the kernels of a replay.  Then two statements through
+    one graph, a continued channel, and the MEGA_RECORDED configurations
+    (recorded only).  Each kernel row's launches_by_prove gets the
+    capturing prove's wrapper calls and the replay's."""
+    from stark_tpu_torch.channel.channel import Channel
+    from stark_tpu_torch.config import ProverConfig
+    from stark_tpu_torch.stark import prover as tprover
+
+    drop_plans()
+    table = {}
+    for name, (kw, air_name, args) in MEGA_PROVES.items():
+        cfg, air = ProverConfig(**kw), air_of(air_name, args)
+        stats = dict(tprover.MEGA_STATS)
+        want = expected_launches(cfg, air)
+        reset_counts()
+        first, first_ms = synced_prove(cfg, air, "mega")
+        capture_counts = read_counts()
+        reset_counts()
+        second, warm_ms = synced_prove(cfg, air, "mega")
+        replay_counts = read_counts()
+        got = {k: tprover.MEGA_STATS[k] - stats[k] for k in stats}
+        if got != {"captures": 1, "replays": 2, "eager": 0}:
+            raise AssertionError(f"{name}: mega counts {got}, expected one "
+                                 "capture and two replays")
+        for k in LDE_ROWS:
+            if capture_counts[k] != want[k] or replay_counts[k] != want[k]:
+                raise AssertionError(
+                    f"{name}: {k} launched {capture_counts[k]} / "
+                    f"{replay_counts[k]} times, expected {want[k]} a prove")
+        for k in REGION_ROWS:
+            if capture_counts[k] != 3 * want[k] or replay_counts[k]:
+                raise AssertionError(
+                    f"{name}: region row {k} called {capture_counts[k]} "
+                    f"times in the capturing prove (expected {3 * want[k]}) "
+                    f"and {replay_counts[k]} in the replay (expected 0)")
+        if not capture_counts["K5"] or replay_counts["K5"]:
+            raise AssertionError(f"{name}: K5 called {capture_counts['K5']}"
+                                 f" / {replay_counts['K5']} times")
+        for k, row in res.rows.items():
+            row["launches_by_prove"][f"mega {name}, capturing prove"] = \
+                capture_counts[k]
+            row["launches_by_prove"][f"mega {name}, replay"] = \
+                replay_counts[k]
+        ref, _ = no_mega_prove(cfg, air)
+        digest = hashlib.sha256(b"".join(first.proof)).hexdigest()
+        if first.proof != second.proof or first.proof != ref.proof:
+            raise AssertionError(f"{name}: the mega transcript differs from "
+                                 "the multi-launch prove's")
+        check_verifies(name, cfg, first)
+        prog = mega_program(cfg, air)
+        rec = {"M": cfg.eval_domain_size, "sha256": digest,
+               "first_prove_ms": round(first_ms, 3),
+               "first_launch_ms": round(prog.first_s * 1e3, 3),
+               "second_prove_ms": round(warm_ms, 3),
+               "pool_mib": round(prog.pool_bytes / 2**20, 2),
+               "region_wrapper_calls_in_capture": {
+                   k: capture_counts[k] for k in REGION_ROWS + ("K5",)
+                   if capture_counts[k]},
+               "walls": mega_turns(cfg, air, MEGA_TURNS)}
+        if name in MEGA_PROFILED:
+            rec["profile"] = mega_profile(cfg, air, rec["walls"])
+        log(f"mega {name} (M = {cfg.eval_domain_size}): path mega, "
+            f"transcript sha256 {digest} equal to the multi-launch prove's, "
+            f"verified; first prove {first_ms:.3f} ms (capture included), "
+            f"pool {rec['pool_mib']} MiB; warm walls (ms) "
+            f"{json.dumps(rec['walls'])}"
+            + (f"; profile {json.dumps(rec['profile'])}"
+               if "profile" in rec else ""))
+        table[name] = rec
+
+    # two statements through one graph, then a continued channel
+    cfg = ProverConfig()
+    caps = tprover.MEGA_STATS["captures"]
+    for a1 in (3141592, 2718281):
+        got, _ = synced_prove(cfg, None, "mega", a1=a1)
+        ref, _ = no_mega_prove(cfg, None, a1=a1)
+        if got.proof != ref.proof:
+            raise AssertionError(f"a1 = {a1} through the captured graph "
+                                 "differs from its multi-launch prove")
+    if tprover.MEGA_STATS["captures"] != caps:
+        raise AssertionError("a second statement captured a new graph")
+    log("mega: two statements (a1 = 3141592, 2718281) through the one "
+        "captured ProverConfig() graph, each equal to its multi-launch "
+        "prove")
+
+    def channel():
+        ch = Channel(cfg.modulus)
+        ch.send(b"a statement proved before")
+        return ch
+
+    for turn in range(2):
+        got, ms = synced_prove(cfg, None, "mega", channel=channel())
+        ref, _ = no_mega_prove(cfg, None, channel=channel())
+        if got.proof != ref.proof:
+            raise AssertionError("a continued channel's mega transcript "
+                                 "differs from its multi-launch prove's")
+    if tprover.MEGA_STATS["captures"] != caps + 1:
+        raise AssertionError("the continued channel did not take one "
+                             "program of its own")
+    log("mega: a continued channel (initial false) through its own graph, "
+        "captured once, replayed once, equal to the multi-launch prove")
+
+    for name, (kw, air_name, args, extra) in MEGA_RECORDED.items():
+        cfg, air = ProverConfig(**kw), air_of(air_name, args)
+        with env_set(**extra):
+            first, first_ms = synced_prove(cfg, air, "mega")
+            ref, _ = no_mega_prove(cfg, air)
+            if first.proof != ref.proof:
+                raise AssertionError(f"{name}: mega transcript differs")
+            prog = mega_program(cfg, air)
+            rec = {"M": cfg.eval_domain_size, "env": extra,
+                   "first_prove_ms": round(first_ms, 3),
+                   "pool_mib": round(prog.pool_bytes / 2**20, 2),
+                   "walls": mega_turns(cfg, air, MEGA_RECORDED_TURNS)}
+        log(f"mega recorded {name}: equal to the multi-launch prove; "
+            f"{json.dumps(rec)}")
+        table[name] = rec
+    log(f"mega table ({card_smi()}): {json.dumps(table)}")
+    drop_plans()
+    return table
+
+
 def counters() -> dict:
     """Each row of the kernels line: its wrappers' counters, as (wrapper,
     attribute) pairs (K5 has two entry points, both counted; the batched
@@ -1507,17 +1805,24 @@ def family_secret(family: str) -> int:
 
 
 def prove_setup(name: str):
-    """(config, AIR or None for the default statement) of a prove; a
-    family through families.build_air with its default witness."""
+    """(config, AIR or None for the default statement) of a prove."""
     from stark_tpu_torch.config import ProverConfig
+
+    kw, air, args = PROVES[name]
+    return ProverConfig(**kw), air_of(air, args)
+
+
+def air_of(air: str | None, args: dict):
+    """The AIR of a name and its arguments (None for the default
+    statement); a family through families.build_air with its default
+    witness."""
     from stark_tpu_torch.stark import FibMulAIR, MimcAIR
     from stark_tpu_torch.stark.families import FAMILIES, build_air
 
-    kw, air, args = PROVES[name]
     if air in FAMILIES:
-        return ProverConfig(**kw), build_air(air, family_secret(air))
+        return build_air(air, family_secret(air))
     cls = {None: None, "mimc3": MimcAIR, "fibmul": FibMulAIR}[air]
-    return ProverConfig(**kw), cls(**args) if cls else None
+    return cls(**args) if cls else None
 
 
 def drop_plans() -> None:
@@ -3407,11 +3712,11 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also profile warm proves (" + ", ".join(PROFILED)
                     + ")")
-    ap.add_argument("--phase", choices=("all", "multiproc", "api"),
+    ap.add_argument("--phase", choices=("all", "multiproc", "api", "mega"),
                     default="all",
                     help="multiproc: the build, the latency probe and the "
-                         "multi-process phase only; api: the build and the "
-                         "api phase only")
+                         "multi-process phase only; api / mega: the build "
+                         "and the api / mega phase only")
     args = ap.parse_args()
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3494,6 +3799,10 @@ def main() -> int:
     if args.phase == "api":
         phase_api(res, dev)
         return finish(res, kind, t_start, partial=True)
+    if args.phase == "mega":
+        phase_golden()
+        phase_mega(res, dev)
+        return finish(res, kind, t_start, partial=True)
     phase_latency(card, dev)
     if args.phase == "multiproc":
         phase_multiproc(res, dev)
@@ -3507,6 +3816,7 @@ def main() -> int:
     phase_chain(res, dev)
     phase_kernel_batches(res, dev)
     phase_golden()
+    phase_mega(res, dev)
     walls = {name: phase_prove(res, dev, name) for name in PROVES
              if name not in FAMILY_PROVES}
     log("large-trace table (blowup 4, 16 queries; pruned unless named; "
@@ -3553,5 +3863,101 @@ def finish(res: Results, kind: str, t_start: float,
     return 0
 
 
+def _subreaper() -> None:
+    """Make this process the Linux child subreaper of what it starts, so
+    that a process orphaned below it (a child's child whose parent ended)
+    comes back to it and not to init, where stop_children finds it."""
+    import ctypes
+
+    try:
+        ctypes.CDLL(None, use_errno=True).prctl(36, 1, 0, 0, 0)
+    except (OSError, AttributeError):  # not Linux: children only
+        pass
+
+
+def _descendants() -> dict:
+    """{pid: command line} of every live or unreaped process below this
+    one, read from /proc."""
+    kids = {}
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as fh:
+                ppid = int(fh.read().rsplit(")", 1)[1].split()[1])
+        except (OSError, ValueError, IndexError):
+            continue
+        kids.setdefault(ppid, []).append(int(d))
+    out, todo = {}, [os.getpid()]
+    while todo:
+        for pid in kids.get(todo.pop(), ()):
+            try:
+                with open(f"/proc/{pid}/cmdline", "rb") as fh:
+                    cmd = fh.read().replace(b"\0", b" ").decode().strip()
+            except OSError:
+                cmd = ""
+            out[pid] = cmd or "(exited, unreaped)"
+            todo.append(pid)
+    return out
+
+
+def _reap() -> None:
+    """Collect every child of this process that has ended."""
+    while True:
+        try:
+            pid, _ = os.waitpid(-1, os.WNOHANG)
+        except ChildProcessError:
+            return
+        if pid == 0:
+            return
+
+
+def stop_children(grace: float = 10.0) -> None:
+    """Leave no process of this run behind: close the multiprocessing
+    resource tracker as multiprocessing itself does (it then unlinks what
+    it tracked and exits) and wait for it, then send every other process
+    still below this one SIGTERM, after `grace` seconds SIGKILL, and reap
+    each.  What it had to stop goes to stderr."""
+    import gc
+    import signal
+    from multiprocessing import resource_tracker
+
+    gc.collect()  # the spawned phases' queues: their semaphores unlinked
+    tracker = resource_tracker._resource_tracker
+    if getattr(tracker, "_pid", None) is not None:
+        print(f"chip_smoke: closing the multiprocessing resource tracker "
+              f"(pid {tracker._pid})", file=sys.stderr, flush=True)
+        if hasattr(tracker, "_stop"):
+            tracker._stop()
+        else:  # Python 3.12 before the tracker could be stopped
+            os.close(tracker._fd)
+            os.waitpid(tracker._pid, 0)
+            tracker._fd = tracker._pid = None
+    _reap()
+    left = _descendants()
+    if left:
+        print(f"chip_smoke: stopping {len(left)} process(es) left below "
+              f"this run: {left}", file=sys.stderr, flush=True)
+    deadline, sig = time.monotonic() + grace, signal.SIGTERM
+    while left:
+        for pid in left:
+            with contextlib.suppress(ProcessLookupError):
+                os.kill(pid, sig)
+        time.sleep(0.1)
+        _reap()
+        left = _descendants()
+        if time.monotonic() > deadline + grace:
+            print(f"chip_smoke: processes that outlived SIGKILL: {left}",
+                  file=sys.stderr, flush=True)
+            break
+        if time.monotonic() > deadline:
+            sig = signal.SIGKILL
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    _subreaper()
+    try:
+        code = main()
+    finally:
+        stop_children()
+    sys.exit(code)

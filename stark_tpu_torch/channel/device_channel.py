@@ -229,17 +229,27 @@ class DeviceFS:
     states and (B,) or (2, B) draws (``stark/batch.py``).  On a mesh
     (`mesh`, a ``dist.mesh.Mesh``) the state lives on its first shard:
     the chain is serial and tiny, and in one process its replication is
-    nothing more than the one fetch."""
+    nothing more than the one fetch.
+
+    `state`: an (8,) int32 device tensor to start from instead of
+    `state_hex` (which :func:`state_words` uploads): the single-dispatch
+    prove's static state buffer, which its CUDA graph reads and never
+    writes.  The log's payloads are the device tensors that the one fetch
+    packs; :meth:`replay_fetched` reads only the log's kinds and the
+    fetched values, so a log kept from an earlier run (the graph's, whose
+    payload tensors each replay overwrites) replays a later fetch."""
 
     def __init__(self, p: int, state_hex: str = "", *, device=None,
-                 mesh=None):
+                 mesh=None, state: torch.Tensor | None = None):
         if (device is None) == (mesh is None):
             raise ValueError("DeviceFS takes a device or a mesh")
+        if state is not None and state_hex:
+            raise ValueError("DeviceFS takes a state tensor or a hex state")
         self.p = p
         self.width = Fp.get(p).width
         self.device = mesh.first if mesh is not None else torch.device(device)
         self.state = state_words(state_hex, self.device) if state_hex \
-            else None
+            else state
         self.log: list[tuple[str, object]] = []
 
     def absorb_root(self, digest: torch.Tensor) -> None:
@@ -263,6 +273,12 @@ class DeviceFS:
     def payloads(self) -> list[torch.Tensor]:
         """The device tensors the replay needs, in log order."""
         return [pl for kind, pl in self.log if kind != "mark"]
+
+    def kinds(self) -> list[str]:
+        """The log's shape: "root", "draw" or "mark:<phase>" an entry (the
+        JAX package's ``log_kinds``)."""
+        return [f"mark:{pl}" if kind == "mark" else kind
+                for kind, pl in self.log]
 
     def replay_fetched(self, channel, fetched) -> None:
         """Replay the log into `channel` from fetched host values (one per

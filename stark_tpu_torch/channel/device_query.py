@@ -358,9 +358,9 @@ def _query_outputs(tb: QueryTables, b: int, dev):
                         dtype=torch.int32, device=dev))
 
 
-def _one_launch(tb: QueryTables, b: int, chain, sources):
-    ents = source_entries(tb, sources)
-    ptrs = _query_ptrs(tb, b, chain.device, ents)
+def _one_launch(tb: QueryTables, b: int, chain, sources, ptrs=None):
+    if ptrs is None:
+        ptrs = _query_ptrs(tb, b, chain.device, source_entries(tb, sources))
     idxs, vals, digs = _query_outputs(tb, b, chain.device)
     nv = tb.num_values
     out = _launch_query(tb, b, chain, ptrs, idxs, vals, digs, nv,
@@ -369,17 +369,19 @@ def _one_launch(tb: QueryTables, b: int, chain, sources):
 
 
 def query_chain(chain, f_evals, trace_digests, fri_values, fri_digests,
-                tb: QueryTables):
+                tb: QueryTables, ptrs: torch.Tensor | None = None):
     """K5's query form: every query of the phase in one launch, the
     pruned trees' siblings recomputed in it.  Each source is a tensor or,
-    for a plan over a mesh, the list of its entries.  A CPU tensor runs
-    :func:`query_chain_plain`; a CUDA tensor launches the kernel or
-    raises."""
+    for a plan over a mesh, the list of its entries.  `ptrs`: the
+    sources' table (:meth:`DeviceQueryPlan.source_table`), built here
+    when None (an upload, which a CUDA graph capture refuses).  A CPU
+    tensor runs :func:`query_chain_plain`; a CUDA tensor launches the
+    kernel or raises."""
     if _build.plain_device(chain):
         return query_chain_plain(chain, f_evals, trace_digests, fri_values,
                                  fri_digests, tb)
     res = _one_launch(tb, 0, chain, (f_evals, trace_digests, fri_values,
-                                     fri_digests))
+                                     fri_digests), ptrs)
     query_chain.launches += 1
     query_chain.sharded_launches += tb.shards > 1
     return res
@@ -834,8 +836,22 @@ class DeviceQueryPlan:
         tb = self.pack(v.device)
         return _assemble(tb, v, d), tb.flags
 
+    def source_table(self, f_evals, trace_digests, fri_values,
+                     fri_digests) -> torch.Tensor | None:
+        """The source table K5's query form reads for these unsharded
+        sources (their addresses, checked against the plan), on their
+        device: built once for buffers that stay put (the single-dispatch
+        prove's static buffers) and passed to :meth:`run_device` as
+        `ptrs`.  None on the CPU, whose plain version reads the tensors."""
+        if _build.plain_device(fri_values):
+            return None
+        tb = self.pack(fri_values.device)
+        return _query_ptrs(tb, 0, fri_values.device, source_entries(
+            tb, (f_evals.reshape(-1), trace_digests, fri_values,
+                 fri_digests)))
+
     def run_device(self, state, f_evals, trace_digests, fri_values,
-                   fri_digests):
+                   fri_digests, ptrs: torch.Tensor | None = None):
         """The query phase on the device, no fetch: one launch of K5's
         query form on a CUDA device.  `state`: (8,) int32 Fiat-Shamir
         state; `f_evals`: the (M,) or (C, M) trace LDE ((2, M) or
@@ -847,7 +863,9 @@ class DeviceQueryPlan:
         entry lists of ``DistMerkleTree.entries`` and of a mesh
         ``fri_commit``, all read from the state's device; on a process
         mesh (None for another process's blocks) K5's query form cut at
-        the query boundary (:func:`query_chain_cut`).  Returns
+        the query boundary (:func:`query_chain_cut`).  Unsharded,
+        `ptrs` is these sources' :meth:`source_table` (built here when
+        None).  Returns
         (final_state (8,), idxs (Q,) int64, vals (Q, Nv), digs
         (Q, Nd, 8)) in script order, a trace opening's C values
         together, a Goldilocks value as its (hi, lo) words.  A plan
@@ -869,7 +887,7 @@ class DeviceQueryPlan:
         else:
             f_evals = f_evals.reshape(-1)
         return query_chain(state, f_evals, trace_digests, fri_values,
-                           fri_digests, tb)
+                           fri_digests, tb, ptrs)
 
     def run(self, channel, f_evals, trace_digests, fri_values,
             fri_digests, device=None) -> None:

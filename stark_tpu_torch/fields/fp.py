@@ -341,6 +341,14 @@ class Fp:
         return store(self.mul(pw, torch.full_like(pw, int(offset) % self.p)))
 
 
+@functools.lru_cache(maxsize=None)
+def device_const(p: int, value: int, device: str) -> torch.Tensor:
+    """``Fp.get(p).const(value, device)`` built once per (field, value,
+    device): each ``const`` call is an upload, which a CUDA graph capture
+    (the single-dispatch prove, ``stark/prover.py``) refuses."""
+    return _get(p).const(value, torch.device(device))
+
+
 def upload_u32(arr, device) -> torch.Tensor:
     """numpy uint32 -> int32 storage tensor on `device`."""
     return torch.from_numpy(

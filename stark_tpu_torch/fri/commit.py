@@ -45,7 +45,7 @@ from stark_tpu_torch.channel.device_channel import DeviceFS
 from stark_tpu_torch.dist.comm import fri_fold_schedule
 from stark_tpu_torch.dist.merkle import dist_merkle_tree
 from stark_tpu_torch.dist.mesh import Sharded, replicated, sharded
-from stark_tpu_torch.fields.fp import Fp
+from stark_tpu_torch.fields.fp import Fp, device_const
 from stark_tpu_torch.merkle.tree import (MerkleTree, prune_depths,
                                          tree_scratch)
 from stark_tpu_torch.ntt.reference_ntt import root_of_unity
@@ -58,7 +58,8 @@ def _fold_pair(p: int, v, s, beta, inv_dom):
     Goldilocks)."""
     f = Fp.get(p)
     odd = f.mul(f.mul(f.sub(v, s), inv_dom), beta)
-    return f.mul(f.add(f.add(v, s), odd), f.const(pow(2, p - 2, p), v.device))
+    return f.mul(f.add(f.add(v, s), odd),
+                 device_const(p, pow(2, p - 2, p), str(v.device)))
 
 
 def _fold_fn(p: int, m: int):
@@ -152,7 +153,7 @@ def finish_deferred(p: int, final_vals_host, channel: Channel,
 
 def fri_commit(evals, p: int, offset: int, channel: Channel,
                num_folds: int | None = None, strict: bool = True, fs=None,
-               defer: bool = False, mesh=None) -> FRIProof:
+               defer: bool = False, mesh=None, out=None) -> FRIProof:
     """Commit phase (fri_commit.rs:72-122): Merkle each layer, absorb the
     root, draw beta, fold; finally send the constant.
 
@@ -174,7 +175,12 @@ def fri_commit(evals, p: int, offset: int, channel: Channel,
 
     `mesh`: commit over a ``dist.mesh.Mesh`` (`evals` a ``Sharded`` or a
     tensor to split): :func:`_commit_mesh`; trees are never pruned there
-    and the Fiat-Shamir state lives on the first shard."""
+    and the Fiat-Shamir state lives on the first shard.
+
+    `out`: (values, digests, scratch) buffers to commit into, sized by
+    :func:`layer_layout` and ``merkle.tree.tree_scratch`` (scratch None
+    when no tree needs one), on one device (the single-dispatch prove's
+    static buffers); allocated when None."""
     n = int(evals.shape[-1])
     if n & (n - 1):
         raise ValueError("FRI domain size must be a power of two")
@@ -196,7 +202,8 @@ def fri_commit(evals, p: int, offset: int, channel: Channel,
     if mesh is not None:
         proof = _commit_mesh(evals, p, int(offset) % p, num_folds, fs, mesh)
     else:
-        proof = _commit(evals, p, int(offset) % p, num_folds, fs, defer)
+        proof = _commit(evals, p, int(offset) % p, num_folds, fs, defer,
+                        out)
     if not defer:
         (last,) = fs.finalize(channel, extras=[proof.final_layer])
         proof.final_value = finish_deferred(p, last, channel, strict)
@@ -204,8 +211,9 @@ def fri_commit(evals, p: int, offset: int, channel: Channel,
 
 
 def _commit(evals: torch.Tensor, p: int, offset: int, num_folds: int, fs,
-            defer: bool) -> FRIProof:
-    """The commit on one device, into one value and one digest buffer."""
+            defer: bool, out=None) -> FRIProof:
+    """The commit on one device, into one value and one digest buffer
+    (`out`'s, when given)."""
     f = Fp.get(p)
     wide = f.width == 2
     n = int(evals.shape[-1])
@@ -213,9 +221,15 @@ def _commit(evals: torch.Tensor, p: int, offset: int, num_folds: int, fs,
     prunes = prune_depths(lengths, defer)
     layout, vtotal, dtotal = layer_layout(lengths, f.width, prunes)
     dev = evals.device
-    scratch = tree_scratch(zip(lengths, prunes), dev)
-    values = torch.empty(vtotal, dtype=torch.int32, device=dev)
-    digests = torch.empty((dtotal, 8), dtype=torch.int32, device=dev)
+    if out is None:
+        out = (torch.empty(vtotal, dtype=torch.int32, device=dev),
+               torch.empty((dtotal, 8), dtype=torch.int32, device=dev),
+               tree_scratch(zip(lengths, prunes), dev))
+    values, digests, scratch = out
+    if values.shape != (vtotal,) or digests.shape != (dtotal, 8):
+        raise ValueError(f"FRI buffers of {vtotal} words and {dtotal} digest "
+                         f"rows needed, got {tuple(values.shape)} and "
+                         f"{tuple(digests.shape)}")
 
     def layer(k):
         ln, voff, _ = layout[k]

@@ -67,10 +67,32 @@ class _BaseContext:
 
     def _const(self, value) -> torch.Tensor:
         """A broadcastable constant: 0-dim, or a (2, 1) pair (JAX ``_bc``);
-        a tensor (a batch's publics, ``stark/batch.py``) passes through."""
+        a tensor (a batch's publics, ``stark/batch.py``, or a view of
+        :meth:`compose_args`) passes through."""
         if torch.is_tensor(value):
             return value
         return self.fp.const(value, self.device)
+
+    # the publics ``compose`` reads, in the order of compose_args' buffer
+    compose_publics: tuple = ()
+
+    def compose_args(self, publics: dict) -> dict:
+        """The publics ``compose`` reads (``compose_publics``) as device
+        constants from one upload (JAX ``compose_args``): {name: a 0-dim
+        tensor, or a (2, 1) pair}, which ``compose`` takes in place of
+        the ints.  The single-dispatch prove keeps such a buffer static
+        (:meth:`public_views`) and refills it before each replay, so a
+        captured graph reads each statement's publics, not the first's."""
+        return self.public_views(self.fp.array(
+            [publics[k] for k in self.compose_publics], self.device))
+
+    def public_views(self, values: torch.Tensor) -> dict:
+        """{name: view} of a (K,) int64 buffer of the K compose publics,
+        or of its (2, K) limb planes."""
+        if self.fp.width == 2:
+            return {k: values[:, i:i + 1]
+                    for i, k in enumerate(self.compose_publics)}
+        return {k: values[i] for i, k in enumerate(self.compose_publics)}
 
     def column(self, lde: torch.Tensor, c: int) -> torch.Tensor:
         """Column c of a C-column LDE: (C, M) u32 words, or (B, C, M) for a
@@ -95,6 +117,8 @@ class _BaseContext:
 
 
 class _FibContext(_BaseContext):
+    compose_publics = ("a0", "a_last")
+
     def __init__(self, cfg: ProverConfig, device, block=None):
         super().__init__(cfg, device, block)
         p, g, N = cfg.modulus, self.g, self.N
@@ -267,9 +291,12 @@ class _NextRowContext(_BaseContext):
 
 
 class _MimcContext(_NextRowContext):
+    compose_publics = ("input", "output")
+
     def __init__(self, cfg: ProverConfig, k: int, device, block=None):
         super().__init__(cfg, device, block)
-        self.k = k
+        self.k = k  # the round key is part of the context's cache key
+        self.k_const = self._const(k)
 
     def compose(self, lde: torch.Tensor, alphas, publics: dict):
         f = self.fp
@@ -278,7 +305,7 @@ class _MimcContext(_NextRowContext):
         f_x, f_gx = self.shift(lde, 0), self.shift(lde, b)
         p0 = f.mul(f.sub(f_x, self._const(publics["input"])), self.inv_b0)
         p1 = f.mul(f.sub(f_x, self._const(publics["output"])), self.inv_b1)
-        t = f.add(f_x, self._const(self.k))
+        t = f.add(f_x, self.k_const)
         num = f.sub(f_gx, f.mul(f.mul(t, t), t))
         p2 = f.mul(num, self.trans_mult)
         return f.storage(f.add(f.add(f.mul(al[0], p0), f.mul(al[1], p1)),
@@ -335,6 +362,8 @@ class MimcAIR(AIR):
 
 
 class _FibMulContext(_NextRowContext):
+    compose_publics = ("input", "b0", "output")
+
     def compose(self, lde: torch.Tensor, alphas, publics: dict):
         """`lde`: the (2, M) LDE of the columns a and b ((2, 2, M) limb
         planes for Goldilocks)."""

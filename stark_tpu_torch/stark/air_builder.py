@@ -419,6 +419,8 @@ class _SpecContext(_BaseContext):
         super().__init__(cfg, device, block)
         p, g, N, T = cfg.modulus, self.g, self.N, cfg.trace_length
         self.spec = spec
+        self.compose_publics = tuple(dict.fromkeys(
+            [b.public for b in spec.boundaries] + sorted(spec.params_spec)))
         # one inverse table per boundary row (tribmul binds three publics
         # at row 0)
         rows = {b.row if b.row >= 0 else T + b.row for b in spec.boundaries}

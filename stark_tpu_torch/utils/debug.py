@@ -10,7 +10,9 @@ field arithmetic, e.g. a raw hash word used as a field element.
 * ``STARK_TPU_TORCH_DEBUG=1`` turns :func:`maybe_assert_canonical` from a
   no-op into :func:`assert_canonical`; the prover calls it at each phase
   boundary (the trace, the LDE, the composition, the FRI layers).  Unset,
-  it returns before touching the tensor.
+  it returns before touching the tensor.  The mega prove checks the
+  trace and the LDE only, before its CUDA graph: a verdict fetch cannot
+  sit inside the graph (as the JAX package's mega path).
 
 Layouts: int32 storage words are read as uint32 (int64 compute values
 as they are); for the Goldilocks prime a value is its (hi, lo) limb

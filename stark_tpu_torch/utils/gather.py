@@ -2,7 +2,9 @@
 and of the JAX package's ``utils/packfetch.py``).
 
 :func:`fetch_packed` copies several device tensors to the host as ONE
-``.cpu()`` of their words; :class:`BatchGather` collects row requests
+``.cpu()`` of their words (:func:`pack_words` on the device, then
+:func:`unpack_words` on the host: the single-dispatch prove packs inside
+its CUDA graph and copies after the replay); :class:`BatchGather` collects row requests
 against a fixed tuple of device tensors and resolves them with one
 flat index upload, one gather per tensor on the device and one such
 fetch (the per-query host loop of the per-phase prove and of
@@ -11,8 +13,28 @@ fetch (the per-query host loop of the per-phase prove and of
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
+
+
+def pack_words(tensors) -> torch.Tensor:
+    """The device half of :func:`fetch_packed`: every tensor's values as
+    int32 words (an int64 tensor's low 32 bits), flattened into one
+    tensor on their device (inside the single-dispatch prove's graph)."""
+    return torch.cat([t.reshape(-1).to(torch.int32) for t in tensors])
+
+
+def unpack_words(host: np.ndarray, shapes) -> list[np.ndarray]:
+    """The host half: the fetched words of :func:`pack_words`, split into
+    numpy arrays of the tensors' `shapes`."""
+    out, pos = [], 0
+    for shape in shapes:
+        n = math.prod(shape)
+        out.append(host[pos:pos + n].reshape(shape))
+        pos += n
+    return out
 
 
 def fetch_packed(tensors) -> list[np.ndarray]:
@@ -22,13 +44,8 @@ def fetch_packed(tensors) -> list[np.ndarray]:
     tensors = list(tensors)
     if not tensors:
         return []
-    flat = [t.reshape(-1).to(torch.int32) for t in tensors]
-    host = torch.cat(flat).cpu().numpy()
-    out, pos = [], 0
-    for t, f in zip(tensors, flat):
-        out.append(host[pos:pos + f.numel()].reshape(tuple(t.shape)))
-        pos += f.numel()
-    return out
+    return unpack_words(pack_words(tensors).cpu().numpy(),
+                        [tuple(t.shape) for t in tensors])
 
 
 class BatchGather:

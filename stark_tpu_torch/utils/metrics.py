@@ -4,7 +4,12 @@
 
 Every prove records its phases' wall times and its counters (``proves``,
 ``proof_bytes``) in a collector; the prover daemon's ``stats`` op reads
-:data:`GLOBAL`.
+:data:`GLOBAL`.  A multi-launch prove's phases are ``trace-lde``,
+``trace-commit``, ``composition``, ``fri-commit`` and ``queries``; a
+mega prove's (``stark/prover.py`` ``_prove_mega``, never under an
+explicit collector, which asks for the synced split) ``trace-lde``,
+``prove-device`` (refill and graph replay) and ``fetch-replay`` (the
+one copy and the host transcript replay).
 """
 
 from __future__ import annotations

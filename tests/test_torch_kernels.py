@@ -688,3 +688,62 @@ def test_debug_checks_on_card(dev, monkeypatch):
         prove(cfg, trace=bad, strict=False, device=dev)
     with pytest.raises(AssertionError, match="flat index 5"):
         assert_canonical(bad, P)
+
+
+def test_mega_prove_on_card_captures_once(dev):
+    """The single-dispatch prove on the card: the first prove of a
+    configuration captures its graph, the next statement replays it (no
+    second capture) with its own publics refilled, and a continued
+    channel takes its own program; every transcript equals the CPU's
+    single-fetch prove."""
+    from stark_tpu_torch.channel.channel import Channel
+    from stark_tpu_torch.config import ProverConfig
+    from stark_tpu_torch.stark import FibonacciSquareAIR, prove
+    from stark_tpu_torch.stark import prover as tprover
+
+    cfg = ProverConfig(log2_trace=7, blowup=4, num_queries=4)
+    ctx = tprover.get_air_context(FibonacciSquareAIR(), cfg, dev)
+    ctx.__dict__.pop("_mega_fns", None)
+    stats = dict(tprover.MEGA_STATS)
+    for a1 in (3, 5, 3):
+        got = prove(cfg, a1=a1, device=dev)
+        assert tprover.LAST_PROVE_PATH == "mega"
+        assert got.proof == prove(cfg, a1=a1, device="cpu").proof
+    assert tprover.MEGA_STATS["captures"] == stats["captures"] + 1
+    assert tprover.MEGA_STATS["replays"] == stats["replays"] + 3
+    (prog,) = ctx._mega_fns.values()
+    assert prog.pool_bytes > 0 and prog.graph is not None
+
+    def channel():
+        ch = Channel(cfg.modulus)
+        ch.send(b"an earlier statement")
+        return ch
+
+    got = prove(cfg, channel=channel(), device=dev)
+    assert got.proof == prove(cfg, channel=channel(), device="cpu").proof
+    assert len(ctx._mega_fns) == 2
+
+
+@pytest.mark.parametrize("name", ["mimc3_2e5", "fibmul_2e5",
+                                  "fibmul_gl_2e5"])
+def test_mega_golden_on_card(dev, monkeypatch, name):
+    """The golden vectors through the captured graph (Goldilocks under
+    its opt-in), each proved twice: capture, then replay."""
+    from stark_tpu_torch.config import ProverConfig
+    from stark_tpu_torch.stark import FibMulAIR, MimcAIR, StarkProof, prove
+    from stark_tpu_torch.stark import prover as tprover
+
+    monkeypatch.setenv("STARK_TPU_TORCH_WIDE_MEGA", "1")
+    path = os.path.join(os.path.dirname(__file__), "vectors",
+                        "golden_proofs.json")
+    with open(path) as fh:
+        vec = json.load(fh)[name]
+    want = StarkProof.deserialize(json.dumps(vec).encode()).proof
+    air = (MimcAIR(x0=271828, k=777) if name == "mimc3_2e5"
+           else FibMulAIR(a0=1, b0=2718281))
+    field = (dict(modulus=2**64 - 2**32 + 1, generator=7)
+             if name == "fibmul_gl_2e5" else {})
+    cfg = ProverConfig(log2_trace=5, blowup=4, num_queries=3, **field)
+    for _ in range(2):
+        assert prove(cfg, air=air, device=dev).proof == want
+        assert tprover.LAST_PROVE_PATH == "mega"
