@@ -1,0 +1,6 @@
+"""torch.cuda.max_memory_allocated() over the window (reset after
+set-up), in MiB."""
+
+
+def read(run: dict):
+    return run["peak_bytes"] / 2**20 if run["peak_bytes"] else None
