@@ -50,6 +50,7 @@ from stark_tpu_torch.merkle.tree import (MerkleTree, prune_depths,
                                          tree_scratch)
 from stark_tpu_torch.ntt.reference_ntt import root_of_unity
 from stark_tpu_torch.utils.gather import BatchGather
+from stark_tpu_torch.utils.metrics import span
 
 
 def _fold_pair(p: int, v, s, beta, inv_dom):
@@ -243,19 +244,23 @@ def _commit(evals: torch.Tensor, p: int, offset: int, num_folds: int, fs,
                           wide=wide, prune=prunes[k], scratch=scratch)
 
     layer(0).copy_(evals)
-    offsets, trees = [offset], [tree(0)]
-    fs.absorb_root(trees[0].root_digest)
+    with span("layer-tree"):
+        offsets, trees = [offset], [tree(0)]
     size, off = n, offset
     for k in range(1, num_folds + 1):
-        beta = fs.draw()  # device scalar, feeds the fold directly
-        folded = _fold_fn(p, size)(layer(k - 1), beta,
-                                   _inv_domain(p, size, off, str(dev)))
-        layer(k).copy_(f.storage(folded))
-        trees.append(tree(k))
-        fs.absorb_root(trees[k].root_digest)
+        with span("fri-draw"):
+            fs.absorb_root(trees[k - 1].root_digest)
+            beta = fs.draw()  # device scalar, feeds the fold directly
+        with span("fold"):
+            folded = _fold_fn(p, size)(layer(k - 1), beta,
+                                       _inv_domain(p, size, off, str(dev)))
+            layer(k).copy_(f.storage(folded))
+        with span("layer-tree"):
+            trees.append(tree(k))
         size //= 2
         off = off * off % p
         offsets.append(off)
+    fs.absorb_root(trees[-1].root_digest)
     return FRIProof([layer(k) for k in range(num_folds + 1)], trees, None,
                     offsets, values, digests, layout, prunes)
 

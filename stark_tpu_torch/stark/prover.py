@@ -97,6 +97,7 @@ from stark_tpu_torch.ntt.ntt import coset_evaluate
 from stark_tpu_torch.stark.air import FibonacciSquareAIR
 from stark_tpu_torch.stark.trace import trace_polynomial
 from stark_tpu_torch.utils import metrics as _metrics
+from stark_tpu_torch.utils.metrics import span
 from stark_tpu_torch.utils.debug import maybe_assert_canonical
 from stark_tpu_torch.utils.gather import (BatchGather, fetch_packed,
                                           pack_words, unpack_words)
@@ -277,6 +278,12 @@ def prove(cfg: ProverConfig, a1: int = 3141592, *, air=None,
     ``proof_bytes`` counters: in ``utils.metrics.GLOBAL`` without
     synchronising the device, or in `metrics`, a MetricsCollector, with
     each phase ending in ``torch.cuda.synchronize()`` on a CUDA device.
+    `metrics` also receives the prove's spans (``utils/metrics.py``):
+    the phases, ``host-trace``, ``intt`` and ``coset-ntt`` in
+    ``trace-lde``, a ``fri-draw``, ``fold`` and ``layer-tree`` a fold
+    in ``fri-commit``, and ``host-replay``; none synchronises.  While a
+    ``torch.profiler`` records, every span is also a ``span:<name>``
+    range on the profiler's clock.
 
     With ``STARK_TPU_TORCH_DEBUG`` set, the trace, the LDE, the
     composition and the FRI layers must hold canonical values
@@ -306,55 +313,61 @@ def prove(cfg: ProverConfig, a1: int = 3141592, *, air=None,
     if air is None:
         air = FibonacciSquareAIR(a1=a1)
     air.validate(cfg)
-    p, M, h = cfg.modulus, cfg.eval_domain_size, cfg.offset
-    mx = metrics if metrics is not None else _metrics.GLOBAL
-    devices = mesh.local_devices if mesh is not None else {device}
+    with _metrics.proving(metrics) as mx:
+        p, M, h = cfg.modulus, cfg.eval_domain_size, cfg.offset
+        devices = mesh.local_devices if mesh is not None else {device}
 
-    def sync():
-        if metrics is not None:
-            for d in devices:
-                if d.type == "cuda":
-                    torch.cuda.synchronize(d)
+        def sync():
+            if metrics is not None:
+                for d in devices:
+                    if d.type == "cuda":
+                        torch.cuda.synchronize(d)
 
-    # -- trace + LDE: one upload of the host trace -------------------------
-    # (T,), or (C, T) for C columns; (2, T) / (C, 2, T) for Goldilocks
-    with mx.phase("trace-lde", n=M):
-        trace_host = air.host_trace(cfg) if trace is None else (
-            trace.cpu().numpy() if torch.is_tensor(trace) else trace)
-        publics = air.publics_from_host(cfg, trace_host)
-        trace_dev = upload_u32(trace_host, device)
-        maybe_assert_canonical(trace_dev, p, "trace")
-        coeffs = trace_polynomial(trace_dev, p)
-        f_evals = (coset_evaluate(coeffs, p, M, h) if mesh is None
-                   else dist_coset_evaluate(coeffs, p, M, h, mesh))
-        maybe_assert_canonical(f_evals, p, "trace-LDE (post-NTT)")
-        sync()
+        # -- trace + LDE: one upload of the host trace ---------------------
+        # (T,), or (C, T) for C columns; (2, T) / (C, 2, T) for Goldilocks
+        with mx.phase("trace-lde", n=M):
+            with span("host-trace"):
+                trace_host = air.host_trace(cfg) if trace is None else (
+                    trace.cpu().numpy() if torch.is_tensor(trace) else trace)
+                publics = air.publics_from_host(cfg, trace_host)
+            trace_dev = upload_u32(trace_host, device)
+            maybe_assert_canonical(trace_dev, p, "trace")
+            with span("intt"):
+                coeffs = trace_polynomial(trace_dev, p)
+            with span("coset-ntt"):
+                f_evals = (coset_evaluate(coeffs, p, M, h) if mesh is None
+                           else dist_coset_evaluate(coeffs, p, M, h, mesh))
+            maybe_assert_canonical(f_evals, p, "trace-LDE (post-NTT)")
+            sync()
 
-    # the JAX gate (stark_tpu/stark/prover.py:234-240): phase-accurate
-    # channels need the transcript at each phase boundary
-    width = Fp.get(p).width
-    offsets = tuple(s * cfg.blowup for s in air.shifts)
-    fri_lengths = tuple(M >> k for k in range(air.num_folds(cfg) + 1))
-    rng = M - max(offsets)
-    if channel is None:
-        channel = Channel(p)
-    single_fetch = (
-        not getattr(channel, "phase_accurate", False)
-        and not host_queries()
-        and not os.environ.get("STARK_TPU_TORCH_PHASE_SYNC")
-        and _dq.supported(rng, M, fri_lengths, air.num_columns, width))
-    shards = 1 if mesh is None else mesh.size
-    if single_fetch:
-        plan = query_plan(cfg, air, shards=shards)
-        # the JAX gate (stark_tpu/stark/prover.py:241-248): everything
-        # after the LDE as one captured program, or the multi-launch path
-        if _use_mega(M, mesh_arg, metrics is not None, f_evals, width):
-            return _prove_mega(cfg, air, channel, f_evals, publics, plan, mx,
-                               strict, device)
-        return _prove_single_fetch(cfg, air, channel, f_evals, publics, plan,
-                                   mx, sync, strict, device, mesh, tag)
-    return _prove_per_phase(cfg, air, channel, f_evals, publics, offsets,
-                            fri_lengths, mx, sync, strict, device, mesh, tag)
+        # the JAX gate (stark_tpu/stark/prover.py:234-240): phase-accurate
+        # channels need the transcript at each phase boundary
+        width = Fp.get(p).width
+        offsets = tuple(s * cfg.blowup for s in air.shifts)
+        fri_lengths = tuple(M >> k for k in range(air.num_folds(cfg) + 1))
+        rng = M - max(offsets)
+        if channel is None:
+            channel = Channel(p)
+        single_fetch = (
+            not getattr(channel, "phase_accurate", False)
+            and not host_queries()
+            and not os.environ.get("STARK_TPU_TORCH_PHASE_SYNC")
+            and _dq.supported(rng, M, fri_lengths, air.num_columns, width))
+        shards = 1 if mesh is None else mesh.size
+        if single_fetch:
+            plan = query_plan(cfg, air, shards=shards)
+            # the JAX gate (stark_tpu/stark/prover.py:241-248): everything
+            # after the LDE as one captured program, or the multi-launch
+            # path
+            if _use_mega(M, mesh_arg, metrics is not None, f_evals, width):
+                return _prove_mega(cfg, air, channel, f_evals, publics, plan,
+                                   mx, strict, device)
+            return _prove_single_fetch(cfg, air, channel, f_evals, publics,
+                                       plan, mx, sync, strict, device, mesh,
+                                       tag)
+        return _prove_per_phase(cfg, air, channel, f_evals, publics,
+                                offsets, fri_lengths, mx, sync, strict,
+                                device, mesh, tag)
 
 
 def _prove_single_fetch(cfg, air, channel, f_evals, publics, plan, mx,
@@ -407,10 +420,11 @@ def _prove_single_fetch(cfg, air, channel, f_evals, publics, plan, mx,
         payload_h, (last_h, final_h, idxs_h, vals_h, digs_h) = (
             fetched[:n_pay], fetched[n_pay:])
 
-        fs.replay_fetched(channel, payload_h)
-        fri.final_value = finish_deferred(p, last_h, channel, strict)
-        channel.mark_phase("queries")
-        plan.replay(channel, final_h, idxs_h, vals_h, digs_h)
+        with span("host-replay"):
+            fs.replay_fetched(channel, payload_h)
+            fri.final_value = finish_deferred(p, last_h, channel, strict)
+            channel.mark_phase("queries")
+            plan.replay(channel, final_h, idxs_h, vals_h, digs_h)
     return _finish_proof(cfg, air, channel, publics, mx)
 
 
@@ -688,10 +702,11 @@ def _prove_mega(cfg, air, channel, f_evals, publics, plan, mx, strict,
             fetched = prog.fetch()
             n_pay = len(fetched) - 5
             last_h, final_h, idxs_h, vals_h, digs_h = fetched[n_pay:]
-            prog.fs.replay_fetched(channel, fetched[:n_pay])
-            finish_deferred(cfg.modulus, last_h, channel, strict)
-            channel.mark_phase("queries")
-            plan.replay(channel, final_h, idxs_h, vals_h, digs_h)
+            with span("host-replay"):
+                prog.fs.replay_fetched(channel, fetched[:n_pay])
+                finish_deferred(cfg.modulus, last_h, channel, strict)
+                channel.mark_phase("queries")
+                plan.replay(channel, final_h, idxs_h, vals_h, digs_h)
     return _finish_proof(cfg, air, channel, publics, mx)
 
 

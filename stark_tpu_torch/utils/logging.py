@@ -103,7 +103,12 @@ def get_logger() -> logging.Logger:
 def profile_trace(log_dir: str = os.path.join(LOG_DIR, "torch-trace")):
     """A ``torch.profiler`` scope over the CPU and, when there is one, the
     CUDA device, exported as a Chrome trace (chrome://tracing, Perfetto)
-    into `log_dir` on exit.  Yields the trace file's path."""
+    into `log_dir` on exit.  Yields the trace file's path.
+
+    A prove inside the scope shows its spans (``utils/metrics.py``) as
+    ``span:<name>`` ranges beside the kernels they launch: the five
+    phases, ``host-trace``, ``intt``, ``coset-ntt``, each fold's
+    ``fri-draw``, ``fold`` and ``layer-tree``, and ``host-replay``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
