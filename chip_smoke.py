@@ -50,8 +50,9 @@ planes) it holds K3's 64-bit mode against its plain version (one column
 at 2^22 and 2^26 leaves, the row form at C = 1..6 and 2 x 2^22) and K5's
 query form on the FibMul-GL plan (two value slots a 64-bit value), proves
 the fibmul_gl_2e5 golden vector, the Fibonacci-square and FibMul
-statements at 2^20 rows as above (pinned digests; no NTT kernel, since
-the Goldilocks NTT is torch ops; K3's 64-bit mode once per tree),
+statements at 2^20 rows as above (pinned digests; no K1/K2 launch: the
+Goldilocks NTT is the 64-bit kernels, two launches a prove; K3's 64-bit
+mode once per tree),
 FibMul-GL at 2^14 and 2^18 rows for a table of walls and peak memory,
 and both statements at 2^8 and 2^12 rows, whose transcripts must equal
 the digests the JAX package made on a CPU (``GL_ANCHORS``,
@@ -382,6 +383,7 @@ MULTIPROC_TIMEOUT, NCCL_PROBE_TIMEOUT = 600, 120
 # the prove whose launch counts fill each row of the kernels line (rows
 # not named here: the 2^24 Fibonacci-square prove)
 ROW_PATH = {"K1": "2^20", "K1 batched": "FibMul 2^20",
+            "NTT 64-bit": "GL 2^20", "NTT 64-bit batched": "FibMul-GL 2^22",
             "K2 batched": "FibMul 2^24", "K3 row form": "FibMul 2^24",
             "K5 row messages": "FibMul 2^24", "K3 wide": "GL 2^20",
             "K3 wide row form": "FibMul-GL 2^20",
@@ -400,6 +402,20 @@ NTT_COLS = 2
 NTT_BATCHED_REDUCED = ((8, 13), (8, 16))
 # tribmul's three columns at its 2^20 prove's shapes: (log n, inverse)
 NTT_FAMILY_COLS, NTT_FAMILY_SHAPES = 3, ((20, True), (22, False))
+# the 64-bit (Goldilocks) NTT kernels against ntt_limbs and their own
+# passes, (columns, log n, inverse): every Goldilocks prove's trace INTT
+# and LDE, the benchmark's FibMul-GL at 2^21 rows and blowup 8 first, then
+# the proves here at blowup 4 (fib-sq-GL 2^20 one column, FibMul-GL 2^20,
+# 2^22, 2^24, tribmul-GL 2^20); timed (True: in the kernels line) at the
+# benchmark's shapes, one column and two; then narrow splits under a
+# shrunk block budget, (BLOCK_LOG, columns, log n)
+NTT64_SHAPES = ((2, 21, True), (2, 24, False), (1, 21, True), (1, 24, False),
+                (1, 20, True), (1, 22, False), (2, 20, True), (2, 22, False),
+                (2, 22, True), (2, 24, True), (2, 26, False), (3, 20, True),
+                (3, 22, False))
+NTT64_TIMED = {(1, 24, False): True, (1, 21, True): False,
+               (2, 24, False): True, (2, 21, True): False}
+NTT64_REDUCED = ((8, 1, 14), (8, 2, 15), (8, 2, 16))
 # K3's row form at tribmul's trace tree: C = 3 over 2^22 rows, both modes
 ROW_FAMILY = (3, 22)
 # K3's row form: every column count at 2^20 rows, FibMul's 2^26-row tree
@@ -437,6 +453,9 @@ INT32_OPS_PER_SM_CLOCK = 128
 # subtract), an add or subtract mod p 2, so a butterfly 10; per element
 # to_mont and the twiddle-table product 6 each, from_mont 4, n^-1 6
 MONT_OPS, ADDSUB_OPS, FROM_MONT_OPS = 6, 2, 4
+# a Goldilocks product: four 32 x 32 products with their carries and the
+# reduction (2^64 = 2^32 - 1, 2^96 = -1 mod p) 22; an add or subtract 6
+GL_MUL_OPS, GL_ADDSUB_OPS = 22, 6
 # a SHA-256 compression: 64 rounds of 14 (two Sigma of 3 rotates + one
 # xor3, Ch and Maj one logic op each, 4 adds with K+W folded), 48
 # schedule words of 10, 8 final adds; a node's padding block has a
@@ -574,7 +593,8 @@ MEGA_TURNS, MEGA_RECORDED_TURNS = 5, 3
 MEGA_PROFILED = ("fib-sq ProverConfig()", "fib-sq 2^18", "FibMul 2^18")
 # the kernel rows a prove's LDE launches (outside the mega region) and
 # those of the region (whose wrappers a replay does not call)
-LDE_ROWS = ("K1", "K2", "K1 batched", "K2 batched")
+LDE_ROWS = ("K1", "K2", "K1 batched", "K2 batched", "NTT 64-bit",
+            "NTT 64-bit batched")
 REGION_ROWS = ("K3", "K3 row form", "K3 wide", "K3 wide row form", "K4",
                "K4 tail", "K5 row messages", "K5 pruned recompute")
 
@@ -656,6 +676,18 @@ def rand_u32_dev(gen, shape, bound, device) -> torch.Tensor:
     return vals.to(torch.int32)
 
 
+def rand_gl_dev(gen, shape, device) -> torch.Tensor:
+    """Seeded canonical Goldilocks values made on the card as limb planes
+    ((2, n) or (C, 2, n), the high words' plane first), p - 1, 2^32 - 1
+    and 2^32 first in each column."""
+    x = rand_words_dev(gen, shape, device)
+    hi, lo = x[..., 0, :], x[..., 1, :]
+    lo.masked_fill_(hi == -1, 0)  # hi = 2^32 - 1 takes lo = 0: below p
+    hi[..., :3] = torch.tensor([-1, 0, 1], dtype=torch.int32, device=device)
+    lo[..., :3] = torch.tensor([0, -1, 0], dtype=torch.int32, device=device)
+    return x
+
+
 def rand_words_dev(gen, shape, device) -> torch.Tensor:
     """Seeded random 32-bit words made on the card in place, 2^26 at a
     time (the query form's trees: up to 2^31 words)."""
@@ -701,6 +733,16 @@ class Card:
         ops = (butterfly * (n // 2) * log_n
                + n * (2 * MONT_OPS + FROM_MONT_OPS + MONT_OPS * inverse))
         return self.bound(8 * n, ops)
+
+    def ntt64_bound(self, n: int, cols: int, inverse: bool):
+        """The 64-bit NTT of `cols` columns of n values: 32 bytes a value
+        (x read, the intermediate written and read, X written); a column
+        (n/2) log2(n) butterflies (a product, an add, a subtract), two
+        products a value for pass 1's twiddle, one for the INTT's n^-1."""
+        log_n = n.bit_length() - 1
+        ops = cols * ((n // 2) * log_n * (GL_MUL_OPS + 2 * GL_ADDSUB_OPS)
+                      + n * GL_MUL_OPS * (2 + inverse))
+        return self.bound(32 * cols * n, ops)
 
     def chain_bound(self, blocks: int, round_cycles=None):
         """K5's latency bound: `blocks` compressions of 64 dependent
@@ -921,6 +963,70 @@ def phase_ntt(res: Results, dev) -> None:
                           ntt_plain(x, P, inverse))
     finally:
         cuda_ntt.BLOCK_LOG = saved
+
+
+def phase_ntt64(res: Results, dev) -> None:
+    """The 64-bit NTT kernels against ``ntt_limbs`` (the torch-op
+    Stockham, their CPU route) and their own passes (``ntt64.plain``) on
+    the card, exact, at NTT64_SHAPES (the references column by column
+    above 2^25 values, which bounds their temporaries to ~22 GB) and
+    under a shrunk block budget; times at NTT64_TIMED beside ``ntt_limbs``
+    and their bound."""
+    from stark_tpu_torch.ntt import cuda_ntt64
+    from stark_tpu_torch.ntt.cuda_ntt64 import ntt64
+    from stark_tpu_torch.ntt.ntt import ntt_limbs
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+
+    def check(row, x, inverse, what):
+        got = ntt64(x, GOLDILOCKS, inverse)
+        cols = int(x.shape[0]) if x.dim() == 3 else 1
+        parts = ([(x, got)] if cols * int(x.shape[-1]) <= 1 << 25 else
+                 [(x[c], got[c]) for c in range(cols)])
+        for xc, gc in parts:
+            res.check(row, f"{what} vs ntt_limbs", gc,
+                      ntt_limbs(xc, GOLDILOCKS, inverse))
+            res.check(row, f"{what} vs its passes", gc,
+                      ntt64.plain(xc, GOLDILOCKS, inverse))
+
+    for cols, log_n, inverse in NTT64_SHAPES:
+        n = 1 << log_n
+        row = "NTT 64-bit" if cols == 1 else "NTT 64-bit batched"
+        x = rand_gl_dev(gen, (2, n) if cols == 1 else (cols, 2, n), dev)
+        log1, log2, cols_log = cuda_ntt64.split(log_n)
+        what = (f"{'intt' if inverse else 'ntt'} {tuple(x.shape)} "
+                f"(passes 2^{log1} x 2^{log2}, 2^{cols_log} columns)")
+        check(row, x, inverse, what)
+        if (cols, log_n, inverse) in NTT64_TIMED:
+            got = res.time(row, what, lambda: ntt64(x, GOLDILOCKS, inverse),
+                           lambda: ntt_limbs(x, GOLDILOCKS, inverse),
+                           res.card.ntt64_bound(n, cols, inverse),
+                           row=NTT64_TIMED[(cols, log_n, inverse)],
+                           other=True, plain_reps=3)
+            got["passes_ms"] = kernel_device_ms(
+                lambda: ntt64(x, GOLDILOCKS, inverse), r"ntt64_pass[12]<\d+>")
+            log(f"{row} {what}: device ms per pass "
+                f"{json.dumps(got['passes_ms'])}")
+        del x
+        cuda_ntt64._cached_plan.cache_clear()
+        torch.cuda.empty_cache()
+    saved = cuda_ntt64.BLOCK_LOG
+    try:
+        for block_log, cols, log_n in NTT64_REDUCED:
+            cuda_ntt64.BLOCK_LOG = block_log
+            n = 1 << log_n
+            row = "NTT 64-bit" if cols == 1 else "NTT 64-bit batched"
+            x = rand_gl_dev(gen, (2, n) if cols == 1 else (cols, 2, n), dev)
+            log1, log2, cols_log = cuda_ntt64.split(log_n)
+            for inverse in (False, True):
+                check(row, x, inverse,
+                      f"{'intt' if inverse else 'ntt'} {tuple(x.shape)}, "
+                      f"block budget 2^{block_log} (passes 2^{log1} x "
+                      f"2^{log2}, 2^{cols_log} columns)")
+    finally:
+        cuda_ntt64.BLOCK_LOG = saved
+        cuda_ntt64._cached_plan.cache_clear()
 
 
 def plain_tree(leaves: torch.Tensor) -> torch.Tensor:
@@ -1756,12 +1862,15 @@ def counters() -> dict:
                                                sha_subtree_batch, sha_tail,
                                                sha_tail_batch)
     from stark_tpu_torch.ntt.cuda_ntt import ntt_k1, ntt_k2
+    from stark_tpu_torch.ntt.cuda_ntt64 import ntt64
 
     # K3 is one kernel launched with its node levels (sha_subtree) or
     # without (sha_leaves / sha_row_leaves, an odd tree's leaves)
     return {"K1": ((ntt_k1, "launches"),), "K2": ((ntt_k2, "launches"),),
             "K1 batched": ((ntt_k1, "column_launches"),),
             "K2 batched": ((ntt_k2, "column_launches"),),
+            "NTT 64-bit": ((ntt64, "launches"),),
+            "NTT 64-bit batched": ((ntt64, "column_launches"),),
             "K3": ((sha_subtree, "launches"), (sha_leaves, "launches")),
             "K3 row form": ((sha_subtree, "row_launches"),
                             (sha_row_leaves, "launches")),
@@ -1833,10 +1942,11 @@ def drop_plans() -> None:
     own."""
     from stark_tpu_torch.dist import ntt as dist_ntt
     from stark_tpu_torch.fri import commit
-    from stark_tpu_torch.ntt import cuda_ntt
+    from stark_tpu_torch.ntt import cuda_ntt, cuda_ntt64
     from stark_tpu_torch.stark import prover
 
     cuda_ntt.get_cuda_plan.cache_clear()
+    cuda_ntt64._cached_plan.cache_clear()
     cuda_ntt._stage_twiddles.cache_clear()  # the Stockham oracle's tables
     dist_ntt._twiddle.cache_clear()  # the four-step's w^(j2 k1) blocks
     prover._CTX_CACHE.clear()
@@ -1926,8 +2036,9 @@ def expected_launches(cfg, air) -> dict:
     """Each kernel row's launches in one prove of `cfg`, from its query
     plan's tree sizes and prune depths.  u32 fields: one NTT wrapper call
     a transform (trace INTT, LDE) whatever the column count, K1 up to
-    2^MAX_LOG_N (the 2^20 paths), K2 above; Goldilocks: no NTT kernel
-    (torch ops).  Each tree as ``merkle/tree.py``'s split builds it
+    2^MAX_LOG_N (the 2^20 paths), K2 above; Goldilocks: the 64-bit
+    kernels the same way, whatever the size.  Each tree as
+    ``merkle/tree.py``'s split builds it
     (``tree_launches``): K3's subtree form once a pass (a tree, or a
     chunk of a chunked one) in the field's mode, its row form for a
     multi-column trace tree; K4 once a level between the subtree's top
@@ -1959,6 +2070,8 @@ def expected_launches(cfg, air) -> dict:
     u32_k3, wide_k3 = ((0, 0), k3) if wide else (k3, (0, 0))
     return {"K1": k1, "K2": k2,
             "K1 batched": k1 * (cols > 1), "K2 batched": k2 * (cols > 1),
+            "NTT 64-bit": 2 * wide,
+            "NTT 64-bit batched": 2 * wide * (cols > 1),
             "K3": u32_k3[0], "K3 row form": u32_k3[1],
             "K3 wide": wide_k3[0], "K3 wide row form": wide_k3[1],
             "K4": sum(t["nodes"] for t in trees),
@@ -2293,9 +2406,10 @@ def phase_batch(res: Results, dev) -> dict:
                 "K5 chain batch": (single["K5"] - single["K5 row messages"])
                 // b,
                 "K5 query batch": 1,
-                "NTT": (per_prove["K1"] + per_prove["K2"])}
+                "NTT": (per_prove["K1"] + per_prove["K2"]
+                        + per_prove["NTT 64-bit"])}
         got = {k: counts[k] for k in want if k != "NTT"}
-        got["NTT"] = counts["K1"] + counts["K2"]
+        got["NTT"] = counts["K1"] + counts["K2"] + counts["NTT 64-bit"]
         if got != want:
             raise AssertionError(f"{name} batch launched {got}, one prove "
                                  f"launches {want}")
@@ -2691,9 +2805,13 @@ def phase_mesh(res: Results, dev, profile: bool) -> dict:
     # the other statements, and the per-phase mesh path
     small = make_mesh(devices=[dev] * MESH_OTHER_SHARDS)
     for name in MESH_OTHER:
-        mesh_prove(name, small, dev)
+        _, _, launches, _, _ = mesh_prove(name, small, dev)
+        for k, count in launches.items():
+            res.rows[k]["launches_by_prove"][
+                f"{name} mesh ({MESH_OTHER_SHARDS} shards)"] = count
         log(f"mesh: {name} on {MESH_OTHER_SHARDS} shards equals its pinned "
-            f"single-device digest ({tprover.LAST_PROVE_PATH})")
+            f"single-device digest ({tprover.LAST_PROVE_PATH}); launches "
+            f"{launches}")
     ch = Channel(P)
     ch.phase_accurate = True
     mesh_prove(MESH_PER_PHASE, small, dev, channel=ch)
@@ -3754,6 +3872,14 @@ def main() -> int:
             ("K2 batched", "stark_tpu_torch/csrc/ntt.cu",
              "stark_tpu/ntt/pallas_ntt.py:328 and :334 over (C, n) columns "
              "(stark_tpu/ntt/ntt.py:291-303)"),
+            ("NTT 64-bit", "stark_tpu_torch/csrc/ntt64.cu",
+             "no TPU kernel: the JAX package runs the Goldilocks NTT in "
+             "XLA (stark_tpu/ntt/ntt.py:36-50, the four-step from 2^14); "
+             "the port's torch-op ntt_limbs (stark_tpu_torch/ntt/ntt.py), "
+             "its CPU route"),
+            ("NTT 64-bit batched", "stark_tpu_torch/csrc/ntt64.cu",
+             "no TPU kernel: the XLA four-step of stark_tpu/ntt/ntt.py:36-50 "
+             "over (C, 2, n) columns (stark_tpu/ntt/ntt.py:291-303)"),
             ("K3 row form", "stark_tpu_torch/csrc/sha256_tree.cu",
              "stark_tpu/hash/pallas_sha.py:100 (u32 mode) and the XLA "
              "sha256_row_leaves, stark_tpu/hash/sha256_jax.py:106"),
@@ -3808,6 +3934,7 @@ def main() -> int:
         phase_multiproc(res, dev)
         return finish(res, kind, t_start, partial=True)
     phase_ntt(res, dev)
+    phase_ntt64(res, dev)
     phase_tree(res, dev)
     phase_tree_wide(res, dev)
     phase_tree_split(res, dev)

@@ -35,6 +35,7 @@ _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
 _U64, _SZ, _LL = ctypes.c_uint64, ctypes.c_size_t, ctypes.c_longlong
 SIGNATURES = {
     "ntt": {"stark_ntt": [_P] * 7 + [_I] * 5 + [_U] * 3 + [_P]},
+    "ntt64": {"stark_ntt64": [_P, _LL] + [_P] * 6 + [_I] * 5 + [_U64, _P]},
     "sha256_tree": {"stark_sha_subtree": [_P, _P] + [_LL] * 4 + [_I] * 6
                                          + [_LL, _I, _P],
                     "stark_sha_nodes": [_P, _P, _I, _LL, _LL, _I, _P]},

@@ -13,10 +13,10 @@ goes to shard j, :meth:`Mesh.exchange`) then a local transpose.  Three of
 them give natural order in and out, so the result equals the
 single-device transform bit for bit.
 
-The local transforms are the port's own: a u32 field's rows go through
-K1/K2 (``ntt/ntt.py``, the kernels on the card) as one (rows, len)
-batch; Goldilocks rows through ``ntt_limbs`` in torch ops, as the JAX
-package runs that width in XLA.  Their roots are root_of_unity(p, len) =
+The local transforms are the port's own (``ntt/ntt.py``): a u32 field's
+rows as one (rows, len) batch, K1/K2 on the card; Goldilocks rows as one
+(rows, 2, len) batch, the 64-bit kernels on the card and ``ntt_limbs``
+on the CPU.  Their roots are root_of_unity(p, len) =
 g^((p-1)/len) = w^(n/len), the roots the four-step needs.  An inverse
 sub-transform scales by 1/len, so the two scale the whole by
 1/(n1 n2) = 1/n and nothing is scaled again.  The twiddle table
@@ -40,7 +40,7 @@ import torch
 
 from stark_tpu_torch.dist.mesh import Mesh, Sharded, sharded
 from stark_tpu_torch.fields.fp import Fp
-from stark_tpu_torch.ntt.ntt import coset_evaluate, intt, ntt, ntt_limbs
+from stark_tpu_torch.ntt.ntt import coset_evaluate, intt, ntt
 from stark_tpu_torch.ntt.reference_ntt import ntt_available, root_of_unity
 
 
@@ -103,14 +103,15 @@ def _all_to_all(mesh: Mesh, x: Sharded) -> Sharded:
 def _rows_transform(x: torch.Tensor, p: int, inverse: bool) -> torch.Tensor:
     """The transform of every row of (*lead, R, len) along its last axis:
     one (rows, len) batch; Goldilocks limb planes (*cols, 2, R, len) as
-    (rows, 2, len)."""
+    (rows, 2, len), copied so that each row's planes lie a fixed stride
+    apart, as the 64-bit kernels read them."""
     length = int(x.shape[-1])
+    fn = intt if inverse else ntt
     if Fp.get(p).width == 1:
-        fn = intt if inverse else ntt
         return fn(x.reshape(-1, length), p).reshape(x.shape)
     y = x.movedim(-3, -2)
     shape = y.shape
-    y = ntt_limbs(y.reshape(-1, 2, length), p, inverse).reshape(shape)
+    y = fn(y.reshape(-1, 2, length).contiguous(), p).reshape(shape)
     return y.movedim(-2, -3).contiguous()
 
 

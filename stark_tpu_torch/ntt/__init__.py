@@ -1,6 +1,6 @@
 """NTT/INTT, coset evaluation and the low-degree extension over GF(p)
-(the K1/K2 kernels for u32 fields, torch ops for Goldilocks), and the
-host reference NTT."""
+(the K1/K2 kernels for u32 fields, the 64-bit kernels for Goldilocks),
+and the host reference NTT."""
 
 from stark_tpu_torch.ntt.ntt import (coset_evaluate, coset_interpolate, intt,
                                      lde, ntt)

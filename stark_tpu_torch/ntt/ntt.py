@@ -9,11 +9,12 @@ The route is chosen by the field's width, never by a failure:
   A CUDA tensor launches them — the trace INTT included, which on the
   TPU took the XLA plan because it ran inside an outer ``jax.jit`` — and
   a CPU tensor runs their plain version ``ntt_passes_plain``;
-* the Goldilocks field runs :func:`ntt_limbs`, a radix-2 Stockham in
-  torch ops on the limb planes, on whatever device its input is on: the
-  JAX package computes that NTT outside any Pallas kernel (the
-  width-generic XLA Stockham / four-step), so there is no TPU kernel to
-  port.
+* the Goldilocks field: a CUDA tensor launches the 64-bit two-pass
+  kernels (``ntt/cuda_ntt64.py``, any n up to 2^28), a CPU tensor runs
+  :func:`ntt_limbs`, a radix-2 Stockham in torch ops on the limb planes
+  and the kernels' plain reference.  The JAX package computes that NTT
+  outside any Pallas kernel (the width-generic XLA Stockham /
+  four-step), so the kernels port no TPU kernel.
 
 Field arithmetic is exact, so every route gives the same bits as the JAX
 ``NTTPlan``.  Every function takes one column ((n,) u32, (2, n)
@@ -25,9 +26,11 @@ from __future__ import annotations
 
 import torch
 
+from stark_tpu_torch import _build
 from stark_tpu_torch.fields.fp import Fp
 from stark_tpu_torch.ntt import cuda_ntt
 from stark_tpu_torch.ntt.cuda_ntt import _stage_twiddles, ntt_k1, ntt_k2
+from stark_tpu_torch.ntt.cuda_ntt64 import ntt64
 from stark_tpu_torch.ntt.reference_ntt import ntt_available
 
 
@@ -58,7 +61,9 @@ def ntt_limbs(x: torch.Tensor, p: int, inverse: bool = False):
 
 def _transform(x: torch.Tensor, p: int, inverse: bool) -> torch.Tensor:
     if Fp.get(p).width > 1:
-        return ntt_limbs(x, p, inverse)
+        if _build.plain_device(x):
+            return ntt_limbs(x, p, inverse)
+        return ntt64(x, p, inverse)
     if int(x.shape[-1]) <= 1 << cuda_ntt.MAX_LOG_N:
         return ntt_k1(x, p, inverse)
     return ntt_k2(x, p, inverse)
@@ -102,7 +107,8 @@ def lde(values: torch.Tensor, p: int, blowup: int,
     same polynomial's evaluations on the coset {offset * W^i} of size
     blowup * n, W the canonical primitive (blowup * n)-th root.  An INTT
     and a coset evaluation: on a CUDA u32 tensor two launches of K1 or K2
-    each, by their sizes."""
+    each, by their sizes; on a CUDA Goldilocks tensor two launches of the
+    64-bit kernels."""
     n = int(values.shape[-1])
     return coset_evaluate(intt(values, p), p, blowup * n, int(offset) % p)
 

@@ -34,7 +34,7 @@ ALLOWED = [
      "on tensors"),
     ("ntt/ntt.py", "NTTPlan*",
      "the XLA Stockham plan: the port's u32 NTT is K1/K2 (cuda_ntt), its "
-     "Goldilocks NTT ntt_limbs"),
+     "Goldilocks NTT ntt64 (cuda_ntt64; ntt_limbs on the CPU)"),
     ("ntt/ntt.py", "get_plan", "builds an XLA NTT plan (as NTTPlan)"),
     ("ntt/ntt.py", "get_stockham_plan", "builds an XLA NTT plan"),
     ("ntt/ntt.py", "stockham_stages", "the XLA plan's stage list"),
@@ -42,7 +42,7 @@ ALLOWED = [
     ("ntt/__init__.py", "__all__:get_plan", "the XLA plan (as ntt/ntt.py)"),
     ("ntt/fourstep.py", "*",
      "the XLA four-step plan shaped for the TPU's (8, 128) tile; K1/K2 "
-     "cover its u32 role, ntt_limbs its Goldilocks role"),
+     "cover its u32 role, ntt64 its Goldilocks role"),
     ("merkle/tree.py", "build_*_fn",
      "XLA tree program builders: the port's tree is build_tree over "
      "K3/K4"),

@@ -1,10 +1,12 @@
 """The port's Goldilocks field (p = 2^64 - 2^32 + 1, limb planes) module
 by module against the JAX package on the same seeded inputs, exact
-equality: the field ops, the NTT, K3's 64-bit mode (plain version, held
+equality: the field ops, the NTT (and the 64-bit kernels' plain
+version), K3's 64-bit mode (plain version, held
 against the JAX Pallas kernel in interpret mode), the width-2 draw, the
 FRI fold and commit, and the query plan's replay."""
 
 import functools
+import importlib
 
 import numpy as np
 import pytest
@@ -36,8 +38,11 @@ from stark_tpu_torch.hash.sha256 import sha256_row_leaves, sha256_u64_leaves
 from stark_tpu_torch.interop import (hex_to_state, limbs_to_tensor,
                                      tensor_to_limbs, u32_to_tensor)
 from stark_tpu_torch.merkle.tree import MerkleTree, merkle_root_host
+from stark_tpu_torch.ntt import cuda_ntt64
+from stark_tpu_torch.ntt.cuda_ntt64 import ntt64, ntt64_passes_plain
 from stark_tpu_torch.ntt.ntt import coset_evaluate, intt, ntt
 
+tn = importlib.import_module("stark_tpu_torch.ntt.ntt")
 P = GOLDILOCKS
 F = Fp.get(P)
 JF = JFp64(P)
@@ -171,6 +176,119 @@ def test_coset_evaluate_matches_jax(cols):
     got = coset_evaluate(limbs_to_tensor(c, device="cpu"), P, big_n, 7)
     want = np.asarray(j_coset_evaluate(jnp.asarray(c), P, big_n, 7))
     np.testing.assert_array_equal(tensor_to_limbs(got), want)
+
+
+def _ntt64_input(shape, seed):
+    """Seeded limb planes of `shape` values (n last), every edge value
+    (p - 1, 2^32 - 1, 2^32, ... in either limb) first in each column."""
+    vals = np.asarray(_ints(int(np.prod(shape)), seed),
+                      dtype=object).reshape(shape)
+    k = min(len(EDGE), shape[-1])
+    vals[..., :k] = EDGE[:k]
+    return limbs_to_tensor(_limbs(vals), device="cpu")
+
+
+@pytest.mark.parametrize("log_n", range(1, 13))
+@pytest.mark.parametrize("cols", [1, 2, 3])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_ntt64_plain_matches_limbs(log_n, cols, inverse):
+    """The 64-bit kernels' plain version (their split, index maps and
+    tables) against the torch-op Stockham ``ntt_limbs``: (2, n) for one
+    column, (C, 2, n) for C."""
+    shape = (1 << log_n,) if cols == 1 else (cols, 1 << log_n)
+    x = _ntt64_input(shape, 3 * log_n + cols + 50 * inverse)
+    assert torch.equal(ntt64_passes_plain(x, P, inverse),
+                       tn.ntt_limbs(x, P, inverse))
+
+
+# (BLOCK_LOG, log n, the split): pass 1's column group narrowed to 4, 2
+# and 1 columns, a one-row pass 1 (n1 = 1) and a one-column group
+@pytest.mark.parametrize("block_log,log_n,want",
+                         [(6, 10, (4, 6, 2)), (6, 11, (5, 6, 1)),
+                          (6, 12, (6, 6, 0)), (3, 1, (0, 1, 1)),
+                          (3, 6, (3, 3, 0)), (4, 8, (4, 4, 0))])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_ntt64_plain_matches_limbs_at_every_split(monkeypatch, block_log,
+                                                  log_n, want, inverse):
+    monkeypatch.setattr(cuda_ntt64, "BLOCK_LOG", block_log)
+    assert cuda_ntt64.split(log_n) == want
+    x = _ntt64_input((3, 1 << log_n), log_n + 90 * inverse)
+    assert torch.equal(ntt64_passes_plain(x, P, inverse),
+                       tn.ntt_limbs(x, P, inverse))
+
+
+# the shapes of the two tests above, so the JAX programs are compiled once
+@pytest.mark.parametrize("cols", [None, 2])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_ntt64_plain_matches_jax_plan(cols, inverse):
+    """The plain version against JAX ``get_plan``, and a coset evaluation
+    through it against ``coset_evaluate``, edge values included."""
+    n = 64
+    x = _ntt64_input((n,) if cols is None else (cols, n), 8 + inverse)
+    want = get_plan(P, n, inverse)(jnp.asarray(
+        np.moveaxis(tensor_to_limbs(x), -2, 0)))
+    got = ntt64_passes_plain(x, P, inverse)
+    np.testing.assert_array_equal(tensor_to_limbs(got),
+                                  np.moveaxis(np.asarray(want), 0, -2))
+    c = _ntt64_input((32,) if cols is None else (cols, 32), 7)
+    got = ntt64_passes_plain(tn.scale_pad(c, P, 128, 7), P)
+    np.testing.assert_array_equal(
+        tensor_to_limbs(got),
+        np.asarray(j_coset_evaluate(jnp.asarray(tensor_to_limbs(c)), P, 128,
+                                    7)))
+
+
+def test_ntt64_split_and_refusals():
+    """Two passes up to 2^28, 8-column groups up to 2^25 and no pass over
+    2^14 values; the wrapper takes only Goldilocks limb planes on a CUDA
+    tensor, and counts no launch for one it refuses."""
+    for log_n in range(29):
+        log1, log2, cols_log = cuda_ntt64.split(log_n)
+        assert log1 + log2 == log_n
+        assert log1 + cols_log <= cuda_ntt64.BLOCK_LOG >= log2
+        assert cols_log == min(3, log2) or log_n > 25
+    assert cuda_ntt64.split(21) == (11, 10, 3)
+    assert cuda_ntt64.split(24) == (11, 13, 3)
+    with pytest.raises(ValueError, match="n <= 2"):
+        cuda_ntt64.Ntt64Plan(1 << 29, False, "cpu")
+    x = _ntt64_input((16,), 1)
+    with pytest.raises(ValueError, match="2\\^64 - 2\\^32 \\+ 1"):
+        ntt64(x, 3 * 2**30 + 1)
+    with pytest.raises(ValueError, match="limb planes"):
+        ntt64(x[0], P)
+    before = (ntt64.launches, ntt64.column_launches)
+    for dev in ("cpu", "meta"):
+        with pytest.raises(ValueError, match="take a CUDA tensor"):
+            ntt64(torch.zeros(2, 8, dtype=torch.int32, device=dev), P)
+    assert (ntt64.launches, ntt64.column_launches) == before
+    assert ntt64.plain is ntt64_passes_plain
+
+
+def test_transform_routes_by_width_and_device(monkeypatch):
+    """A width-2 CPU tensor takes ``ntt_limbs`` (the 64-bit kernels only
+    on a CUDA one); a u32 tensor K1 up to 2^MAX_LOG_N, K2 above, as
+    before."""
+    from stark_tpu_torch.ntt import cuda_ntt
+
+    calls = []
+
+    def spy(name, fn):
+        def wrapped(x, p, inverse=False):
+            calls.append((name, int(x.shape[-1]), inverse))
+            return fn(x, p, inverse)
+        return wrapped
+
+    for name in ("ntt_limbs", "ntt64", "ntt_k1", "ntt_k2"):
+        monkeypatch.setattr(tn, name, spy(name, getattr(tn, name)))
+    monkeypatch.setattr(cuda_ntt, "MAX_LOG_N", 4)
+    x = _ntt64_input((2, 32), 3)
+    assert torch.equal(tn.intt(tn.ntt(x, P), P), x)
+    u = u32_to_tensor(np.arange(32, dtype=np.uint32), device="cpu")
+    q = 3 * 2**30 + 1
+    tn.ntt(u, q)
+    tn.intt(u[:16], q)
+    assert calls == [("ntt_limbs", 32, False), ("ntt_limbs", 32, True),
+                     ("ntt_k2", 32, False), ("ntt_k1", 16, True)]
 
 
 def test_wide_leaves_match_jax_pallas_interpret_and_host_oracle():

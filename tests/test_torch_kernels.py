@@ -7,6 +7,7 @@ the suite's conftest (which imports JAX) and its xdist options:
     python -m pytest tests/test_torch_kernels.py -q --noconftest -o addopts=""
 """
 
+import importlib
 import json
 import os
 
@@ -96,6 +97,118 @@ def test_batched_ntt_matches_plain(dev, monkeypatch, route, log_n, block_log,
     assert torch.equal(got, cuda_ntt.ntt_passes_plain(x, P, inverse))
     for c in range(cols):
         assert torch.equal(got[c], cuda_ntt.ntt_plain(x[c], P, inverse))
+
+
+GL = 2**64 - 2**32 + 1
+
+
+def _gl(shape, seed, dev):
+    """Seeded canonical Goldilocks values as int32 limb planes ((2, n) or
+    (C, 2, n)), p - 1, 2^32 - 1 and 2^32 first in each column."""
+    from stark_tpu_torch.fields.fp import host_words
+
+    rs = np.random.RandomState(seed)
+    v = rs.randint(0, 2**32, size=shape + (2,), dtype=np.int64).astype(
+        np.uint64)
+    v = ((v[..., 0] << np.uint64(32)) | v[..., 1]) % np.uint64(GL)
+    edge = np.asarray([GL - 1, 2**32 - 1, 2**32], dtype=np.uint64)
+    k = min(3, shape[-1])
+    v[..., :k] = edge[:k]
+    return torch.from_numpy(host_words(v, 2).view(np.int32)).to(dev)
+
+
+def _ntt64_case(dev, shape, inverse, seed):
+    """One launch of the 64-bit kernels against ``ntt_limbs`` on the
+    card, the wrapper's counters moved by one."""
+    from stark_tpu_torch.ntt.cuda_ntt64 import ntt64
+    from stark_tpu_torch.ntt.ntt import ntt_limbs
+
+    x = _gl(shape, seed, dev)
+    before = (ntt64.launches, ntt64.column_launches)
+    got = ntt64(x, GL, inverse)
+    torch.cuda.synchronize()
+    assert (ntt64.launches, ntt64.column_launches) == (
+        before[0] + 1, before[1] + (len(shape) == 2))
+    assert torch.equal(got, ntt_limbs(x, GL, inverse))
+
+
+@pytest.mark.parametrize("log_n", range(1, 25))
+@pytest.mark.parametrize("inverse", [False, True])
+def test_ntt64_matches_limbs(dev, log_n, inverse):
+    _ntt64_case(dev, (1 << log_n,), inverse, log_n + 30 * inverse)
+
+
+# the prove's shapes (FibMul-GL at 2^21 rows, blowup 8), three columns,
+# the narrow column groups above 2^25 and, with the block budget shrunk
+# to 2^8 values, at small sizes
+@pytest.mark.parametrize("shape,inverse,block_log",
+                         [((2, 1 << 21), True, 14), ((2, 1 << 24), False, 14),
+                          ((3, 1 << 12), False, 14), ((3, 1 << 12), True, 14),
+                          ((1 << 26,), False, 14), ((1 << 27,), True, 14),
+                          ((3, 1 << 13), False, 8), ((1 << 14,), True, 8),
+                          ((2, 1 << 16), False, 8)])
+def test_ntt64_columns_and_splits_match_limbs(dev, monkeypatch, shape,
+                                              inverse, block_log):
+    from stark_tpu_torch.ntt import cuda_ntt64
+
+    monkeypatch.setattr(cuda_ntt64, "BLOCK_LOG", block_log)
+    _ntt64_case(dev, shape, inverse, len(shape) + block_log)
+
+
+def test_ntt64_reads_planes_a_stride_apart(dev):
+    """A slice along the last axis (planes 2n words apart) is read in
+    place."""
+    from stark_tpu_torch.ntt.cuda_ntt64 import ntt64
+
+    big = _gl((2, 1 << 13), 5, dev)
+    x = big[..., : 1 << 12]
+    assert not x.is_contiguous()
+    assert torch.equal(ntt64(x, GL), ntt64(x.contiguous(), GL))
+
+
+@pytest.mark.parametrize("shards,cols", [(2, None), (4, 2)])
+def test_ntt64_four_step_rows_match_single_device(dev, shards, cols):
+    """The mesh's four-step over Goldilocks on logical shards of the one
+    card: its row transforms are (rows, 2, len) batches of the 64-bit
+    kernels, and the coset LDE and the INTT equal the single-device
+    ones."""
+    from stark_tpu_torch.dist import (dist_coset_evaluate, dist_intt,
+                                      make_mesh)
+    from stark_tpu_torch.ntt.ntt import coset_evaluate, intt
+
+    mesh = make_mesh(devices=[dev] * shards)
+    c = _gl((1 << 12,) if cols is None else (cols, 1 << 12), shards, dev)
+    assert torch.equal(dist_coset_evaluate(c, GL, 1 << 15, 7, mesh).join(),
+                       coset_evaluate(c, GL, 1 << 15, 7))
+    x = _gl((1 << 14,), shards + 1, dev)
+    assert torch.equal(dist_intt(x, GL, mesh).join(), intt(x, GL))
+
+
+def test_goldilocks_prove_launches_ntt64_twice(dev, monkeypatch):
+    """A FibMul-GL prove at 2^12 rows: the batched trace INTT and the
+    batched coset NTT are one launch each of the 64-bit kernels, no torch-op
+    NTT runs and K1/K2 do not move; the proof verifies."""
+    from stark_tpu_torch.config import ProverConfig
+    from stark_tpu_torch.ntt.cuda_ntt import ntt_k1, ntt_k2
+    from stark_tpu_torch.ntt.cuda_ntt64 import ntt64
+    from stark_tpu_torch.stark import FibMulAIR, prove, verify
+
+    def refused(*args, **kwargs):
+        raise AssertionError("ntt_limbs called on the card")
+
+    tn = importlib.import_module("stark_tpu_torch.ntt.ntt")
+    monkeypatch.setattr(tn, "ntt_limbs", refused)
+    cfg = ProverConfig(log2_trace=12, blowup=8, num_queries=8,
+                       modulus=GL, generator=7)
+    air = FibMulAIR(a0=1, b0=2718281)
+    prove(cfg, air=air, device=dev)  # builds the context and the kernels
+    before = (ntt64.launches, ntt64.column_launches, ntt_k1.launches,
+              ntt_k2.launches)
+    pr = prove(cfg, air=air, device=dev)
+    after = (ntt64.launches, ntt64.column_launches, ntt_k1.launches,
+             ntt_k2.launches)
+    assert tuple(a - b for a, b in zip(after, before)) == (2, 2, 0, 0)
+    assert verify(pr)
 
 
 @pytest.mark.parametrize("cols", range(1, 7))
