@@ -35,8 +35,9 @@ from benchmark import run as bench_run  # noqa: E402
 from benchmark.reference import stark as ref  # noqa: E402
 
 
-def control_program(spec: dict, device):
-    """The reference proving with one query fewer than `spec` states."""
+def control_program(spec: dict, device, devices=None):
+    """The reference proving with one query fewer than `spec` states (on
+    `device`, whatever the shards)."""
     rspec = ref.Spec.from_config(spec)
 
     def prove(st, metrics=None):
@@ -53,9 +54,9 @@ def control_program(spec: dict, device):
     return prove
 
 
-def stale_program(spec: dict, device):
+def stale_program(spec: dict, device, devices=None):
     """The program, answering each prove with its previous answer."""
-    real = bench_run.program(spec, device)
+    real = bench_run.program(spec, device, devices)
     last = []
 
     def prove(st, metrics=None):
@@ -67,10 +68,11 @@ def stale_program(spec: dict, device):
     return prove
 
 
-def flip_program(spec: dict, device, every_other: bool = False):
+def flip_program(spec: dict, device, devices=None,
+                 every_other: bool = False):
     """The program, with one byte of one message of each proof altered
     (`every_other`: only in every other proof of each statement)."""
-    real = bench_run.program(spec, device)
+    real = bench_run.program(spec, device, devices)
     seen: dict = {}
 
     def prove(st, metrics=None):
@@ -86,8 +88,8 @@ def flip_program(spec: dict, device, every_other: bool = False):
     return prove
 
 
-def alternate_program(spec: dict, device):
-    return flip_program(spec, device, every_other=True)
+def alternate_program(spec: dict, device, devices=None):
+    return flip_program(spec, device, devices, every_other=True)
 
 
 MODES = {"control": control_program, "stale": stale_program,

@@ -1,5 +1,7 @@
 """100 x (1 - the union of device-operation intervals / the traced
-window), over the profiled proves, in %."""
+window), over the profiled proves, in %.  Over several cards the union
+is each card's own and the busy time their mean, so this is the cards'
+mean idle share; on one card it is that card's union."""
 
 
 def read(run: dict):

@@ -1,5 +1,5 @@
 """torch.cuda.max_memory_allocated() over the window (reset after
-set-up), in MiB."""
+set-up) on the fullest of the cards the run uses, in MiB."""
 
 
 def read(run: dict):

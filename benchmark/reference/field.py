@@ -14,6 +14,10 @@ Two fields:
 
 Nothing here is shared with the program under test: the formulas are
 the textbook ones, written out for tensors.
+
+Values from the host (constants, short lists) are copied to the device
+without waiting for it (``_to``), so that the host keeps queueing work
+ahead of the device.
 """
 
 from __future__ import annotations
@@ -21,6 +25,14 @@ from __future__ import annotations
 import torch
 
 M32 = 0xFFFFFFFF
+
+
+def _to(data, device) -> torch.Tensor:
+    """An int64 tensor of `data` on `device` (the host where None), copied
+    without a synchronisation: a copy from the host's pageable memory is
+    staged before the call returns."""
+    return torch.tensor(data, dtype=torch.int64).to(device,
+                                                    non_blocking=True)
 
 
 def smallest_generator(p: int) -> int:
@@ -76,8 +88,7 @@ class U32Field(_Field):
         return v % self.p
 
     def from_ints(self, values, device) -> torch.Tensor:
-        return torch.tensor([v % self.p for v in values], dtype=torch.int64,
-                            device=device)
+        return _to([v % self.p for v in values], device)
 
     def to_ints(self, x: torch.Tensor) -> list[int]:
         return [int(v) for v in x.cpu().reshape(-1)]
@@ -112,14 +123,12 @@ class GoldilocksField(_Field):
         """A constant shaped to broadcast against elements of `ndim` axes
         past the limb axis."""
         v %= self.p
-        t = torch.tensor([v >> 32, v & M32], dtype=torch.int64,
-                         device=device)
-        return t.reshape((2,) + (1,) * ndim)
+        return _to([v >> 32, v & M32], device).reshape((2,) + (1,) * ndim)
 
     def from_ints(self, values, device) -> torch.Tensor:
         vals = [v % self.p for v in values]
-        return torch.tensor([[v >> 32 for v in vals], [v & M32 for v in vals]],
-                            dtype=torch.int64, device=device)
+        return _to([[v >> 32 for v in vals], [v & M32 for v in vals]],
+                   device)
 
     def to_ints(self, x: torch.Tensor) -> list[int]:
         hi, lo = x.cpu().reshape(2, -1)

@@ -24,6 +24,16 @@ Protocol (STARK-101's, over a prime field, SHA-256 throughout):
 The transcript is the Fiat-Shamir channel of STARK-101's Rust port: the
 state is a hex string, a send hashes state ++ hex(message), a draw
 reduces the state modulo the range and hashes the state's own hex.
+
+The prover works on blocks of the domain, so that a trace of 2^27 rows
+(an LDE of 2^30 points) fits one card: every layer (the LDE, the
+composition, each FRI layer) is kept as its values' u32 words alone;
+the LDE is `blowup` NTTs of the trace's size; the composition, the folds
+and the trees' leaves are computed a block of lanes at a time; a tree
+keeps only its levels from the roots of its 2^SUBTREE_LOG-leaf subtrees
+up, and a path hashes its subtree again from the kept values.  The
+block size changes no value: one block the size of the domain is the
+whole-array computation.
 """
 
 from __future__ import annotations
@@ -37,10 +47,21 @@ import torch
 from benchmark import airs
 
 from .field import field_for, inverse, powers, root_of_unity, sum_lanes
-from .sha256 import M32, hash_columns
+from .sha256 import M32, hash_columns, to_int32
 
 # Merkle levels of at most this many nodes are hashed on the host
 HOST_LEVEL = 1 << 12
+# the domain is worked in blocks of at most 2^BLOCK_LOG lanes: the host
+# issues every torch op a block once, so the fewer blocks the less host
+# time, and a block's SHA-256 message schedule holds 64 int64 words a lane
+BLOCK_LOG = 25
+# a tree keeps its levels from the roots of its 2^SUBTREE_LOG-leaf
+# subtrees up
+SUBTREE_LOG = 10
+# a block hashes its own tree levels down to this many rows; the narrower
+# levels are hashed for every block at once (a level's hashing costs
+# its launches however few its lanes)
+BLOCK_ROWS = 1 << 20
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,13 +145,15 @@ def _bitrev(n: int, device) -> torch.Tensor:
 def ntt(f, x: torch.Tensor, root: int) -> torch.Tensor:
     """X[k] = sum_j x[j] root^(jk) over the last axis (a power of two
     long), natural order in and out: a bit reversal, then radix-2
-    butterflies of growing span."""
+    butterflies of growing span, each span's twiddles a stride of one
+    table of root's powers."""
     n = f.lanes(x)
     lead = tuple(x.shape[:-1])
     y = x[..., _bitrev(n, x.device)]
+    table = powers(f, root, max(n // 2, 1), x.device)
     h = 1
     while h < n:
-        tw = powers(f, pow(root, n // (2 * h), f.p), h, x.device)
+        tw = table[..., ::n // (2 * h)]
         y = y.reshape(lead + (n // (2 * h), 2, h))
         u, v = y[..., 0, :], f.mul(y[..., 1, :], tw.unsqueeze(-2))
         y = torch.stack((f.add(u, v), f.sub(u, v)), dim=-2).reshape(lead
@@ -146,49 +169,105 @@ def intt(f, x: torch.Tensor, root: int) -> torch.Tensor:
                             x.device))
 
 
+def _blocks(n: int, least: int = 1):
+    """(start, size) of each block of n lanes (n a power of two): blocks
+    of 2^BLOCK_LOG lanes, or of `least` where that is more, or one block
+    of n where n is less."""
+    size = min(n, max(1 << BLOCK_LOG, least))
+    for s in range(0, n, size):
+        yield s, size
+
+
+def _load(words: torch.Tensor, start: int, size: int) -> torch.Tensor:
+    """Elements of lanes start .. start + size - 1 (cyclically) of a
+    layer's u32 words ((n,), or (2, n) Goldilocks planes)."""
+    n = int(words.shape[-1])
+    start %= n
+    if start + size <= n:
+        w = words[..., start:start + size]
+    else:
+        w = torch.cat((words[..., start:], words[..., :start + size - n]),
+                      dim=-1)
+    return w.to(torch.int64) & M32
+
+
+def _value(f, words: torch.Tensor, i: int) -> int:
+    return f.to_ints(f.from_words(words[..., i:i + 1]))[0]
+
+
 def lde(f, spec: Spec, column: torch.Tensor) -> torch.Tensor:
-    """The column's interpolant of degree <= N - 2 on the coset: the
-    value at g^(N-1) is chosen so that the top coefficient vanishes
-    (c_(N-1) = (sum_i v_i g^i) / N, so v_(N-1) = -g sum_(i<N-1) v_i g^i),
-    then an INTT, the coset scaling and an NTT of size M."""
-    p, n = f.p, 1 << spec.log2_trace
-    m = n * spec.blowup
+    """The column's interpolant of degree <= N - 2 on the coset, as u32
+    words in natural order on the column's device.  The value at g^(N-1) is
+    chosen so that the top coefficient vanishes (c_(N-1) = (sum_i v_i
+    g^i) / N, so v_(N-1) = -g sum_(i<N-1) v_i g^i), then an INTT; the
+    value at h w^(r + blowup j) is sum_k c_k (h w^r)^k g^(jk), so the
+    positions of each residue r < blowup are one N-point NTT of the
+    coefficients scaled by (h w^r)^k."""
+    p, n, b = f.p, 1 << spec.log2_trace, spec.blowup
     dev = column.device
-    g, w = root_of_unity(p, n), root_of_unity(p, m)
+    g, w = root_of_unity(p, n), root_of_unity(p, n * b)
     s = sum_lanes(f, f.mul(column, powers(f, g, n, dev)[..., :n - 1]))
     last = f.from_ints([-g * s], dev)
     coeffs = intt(f, torch.cat((column, last), dim=-1), g)
-    coeffs = f.mul(coeffs, powers(f, spec.offset, n, dev))
-    padded = torch.cat((coeffs, f.zeros(m - n, dev)), dim=-1)
-    return ntt(f, padded, w)
+    lead = tuple(coeffs.shape[:-1])
+    out = torch.empty(lead + (n, b), dtype=torch.int32, device=dev)
+    for r in range(b):
+        scaled = f.mul(coeffs, powers(f, spec.offset * pow(w, r, p), n, dev))
+        out[..., r] = to_int32(ntt(f, scaled, g))
+    return out.view(lead + (n * b,))
 
 
-def _words(f, column: torch.Tensor):
-    """A column's values as (hi, lo) word columns for a leaf message."""
-    if f.limbs == 1:
-        return [0, column]
-    return [column[0], column[1]]
+def _words(layer: torch.Tensor) -> list:
+    """A layer's values as (hi, lo) word columns for a leaf message."""
+    if layer.dim() == 1:
+        return [0, layer]
+    return [layer[0], layer[1]]
+
+
+def _parents(level: torch.Tensor) -> torch.Tensor:
+    """The level above a level of device digest rows."""
+    pairs = level.view(-1, 16).to(torch.int64) & M32
+    return hash_columns([pairs[:, j] for j in range(16)], 64,
+                        chunk=int(pairs.shape[0]))
 
 
 class Tree:
-    """A Merkle tree over n leaves: device levels (int32 digest rows)
-    while a level has more than HOST_LEVEL nodes, then host levels
-    (numpy uint32 rows) hashed with hashlib."""
+    """A Merkle tree whose leaf i hashes lane i of the word columns `cols`
+    (u32 words as (n,) int32 tensors, or a Python int shared by every
+    leaf), 4 big-endian bytes a word.  The leaves are hashed a block at a
+    time, each block's levels down to BLOCK_ROWS rows or
+    its 2^SUBTREE_LOG-leaf subtrees' roots; the levels above are device
+    levels (int32 digest rows) while a level has more than HOST_LEVEL
+    nodes, then host levels (numpy uint32 rows) hashed with hashlib.  The
+    tree keeps the levels from the subtrees' roots up; a path hashes its
+    subtree again on the host, from the leaves' words."""
 
-    def __init__(self, leaf_words, nbytes: int):
-        level = hash_columns(leaf_words, nbytes)
+    def __init__(self, cols):
+        self.cols = cols
+        n = max(int(c.shape[0]) for c in cols if torch.is_tensor(c))
+        self.base = min(n.bit_length() - 1, SUBTREE_LOG)
+        kept = n.bit_length() - self.base  # levels from the roots up
+        tops = []
+        for s, size in _blocks(n, 1 << self.base):
+            words = [c[s:s + size].to(torch.int64) & M32
+                     if torch.is_tensor(c) else c for c in cols]
+            level = hash_columns(words, 4 * len(cols), chunk=size)
+            while int(level.shape[0]) > max(size >> self.base, BLOCK_ROWS):
+                level = _parents(level)
+            tops.append(level)
+        level = torch.cat(tops)
         self.levels = []
         while True:
             n = int(level.shape[0])
             self.levels.append(level)
+            del self.levels[:-kept]
             if n == 1:
                 break
             if n // 2 <= HOST_LEVEL and torch.is_tensor(level):
                 level = level.cpu().numpy().view(np.uint32)
                 self.levels[-1] = level
             if torch.is_tensor(level):
-                pairs = level.view(n // 2, 16).to(torch.int64) & M32
-                level = hash_columns([pairs[:, j] for j in range(16)], 64)
+                level = _parents(level)
             else:
                 raw = level.astype(">u4").tobytes()
                 level = np.frombuffer(b"".join(
@@ -200,57 +279,81 @@ class Tree:
         if torch.is_tensor(root):
             root = root.cpu().numpy().view(np.uint32)
         self.root_hex = root.astype(">u4").tobytes().hex()
+        self._subtree = (None, None)
+
+    def _lower(self, t: int) -> list:
+        """Subtree t's levels below its root, leaves first (digests as
+        bytes), hashed with hashlib from its leaves' words."""
+        sub = 1 << self.base
+        words = [c[t * sub:(t + 1) * sub].cpu().numpy().view(np.uint32)
+                 if torch.is_tensor(c) else np.full(sub, c, np.uint32)
+                 for c in self.cols]
+        raw = np.stack(words, axis=1).astype(">u4").tobytes()
+        size = 4 * len(self.cols)
+        level = [hashlib.sha256(raw[i * size:(i + 1) * size]).digest()
+                 for i in range(sub)]
+        levels = []
+        while len(level) > 1:
+            levels.append(level)
+            level = [hashlib.sha256(level[i] + level[i + 1]).digest()
+                     for i in range(0, len(level), 2)]
+        return levels
 
     def path(self, j: int) -> bytes:
         """The siblings of leaf j from the leaves up, 32 bytes each."""
-        rows = []
-        for lvl, level in enumerate(self.levels[:-1]):
-            sib = (j >> lvl) ^ 1
-            if torch.is_tensor(level):
-                rows.append(level[sib])
-            else:
-                rows.append(torch.from_numpy(level[sib].view(np.int32)))
-        dev = [r.cpu() for r in rows]
-        return np.stack([r.numpy() for r in dev]).view(np.uint32).astype(
-            ">u4").tobytes()
-
-
-def _value(f, column: torch.Tensor, i: int) -> int:
-    return f.to_ints(column[..., i:i + 1])[0]
+        t = j >> self.base
+        if self._subtree[0] != t:
+            self._subtree = (t, self._lower(t))
+        local = j - (t << self.base)
+        rows = [level[(local >> k) ^ 1]
+                for k, level in enumerate(self._subtree[1])]
+        for k, level in enumerate(self.levels[:-1]):
+            row = level[(j >> (self.base + k)) ^ 1]
+            if torch.is_tensor(row):
+                row = row.cpu().numpy().view(np.uint32)
+            rows.append(row.astype(">u4").tobytes())
+        return b"".join(rows)
 
 
 class Composition:
     """What an AIR's constraints (``terms`` of ``benchmark/airs/<air>.py``)
-    are written with, on the coset x = h w^i: the field `f`, the columns'
-    LDEs `ldes`, the `publics`, ``c(v)`` a constant, ``shifted(col, k)``
-    column `col` at row + k, `inv_first` and `inv_last` 1 / (x - g^0)
-    and 1 / (x - g^(N-2)), and ``transition(k)`` the divisor of a
-    constraint over k + 1 rows, (x^N - 1) / prod_(j <= k) (x - g^(N-1-j))
+    are written with, on the block of lanes start .. start + size - 1 of
+    the coset x = h w^i: the field `f`, the columns' LDE values `ldes`,
+    the `publics`, ``c(v)`` a constant, ``shifted(col, k)`` column `col`
+    at row + k, `inv_first` and `inv_last` 1 / (x - g^0) and
+    1 / (x - g^(N-2)), and ``transition(k)`` the divisor of a constraint
+    over k + 1 rows, (x^N - 1) / prod_(j <= k) (x - g^(N-1-j))
     inverted."""
 
-    def __init__(self, f, spec: Spec, ldes, publics):
+    def __init__(self, f, spec: Spec, lde_words, publics, device,
+                 start: int, size: int):
         p, n, b = f.p, 1 << spec.log2_trace, spec.blowup
-        m, dev = n * b, ldes[0].device
-        self.f, self.ldes, self.publics = f, ldes, publics
-        self._nd, self._dev = ldes[0].dim() - (f.limbs - 1), dev
+        m = n * b
+        self.f, self.publics = f, publics
+        self._words, self._start, self._size = lde_words, start, size
+        self._nd, self._dev = 1, device
         self._g, self._n, self._b = root_of_unity(p, n), n, b
+        self.ldes = [self.shifted(col, 0) for col in range(len(lde_words))]
         c = self.c
-        self._x = f.mul(powers(f, root_of_unity(p, m), m, dev),
-                        c(spec.offset))
+        w = root_of_unity(p, m)
+        self._x = f.mul(powers(f, w, size, device),
+                        c(spec.offset * pow(w, start, p)))
         self.inv_first = inverse(f, f.sub(self._x, c(1)))
         self.inv_last = inverse(f, f.sub(self._x,
                                          c(pow(self._g, n - 2, p))))
         # x^N takes `blowup` values on the coset, h^N (w^N)^i
-        hn, wn = pow(spec.offset, n, p), pow(root_of_unity(p, m), n, p)
+        hn, wn = pow(spec.offset, n, p), pow(w, n, p)
         zinv = f.from_ints([pow(hn * pow(wn, j, p) - 1, p - 2, p)
-                            for j in range(b)], dev)
-        self._zinv = zinv.repeat((1,) * (zinv.dim() - 1) + (m // b,))
+                            for j in range(b)], device)
+        lanes = torch.arange(start, start + size, device=device) % b
+        self._zinv = zinv[..., lanes]
 
     def c(self, v: int) -> torch.Tensor:
         return self.f.const(v, self._nd, self._dev)
 
     def shifted(self, col: int, k: int) -> torch.Tensor:
-        return torch.roll(self.ldes[col], -k * self._b, dims=-1)
+        return _load(self._words[col], self._start + k * self._b,
+                     self._size)
 
     def transition(self, k: int) -> torch.Tensor:
         f, p, n = self.f, self.f.p, self._n
@@ -261,34 +364,42 @@ class Composition:
         return f.mul(out, self._zinv)
 
 
-def _composition(f, spec: Spec, ldes, alphas, publics) -> torch.Tensor:
-    """The AIR's composition on the coset, from the columns' LDEs: its
-    constraint terms summed with the weights `alphas`."""
-    terms = spec.air_def.terms(Composition(f, spec, ldes, publics))
-    if len(terms) != len(alphas):
-        raise ValueError(f"{spec.air}: {len(terms)} constraints, "
-                         f"{len(alphas)} weights")
-    acc = None
-    for a, t in zip(alphas, terms):
-        term = f.mul(t, f.const(a, ldes[0].dim() - (f.limbs - 1),
-                                ldes[0].device))
-        acc = term if acc is None else f.add(acc, term)
-    return acc
+def _composition(f, spec: Spec, lde_words, alphas, publics) -> torch.Tensor:
+    """The AIR's composition on the coset, from the columns' LDE words:
+    its constraint terms summed with the weights `alphas`, a block at a
+    time; u32 words on the words' device."""
+    d = lde_words[0].device
+    out = torch.empty(lde_words[0].shape, dtype=torch.int32, device=d)
+    for s, size in _blocks(int(out.shape[-1])):
+        terms = spec.air_def.terms(Composition(f, spec, lde_words, publics,
+                                               d, s, size))
+        if len(terms) != len(alphas):
+            raise ValueError(f"{spec.air}: {len(terms)} constraints, "
+                             f"{len(alphas)} weights")
+        acc = None
+        for a, t in zip(alphas, terms):
+            term = f.mul(t, f.const(a, 1, d))
+            acc = term if acc is None else f.add(acc, term)
+        out[..., s:s + size] = to_int32(acc)
+    return out
 
 
 def _fold(f, layer: torch.Tensor, beta: int, offset: int) -> torch.Tensor:
-    p, m = f.p, f.lanes(layer)
-    dev = layer.device
-    nd = layer.dim() - (f.limbs - 1)
-    w_inv = pow(root_of_unity(p, m), p - 2, p)
-    inv_x = f.mul(powers(f, w_inv, m // 2, dev),
-                  f.const(pow(offset, p - 2, p), nd, dev))
-    v, s = layer[..., :m // 2], layer[..., m // 2:]
-    half = f.const(pow(2, p - 2, p), nd, dev)
-    even = f.mul(f.add(v, s), half)
-    odd = f.mul(f.mul(f.mul(f.sub(v, s), half), inv_x),
-                f.const(beta, nd, dev))
-    return f.add(even, odd)
+    """The next FRI layer of `layer` (u32 words), a block at a time."""
+    p, half, d = f.p, int(layer.shape[-1]) // 2, layer.device
+    w_inv = pow(root_of_unity(p, 2 * half), p - 2, p)
+    out = torch.empty(layer.shape[:-1] + (half,), dtype=torch.int32,
+                      device=d)
+    for s, size in _blocks(half):
+        inv_x = f.mul(powers(f, w_inv, size, d),
+                      f.const(pow(offset, p - 2, p) * pow(w_inv, s, p), 1, d))
+        v, u = _load(layer, s, size), _load(layer, half + s, size)
+        two = f.const(pow(2, p - 2, p), 1, d)
+        even = f.mul(f.add(v, u), two)
+        odd = f.mul(f.mul(f.mul(f.sub(v, u), two), inv_x),
+                    f.const(beta, 1, d))
+        out[..., s:s + size] = to_int32(f.add(even, odd))
+    return out
 
 
 def publics_of(spec: Spec, trace) -> dict:
@@ -313,28 +424,27 @@ def prove(spec: Spec, trace, device, num_queries: int | None = None):
     f = field_for(spec.modulus)
     p, n, b = f.p, 1 << spec.log2_trace, spec.blowup
     m = n * b
-    cols = [c.to(device) if torch.is_tensor(c) else f.from_ints(c, device)
-            for c in trace]
+    cols = [c.to(device) if torch.is_tensor(c)
+            else f.from_ints(c, device) for c in trace]
     publics = publics_of(spec, cols)
     ldes = [lde(f, spec, c) for c in cols]
     del cols
-    words = [w for col in ldes for w in _words(f, col)]
-    trace_tree = Tree(words, 8 * len(ldes))
+    trace_tree = Tree([w for col in ldes for w in _words(col)])
     ch = Transcript(p)
     ch.send(trace_tree.root_hex.encode())
     alphas = [ch.draw_element() for _ in range(spec.air_def.ALPHAS)]
 
     layers = [_composition(f, spec, ldes, alphas, publics)]
-    trees = [Tree(_words(f, layers[0]), 8)]
+    trees = [Tree(_words(layers[0]))]
     ch.send(trees[0].root_hex.encode())
     off = spec.offset % p
     for _ in range(spec.log2_trace):
         beta = ch.draw_element()
         layers.append(_fold(f, layers[-1], beta, off))
         off = off * off % p
-        trees.append(Tree(_words(f, layers[-1]), 8))
+        trees.append(Tree(_words(layers[-1])))
         ch.send(trees[-1].root_hex.encode())
-    last = f.to_ints(layers[-1])
+    last = f.to_ints(f.from_words(layers[-1]))
     if any(v != last[0] for v in last):
         raise ValueError("the last FRI layer is not constant")
     ch.send(last[0].to_bytes(8, "big"))
@@ -347,7 +457,7 @@ def prove(spec: Spec, trace, device, num_queries: int | None = None):
                              for col in ldes))
             ch.send(trace_tree.path(idx + s))
         for layer, tree in zip(layers, trees):
-            size = f.lanes(layer)
+            size = int(layer.shape[-1])
             if size == 1:
                 ch.send(_value(f, layer, 0).to_bytes(8, "big"))
             i = idx % size

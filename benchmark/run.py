@@ -5,8 +5,10 @@
 A cell names a configuration (``benchmark/configs/<name>.json``: the
 statement's AIR, found in ``benchmark/airs/``, the field and the sizes)
 and a traffic mix (``benchmark/traffic/<name>.json``, read by
-``generator.py``).  One client proves statement after statement on one
-card (a closed loop):
+``generator.py``).  One client proves statement after statement (a
+closed loop), on one card, or, where the configuration states
+``"shards": S``, over a mesh of S shards, shard i on card
+i * chips // S of the cell's cards (one process):
 
 * set-up: the imports, the CUDA context, the program's kernels (built
   into ``build/`` under the checkout on a checkout's first run), the
@@ -21,10 +23,11 @@ card (a closed loop):
   ``torch.profiler`` and every prove passes a collector whose phases end
   in a device synchronise, so the per-layer metrics read synced phase
   walls, kernel device times and the device's idle share;
-* the check: once the window has closed and its peak memory is read, a
-  proof drawn from the seed is compared message by message with the
-  plain reference's proof of the same statement (``reference/``), and
-  every proof of a statement with the first one of it.
+* the check: once the window has closed and its peak memory is read
+  (each card's; the fullest card's is the result's), a proof drawn from
+  the seed is compared message by message with the plain reference's
+  proof of the same statement (``reference/``, on the cell's first
+  card), and every proof of a statement with the first one of it.
 
 Each metric is a reader ``benchmark/metrics/<name>.py`` over the run
 record (a split metric ``<name>.<group>`` is read by ``<name>.py``).
@@ -97,13 +100,60 @@ def cell_metrics(bench: dict, cell: dict, traced: bool) -> list[dict]:
     return [m for m in bench["per_layer"] if names(m, e2e)]
 
 
-def program(spec: dict, device):
+def shard_devices(spec: dict, cell: dict, device, devices=None):
+    """The device of each shard where the configuration states
+    ``shards`` (None where it does not): `devices` as given (tests:
+    logical shards on one device), else shard i on card
+    i * chips // shards.  A cell with fewer cards than shards is
+    refused."""
+    shards = spec.get("shards")
+    if shards is None:
+        if devices is not None:
+            raise ValueError("devices are given a shard each, and the "
+                             "configuration states no shards")
+        return None
+    if shards < 1 or shards & (shards - 1):
+        raise SystemExit(f"{cell['config']}: shards must be a power of "
+                         f"two, not {shards}")
+    if devices is not None:
+        if len(devices) != shards:
+            raise ValueError(f"{len(devices)} devices for {shards} shards")
+        return [torch.device(d) for d in devices]
+    if cell["chips"] < shards:
+        raise SystemExit(f"{cell['name']}: {shards} shards on "
+                         f"{cell['chips']} card(s); a cell runs a shard a "
+                         "card at most")
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return [dev] * shards
+    return [torch.device("cuda", i * cell["chips"] // shards)
+            for i in range(shards)]
+
+
+def cards_of(devices) -> list:
+    """The distinct CUDA devices among `devices`, in their order (empty
+    off the card)."""
+    out = []
+    for d in devices:
+        d = torch.device(d)
+        if d.type == "cuda":
+            d = torch.device("cuda", torch.cuda.current_device()
+                             if d.index is None else d.index)
+            if d not in out:
+                out.append(d)
+    return out
+
+
+def program(spec: dict, device, devices=None):
     """The system under test: a function proving one statement with
     ``stark_tpu_torch.stark.prove`` (a finished trace's storage words,
     or the witness, whose trace the program makes), with the program's
-    AIR class that ``benchmark/airs/<air>.py`` names."""
+    AIR class that ``benchmark/airs/<air>.py`` names; over a mesh of
+    ``make_mesh(devices=devices)`` where `devices` (one a shard) are
+    given."""
     import stark_tpu_torch.stark as stark
     from stark_tpu_torch.config import ProverConfig
+    from stark_tpu_torch.dist.mesh import make_mesh
 
     cfg = ProverConfig(modulus=spec["modulus"], generator=spec["generator"],
                        log2_trace=spec["log2_trace"], blowup=spec["blowup"],
@@ -111,14 +161,15 @@ def program(spec: dict, device):
                        coset_offset=spec["coset_offset"])
     cls_name, keyword = airs.load(spec["air"]).PROGRAM_AIR
     cls = getattr(stark, cls_name)
+    mesh = None if devices is None else make_mesh(devices=devices)
 
     def run(st, metrics=None):
         if st.words is not None:
             pr = stark.prove(cfg, air=cls(), trace=st.words, device=device,
-                             metrics=metrics)
+                             metrics=metrics, mesh=mesh)
         else:
             pr = stark.prove(cfg, air=cls(**{keyword: st.witness}),
-                             device=device, metrics=metrics)
+                             device=device, metrics=metrics, mesh=mesh)
         return list(pr.proof), dict(pr.publics)
 
     return run
@@ -149,31 +200,48 @@ def digest(messages: list, publics: dict) -> str:
     return h.hexdigest()
 
 
-def _smi(fields: str) -> list[str]:
-    """One nvidia-smi query of the first card: its values, in order."""
+def _smi(fields: str, device) -> list[str]:
+    """One nvidia-smi query of the card torch calls `device`, named by its
+    UUID (nvidia-smi's indices follow the PCI bus, not
+    CUDA_VISIBLE_DEVICES): its values, in order."""
+    uuid = torch.cuda.get_device_properties(device).uuid
     return subprocess.run(
         ["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader",
-         "-i", "0"], capture_output=True, text=True, timeout=60,
+         "-i", f"GPU-{uuid}"], capture_output=True, text=True, timeout=60,
         check=True).stdout.strip().split(", ")
 
 
-def card_info(device) -> dict:
-    """The card's name, multiprocessors, maximum SM clock and power limit;
-    empty off the card."""
-    if torch.device(device).type != "cuda":
-        return {}
-    name, clock, limit = _smi("name,clocks.max.sm,power.limit")
-    return {"name": name, "sm_clock_max_mhz": float(clock.split()[0]),
-            "power_limit_w": float(limit.split()[0]),
-            "sms": torch.cuda.get_device_properties(0).multi_processor_count}
+def card_info(*devices) -> dict:
+    """The first card's name, multiprocessors, maximum SM clock and power
+    limit, and with several cards each card's under ``cards``; empty off
+    the card."""
+    cards = cards_of(devices)
+    infos = []
+    for d in cards:
+        name, clock, limit = _smi("name,clocks.max.sm,power.limit", d)
+        infos.append({"name": name,
+                      "sm_clock_max_mhz": float(clock.split()[0]),
+                      "power_limit_w": float(limit.split()[0]),
+                      "sms": torch.cuda.get_device_properties(
+                          d).multi_processor_count})
+    if len(infos) > 1:
+        return dict(infos[0], cards=infos)
+    return infos[0] if infos else {}
 
 
-def card_state(device) -> str:
-    """The card's SM clock, temperature and power draw now, for the
+def card_state(*devices) -> str:
+    """Each card's SM clock, temperature and power draw now, for the
     diagnostics on standard error; empty off the card."""
-    if torch.device(device).type != "cuda":
-        return ""
-    return ", ".join(_smi("clocks.sm,temperature.gpu,power.draw"))
+    return "; ".join(", ".join(_smi("clocks.sm,temperature.gpu,power.draw",
+                                    d))
+                     for d in cards_of(devices))
+
+
+def card_peaks(cards) -> tuple:
+    """The peak allocated bytes since the last reset: the fullest card's,
+    and each card's (0 and none off the card)."""
+    peaks = [torch.cuda.max_memory_allocated(d) for d in cards]
+    return max(peaks, default=0), peaks
 
 
 def _merge(spans: list) -> list:
@@ -190,10 +258,14 @@ def _covered(merged: list, s: float, e: float) -> float:
     return sum(max(0.0, min(e, b) - max(s, a)) for a, b in merged)
 
 
-def read_profile(prof) -> dict:
+def read_profile(prof, cards=None) -> dict:
     """Device busy time, kernel device time by name, the top device
     operations and the idle time during each host phase, from a
-    torch.profiler run (seconds)."""
+    torch.profiler run (seconds).  Each card (`cards`, device indices;
+    default those with events) has its own timeline: ``busy_s`` is the
+    mean over the cards of each card's busy union (each listed in
+    ``busy_s_per_device``) and a phase's idle the mean of the cards';
+    kernel time is summed over the cards."""
     from torch.autograd import DeviceType
 
     events = prof.events()
@@ -202,7 +274,12 @@ def read_profile(prof) -> dict:
     dev = [e for e in events if e.device_type == DeviceType.CUDA
            and not getattr(e, "is_user_annotation", False)
            and not e.name.startswith("phase:")]
-    merged = _merge([(e.time_range.start, e.time_range.end) for e in dev])
+    spans: dict = {}
+    for e in dev:
+        spans.setdefault(e.device_index, []).append(
+            (e.time_range.start, e.time_range.end))
+    merged = [_merge(spans.get(i, [])) for i in cards or sorted(spans)
+              or [None]]
     kernels: dict = {}
     for e in dev:
         kernels[e.name] = kernels.get(e.name, 0.0) + (
@@ -212,31 +289,38 @@ def read_profile(prof) -> dict:
         if e.device_type == DeviceType.CPU and e.name.startswith("phase:"):
             s, t = e.time_range.start, e.time_range.end
             name = e.name[len("phase:"):]
-            idle[name] = idle.get(name, 0.0) + (
-                (t - s) - _covered(merged, s, t)) / 1e6
+            idle[name] = idle.get(name, 0.0) + sum(
+                (t - s) - _covered(m, s, t) for m in merged) / len(merged
+                                                                  ) / 1e6
+    busy = [sum(b - a for a, b in m) / 1e6 for m in merged]
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
     gaps = sorted(idle.items(), key=lambda kv: -kv[1])[:10]
-    return {"busy_s": sum(b - a for a, b in merged) / 1e6,
+    return {"busy_s": sum(busy) / len(busy), "busy_s_per_device": busy,
             "kernel_s": kernels, "device_ops": [list(kv) for kv in top],
             "idle_gaps": [list(kv) for kv in gaps], "device_events": len(dev)}
 
 
-def profile_proves(run, traffic, is_cuda: bool) -> dict:
+def sync(cards) -> None:
+    """Wait for the work queued on each card."""
+    for d in cards:
+        torch.cuda.synchronize(d)
+
+
+def profile_proves(run, traffic, cards) -> dict:
     """PROFILED_PROVES proves of the traffic's next statements under
-    torch.profiler (host and device activity), before the window: the
-    profile's summary (``read_profile``) with the traced window's host
-    seconds.  The window then starts again from the first statement
-    after set-up."""
+    torch.profiler (host and device activity on `cards`), before the
+    window: the profile's summary (``read_profile``) with the traced
+    window's host seconds.  The window then starts again from the first
+    statement after set-up."""
     acts = [torch.profiler.ProfilerActivity.CPU] + (
-        [torch.profiler.ProfilerActivity.CUDA] if is_cuda else [])
+        [torch.profiler.ProfilerActivity.CUDA] if cards else [])
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for k in range(PROFILED_PROVES):
             run(traffic.statement(traffic.warmup + k), collector())
-        if is_cuda:
-            torch.cuda.synchronize()
+        sync(cards)
         window = time.perf_counter() - t0
-    info = read_profile(prof)
+    info = read_profile(prof, [d.index for d in cards])
     info["traced_window_s"] = window
     info["proves"] = PROFILED_PROVES
     return info
@@ -246,8 +330,8 @@ def check(spec: dict, traffic: Traffic, kept: dict, records: list,
           seed: int, device) -> dict:
     """The numbers that decide `correct`, each with its limit: the
     sampled proof against the reference's proof of its statement
-    (differing messages, a missing or extra one, differing publics),
-    and, where statements repeat (a trace pool), the proofs that differ
+    (differing messages, a missing or extra one, differing publics; the
+    reference on `device`), and, where statements repeat (a trace pool), the proofs that differ
     from the first proof of their statement."""
     from benchmark.reference import stark as ref
 
@@ -285,38 +369,36 @@ def check(spec: dict, traffic: Traffic, kept: dict, records: list,
 
 def run_cell(bench: dict, cell: dict, seed: int, seconds: float,
              traced: bool, device="cuda", spec_override=None,
-             prove_fn=None, warmup=None) -> dict:
+             prove_fn=None, warmup=None, devices=None) -> dict:
     """One run of `cell`: set-up, the window, the check; returns the
-    result object.  `spec_override` (tests: a smaller trace), `prove_fn`
-    (the control, a broken program) and `warmup` (the warm-up proves)
-    replace parts of the cell."""
+    result object.  `spec_override` (tests: a smaller trace, shards),
+    `prove_fn` (the control, a broken program), `warmup` (the warm-up
+    proves) and `devices` (tests: a device a shard, such as logical
+    shards on one device) replace parts of the cell."""
     spec = dict(load_config(bench, cell), **(spec_override or {}))
+    shards = shard_devices(spec, cell, device, devices)
+    cards = cards_of(shards or [device])
     traffic = Traffic(load_mix(cell["traffic"]), spec, seed)
     if warmup is not None:
         traffic.warmup = warmup
-    run = (prove_fn or program)(spec, device)
-    is_cuda = torch.device(device).type == "cuda"
-
-    def sync():
-        if is_cuda:
-            torch.cuda.synchronize()
+    run = (prove_fn or program)(spec, device, shards)
 
     t_in = time.perf_counter()
     traffic.make_pool()
     t_warm = time.perf_counter()
     for i in range(traffic.warmup):
         run(traffic.statement(i), collector() if traced else None)
-    sync()
-    if is_cuda:
-        torch.cuda.reset_peak_memory_stats()
+    sync(cards)
+    for d in cards:
+        torch.cuda.reset_peak_memory_stats(d)
     setup_s = time.perf_counter() - T0
     print(f"set-up {setup_s:.3f} s: to the inputs {t_in - T0:.3f}, inputs "
           f"{t_warm - t_in:.3f}, {traffic.warmup} warm-up proves "
           f"{T0 + setup_s - t_warm:.3f}", file=sys.stderr)
 
     records, kept, phases = [], {}, {}
-    prof_info = profile_proves(run, traffic, is_cuda) if traced else None
-    before = card_state(device)
+    prof_info = profile_proves(run, traffic, cards) if traced else None
+    before = card_state(*cards)
     i, attempted, failed = traffic.warmup, 0, 0
     t_start = time.perf_counter()
     deadline = t_start + seconds
@@ -343,7 +425,7 @@ def run_cell(bench: dict, cell: dict, seed: int, seconds: float,
         i += 1
     window_s = time.perf_counter() - t_start
     print(f"window {window_s:.3f} s: {attempted} proves, {failed} failed; "
-          f"card before {before!r}, after {card_state(device)!r}",
+          f"card before {before!r}, after {card_state(*cards)!r}",
           file=sys.stderr)
     # proofs/s in each quarter of the window, by when each proof ended:
     # where the spread of runs lies (within a run, or between them)
@@ -357,13 +439,14 @@ def run_cell(bench: dict, cell: dict, seed: int, seconds: float,
         q = statistics.quantiles(walls, n=4)
         print(f"prove walls ms: min {walls[0]:.3f} quartiles {q[0]:.3f} "
               f"{q[1]:.3f} {q[2]:.3f} max {walls[-1]:.3f}", file=sys.stderr)
-    peak = torch.cuda.max_memory_allocated() if is_cuda else 0
-    card = card_info(device)
+    peak, peaks = card_peaks(cards)
+    card = card_info(*cards)
 
     gc.collect()
-    if is_cuda:
+    if cards:
         torch.cuda.empty_cache()
-    checks = check(spec, traffic, kept, records, seed, device)
+    checks = check(spec, traffic, kept, records, seed,
+                   cards[0] if cards else device)
     done = [r for r in records if r["digest"] is not None]
     record = {"spec": spec, "setup_s": setup_s, "window_s": window_s,
               "proofs": len(done), "walls_s": [r["wall_s"] for r in done],
@@ -380,13 +463,15 @@ def run_cell(bench: dict, cell: dict, seed: int, seconds: float,
             metrics[m["name"]] = {"value": value, "unit": m["unit"]}
     correct = (attempted > 0 and failed == 0 and "ref_mismatch" in checks
                and all(c["value"] <= c["limit"] for c in checks.values()))
-    dev = {"platform": "gpu" if is_cuda else "cpu",
-           "kind": torch.cuda.get_device_name(0) if is_cuda else "cpu",
-           "count": 1, "memory_peak_bytes": peak, **card}
+    dev = {"platform": "gpu" if cards else "cpu",
+           "kind": torch.cuda.get_device_name(cards[0]) if cards else "cpu",
+           "count": max(1, len(cards)), "memory_peak_bytes": peak,
+           "memory_peak_bytes_per_device": peaks, **card}
     result = {"correct": correct, "attempted": attempted, "failed": failed,
               "metrics": metrics, "device": dev}
     if traced and prof_info is not None:
         dev["busy_s"] = prof_info["busy_s"]
+        dev["busy_s_per_device"] = prof_info["busy_s_per_device"]
         dev["window_s"] = prof_info["traced_window_s"]
         result["breakdown"] = {"device_ops": prof_info["device_ops"],
                                "idle_gaps": prof_info["idle_gaps"]}
